@@ -1,0 +1,207 @@
+"""Public API: ``psort`` on the sim backend with RAMS (counterpart of
+``repro/core/api.py``).
+
+The sim backend runs p PEs on one device; here every PE is a row of a
+(p, C) tensor and the per-PE body of the reference (``_sort_body``) runs
+once over all rows.  The port runs on ``cuda`` unless the caller passes
+``device="cpu"``, where every kernel wrapper takes its plain version; it
+never moves to the CPU on its own.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .rams import as_int32_bits, rams
+from .types import int_to_key, key_to_int, make_shard, pad_value
+
+# knobs of the reference's SortConfig that this port does not honour yet,
+# with the ROADMAP item (queue 1) that brings each
+_UNPORTED = {
+    "mesh": "item 10 (torch.distributed backend)",
+    "axis": "item 10 (torch.distributed backend)",
+    "data_axis": "item 9 (batched keys and nested meshes)",
+    "mesh_shape": "item 9 (batched keys and nested meshes)",
+    "mesh_axes": "item 9 (batched keys and nested meshes)",
+    "cost_model": "item 8 (selection)",
+    "fault_policy": "item 13 (faults and elastic rescale)",
+    "external": "item 12 (external sorting)",
+    "overlap": "item 11 (exchange/merge overlap)",
+}
+_ALGORITHMS = {
+    "auto": "item 8 (selection)",
+    "rquick": "item 6 (RQuick)", "ntb-quick": "item 6 (RQuick)",
+    "ntb-ams": "item 7 (the other algorithms)",
+    "rfis": "item 7 (the other algorithms)",
+    "bitonic": "item 7 (the other algorithms)",
+    "ssort": "item 7 (the other algorithms)",
+    "ns-ssort": "item 7 (the other algorithms)",
+    "gatherm": "item 7 (the other algorithms)",
+    "allgatherm": "item 7 (the other algorithms)",
+}
+_RAMS_KW = ("seed", "levels", "level_bits", "oversample", "tie_break",
+            "shuffle", "slot_factor")
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class SortConfig:
+    """The knobs of one sort that this slice honours.
+
+    ``p`` (PE count, a power of two), ``backend`` ("sim"), ``algorithm``
+    ("rams"), ``capacity_factor`` (slack of the per-PE buffers), ``levels``
+    (RAMS level count) and ``algo_kw`` (RAMS keywords: ``seed``,
+    ``level_bits``, ``oversample``, ``tie_break``, ``shuffle``,
+    ``slot_factor``), as a sorted tuple of pairs.  Asking for a knob of the
+    reference that is not ported raises ``NotImplementedError`` naming the
+    ROADMAP item that brings it."""
+
+    p: Optional[int] = None
+    backend: str = "sim"
+    algorithm: str = "rams"
+    capacity_factor: float = 2.0
+    levels: Optional[int] = None
+    algo_kw: tuple = ()
+
+    def __init__(self, p=None, backend="sim", algorithm="rams",
+                 capacity_factor=2.0, levels=None, algo_kw=(), **unported):
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f"SortConfig got an unexpected keyword "
+                                f"{name!r}")
+            if value not in (None, False):
+                raise NotImplementedError(
+                    f"SortConfig({name}=...) is not ported yet: ROADMAP "
+                    f"queue 1 {_UNPORTED[name]}")
+        if backend != "sim":
+            raise NotImplementedError(
+                f"backend={backend!r} is not ported yet: ROADMAP queue 1 "
+                f"{_UNPORTED['mesh']}")
+        if algorithm != "rams":
+            if algorithm not in _ALGORITHMS:
+                raise ValueError(f"unknown algorithm {algorithm!r}")
+            raise NotImplementedError(
+                f"algorithm={algorithm!r} is not ported yet: ROADMAP queue 1 "
+                f"{_ALGORITHMS[algorithm]}")
+        kw = dict(algo_kw)
+        if kw.get("overlap"):
+            raise NotImplementedError(
+                f"overlap is not ported yet: ROADMAP queue 1 "
+                f"{_UNPORTED['overlap']}")
+        kw.pop("overlap", None)
+        unknown = set(kw) - set(_RAMS_KW)
+        if unknown:
+            raise ValueError(f"unknown RAMS keywords {sorted(unknown)}")
+        kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+        for name, value in (("p", p), ("backend", backend),
+                            ("algorithm", algorithm),
+                            ("capacity_factor", capacity_factor),
+                            ("levels", levels),
+                            ("algo_kw", tuple(sorted(kw.items())))):
+            object.__setattr__(self, name, value)
+
+    def replace(self, **changes) -> "SortConfig":
+        return dataclasses.replace(self, **changes)
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("psort runs on CUDA by default and no CUDA "
+                               "device is available; pass device='cpu' to "
+                               "run the plain versions of the kernels")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _sort_body(keys2d, row_counts, p, capacity, algo_kw):
+    """The reference's per-PE body over all p rows at once.
+
+    Returns (keys (p, ≤ capacity) int32 words, idx int32 rows holding uint32
+    indices, count (p,), overflow (p,)); RAMS's output capacity is its
+    input capacity."""
+    per = keys2d.shape[1]
+    dev = keys2d.device
+    # global index payload proves permutation-ness (uint32 values)
+    base = torch.arange(p, device=dev)[:, None] * per
+    idx = as_int32_bits(base + torch.arange(per, device=dev)[None, :])
+    with record_function("make_shard"):
+        shard = make_shard(keys2d, count=row_counts, capacity=capacity,
+                           vals={"idx": idx})
+    del idx
+    out, overflow = rams(shard, p, **algo_kw)
+    overflow = overflow + torch.clamp(out.count - capacity, min=0)
+    ok = torch.clamp(out.count, max=capacity)
+    return (out.keys[:, :capacity], out.vals["idx"][:, :capacity], ok,
+            overflow)
+
+
+def psort(keys, config: Optional[SortConfig] = None, *,
+          return_info: bool = False, device=None):
+    """Sort 1-D keys (int32, uint32 or float32; numpy or torch) with RAMS
+    over p emulated PEs.
+
+    Returns the sorted tensor on ``device`` in the keys' dtype and, with
+    ``return_info``, a dict with ``counts`` (p,), ``overflow``,
+    ``balance``, ``perm`` (input index of every output element, int64),
+    ``n``, ``algorithm`` and ``backend`` — the reference's keys, equal to
+    its values bit for bit.  Like the reference, an exchange slot that
+    fills up drops elements and counts them in ``overflow``."""
+    cfg = config if config is not None else SortConfig()
+    if cfg.p is None:
+        raise ValueError("backend='sim' needs an explicit p")
+    p = int(cfg.p)
+    if p < 1 or p & (p - 1):
+        raise ValueError(f"p={p} must be a power of two (hypercube layout)")
+    dev = _resolve_device(device)
+    x = torch.from_numpy(np.ascontiguousarray(keys)) \
+        if isinstance(keys, np.ndarray) else torch.as_tensor(keys)
+    if x.dim() != 1:
+        if x.dim() == 2:
+            raise NotImplementedError(
+                "2-D (batched) keys are not ported yet: ROADMAP queue 1 "
+                "item 9")
+        raise ValueError(f"keys must be 1-D; got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.int32, torch.uint32, torch.float32):
+        raise ValueError(f"rams sorts 4-byte keys (int32, uint32, float32); "
+                         f"got {x.dtype}")
+    algo_kw = dict(cfg.algo_kw)
+    if cfg.levels is not None:
+        algo_kw.setdefault("levels", cfg.levels)
+    n = x.shape[0]
+    orig_dtype = x.dtype
+    s = key_to_int(x.to(dev))
+    del x
+
+    per = -(-max(n, 1) // p)                              # ceil(n/p)
+    capacity = max(4, int(math.ceil(per * cfg.capacity_factor)))
+    flat = torch.full((p * per,), pad_value(s.dtype), dtype=s.dtype,
+                      device=dev)
+    flat[:n] = s
+    del s
+    row_counts = torch.clamp(n - per * torch.arange(p, device=dev), 0, per)
+    keys_out, idx_out, counts_out, overflow = _sort_body(
+        flat.reshape(p, per), row_counts, p, capacity, algo_kw)
+    del flat
+
+    with record_function("reassemble"):
+        take = torch.arange(keys_out.shape[1], device=dev)[None, :] \
+            < counts_out[:, None]
+        result = int_to_key(keys_out[take], orig_dtype)
+        if not return_info:
+            return result
+        perm = idx_out[take].to(torch.int64) & 0xFFFFFFFF
+    info = {
+        "algorithm": "rams",
+        "backend": "sim",
+        "counts": counts_out,
+        "overflow": int(overflow.sum()),
+        "balance": float(counts_out.max()) / max(1.0, n / p),
+        "perm": perm,
+        "n": n,
+    }
+    return result, info

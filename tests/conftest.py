@@ -33,6 +33,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "faults: fault-injection lane (kill/delay/rescale); the "
         "fast CI slice runs -m 'faults and not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's "
+        "CUDA kernels); skips where no GPU is present")
 
 
 @pytest.fixture(scope="session")

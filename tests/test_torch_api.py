@@ -1,0 +1,168 @@
+"""The port's public entry point ``repro_torch.psort``: its options against
+the reference, what it refuses, where it runs, and that the port (and
+``chip_smoke.py``) never load JAX or the JAX package."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core  # noqa: F401  (turns on jax_enable_x64)
+from repro.core import SortConfig as JConfig
+from repro.core import psort as j_psort
+from repro.core import types as jt
+from repro.data.distributions import generate_instance
+from repro_torch import SortConfig, psort
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def kernels_off():
+    prev = jt.set_local_kernels(jt.LocalKernelPolicy())
+    yield
+    jt.set_local_kernels(prev)
+
+
+def _same_as_reference(x, p, levels=None, **algo_kw):
+    want, wi = j_psort(x, config=JConfig(p=p, algorithm="rams",
+                                         backend="sim", levels=levels,
+                                         algo_kw=algo_kw), return_info=True)
+    got, gi = psort(x, SortConfig(p=p, levels=levels, algo_kw=algo_kw),
+                    return_info=True, device="cpu")
+    want = np.asarray(want)
+    g = got.numpy() if got.dtype != torch.uint32 else \
+        got.view(torch.int32).numpy().view(np.uint32)
+    assert g.dtype == want.dtype
+    assert np.array_equal(g.view(np.uint32), want.view(np.uint32))
+    assert np.array_equal(gi["counts"].numpy(), np.asarray(wi["counts"]))
+    assert gi["overflow"] == wi["overflow"]
+    assert np.array_equal(gi["perm"].numpy(),
+                          np.asarray(wi["perm"]).astype(np.int64))
+    return gi
+
+
+@pytest.mark.parametrize("levels,algo_kw,per", [
+    (1, {}, 90), (3, {}, 90), (None, {"tie_break": False}, 90),
+    (None, {"shuffle": False}, 90), (None, {"oversample": 2, "seed": 7}, 90),
+    (None, {"level_bits": (1, 2)}, 90), (None, {"slot_factor": 0.2}, 5000)])
+def test_rams_options_match_reference(levels, algo_kw, per):
+    x = generate_instance("DeterDupl", 8, 8 * per).astype(np.uint32)
+    info = _same_as_reference(x, 8, levels, **algo_kw)
+    if "slot_factor" in algo_kw:
+        assert info["overflow"] > 0               # the drop path ran
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_key_dtypes_match_reference(dtype):
+    g = np.random.default_rng(3)
+    x = (g.standard_normal(8 * 50) * 1e4).astype(dtype)
+    x[:4] = [0, -0.0 if dtype == np.float32 else 0, 5, -5]
+    _same_as_reference(x, 8)
+
+
+def test_empty_and_tiny_inputs_match_reference():
+    for n in (0, 1, 3):
+        _same_as_reference(np.arange(n, dtype=np.uint32)[::-1].copy(), 4)
+
+
+def test_psort_accepts_a_torch_tensor_and_keeps_its_dtype():
+    x = torch.tensor([5, -3, 9, 0, -3], dtype=torch.int32)
+    out = psort(x, SortConfig(p=2), device="cpu")
+    assert out.dtype == torch.int32
+    assert out.tolist() == [-3, -3, 0, 5, 9]
+
+
+def test_psort_without_a_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        psort(np.arange(8, dtype=np.uint32), SortConfig(p=2))
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"overlap": True}, "item 11"), ({"mesh_shape": (2, 2)}, "item 9"),
+    ({"fault_policy": object()}, "item 13"), ({"external": object()},
+                                              "item 12"),
+    ({"algorithm": "rquick"}, "item 6"), ({"algorithm": "auto"}, "item 8"),
+    ({"algorithm": "ssort"}, "item 7"), ({"backend": "shard_map"},
+                                         "item 10"),
+    ({"algo_kw": {"overlap": True}}, "item 11")])
+def test_unported_knobs_raise_not_implemented(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        SortConfig(p=4, **kw)
+
+
+def test_bad_configs_are_refused():
+    with pytest.raises(TypeError):
+        SortConfig(p=4, no_such_knob=1)
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        SortConfig(p=4, algorithm="quick")
+    with pytest.raises(ValueError, match="RAMS keywords"):
+        SortConfig(p=4, algo_kw={"typo": 1})
+    with pytest.raises(ValueError, match="power of two"):
+        psort(np.arange(6, dtype=np.uint32), SortConfig(p=3), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        psort(np.zeros((2, 4), np.uint32), SortConfig(p=2), device="cpu")
+    with pytest.raises(ValueError, match="4-byte"):
+        psort(np.zeros(4, np.int64), SortConfig(p=2), device="cpu")
+    assert SortConfig(p=4) == SortConfig(p=4, overlap=False, mesh_shape=None)
+    assert SortConfig(p=4).replace(p=8).p == 8
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_the_port_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, numpy as np\n"
+        "from repro_torch import SortConfig, psort\n"
+        "import repro_torch.kernels, repro_torch.data\n"
+        "x = np.arange(64, dtype=np.uint32)[::-1].copy()\n"
+        "out = psort(x, SortConfig(p=4), device='cpu')\n"
+        "assert out.view(__import__('torch').int32).tolist()[:2] == [0, 1]\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "clean"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_port_source_imports_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                (f, mod)
+
+
+def test_chip_smoke_fails_without_a_gpu_or_the_repository(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run in full")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
