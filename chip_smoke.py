@@ -7,20 +7,33 @@ Phases, each fatal on failure (no phase catches its own error):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA source of the port with nvcc, in parallel, timed;
-3. every kernel at the shapes of the main path at p = 256, n = 2^26
+3. every RAMS kernel at the shapes of the main path at p = 256, n = 2^26
    (sort and merge on (256, 2 196 992) with an int32 payload, partition on
    (256, 1 048 576) with nb = 64): equal to its plain PyTorch version on
    the card, timed with CUDA events (kernel, plain, library call) beside
    its bound;
+3b. the k-way classifier at the shapes of the external lane (C = 2^25
+   with nb = 16 for pass C, C = 2^21 with nb = 8 for pass D) and with
+   splitters out of lex order (C = 2^25, nb = 2, 128, 2048): bucket and
+   histogram equal to the plain version's, timed beside its bound;
 4. ``psort`` end to end on the card with RAMS at p = 256, n = 2^26 uint32
    keys, on Uniform, Zero and AllToOne: wall time after a warm-up run, peak
    device memory, balance, overflow and kernel launches, with the output
    checked (nondecreasing, n − overflow elements, ``perm`` a partial
    permutation with ``input[perm] == output``, equal to ``np.sort`` where
-   nothing overflowed, every kernel launched);
+   nothing overflowed, every RAMS kernel launched);
 5. the card and the CPU (plain versions) agree bit for bit at p = 64,
    n = 2^20 Uniform, where the reference drops 3442 keys;
-6. one ``kernels`` JSON line, the card line, and the ``ok`` line last.
+6. ``psort`` through the external lane at p = 16, n = 2^28 uint32 keys,
+   budget 2^21 (8 runs per PE, the classifier engine), on Uniform and Zero
+   after a warm-up: wall time, keys/s, peak device memory, peak host RSS,
+   host-clock seconds of passes A–D and kernel launches, with the output
+   checked (overflow 0, equal to ``torch.sort`` of the input on the card,
+   ``perm`` a permutation with ``input[perm] == output``, the classifier
+   launched);
+7. the card and the CPU agree bit for bit on the external lane at p = 16,
+   n = 2^20, budget 2^13, and double buffering off equals on;
+8. one ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 It imports torch, numpy and the port only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -28,6 +41,7 @@ without the repository around it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import resource
 import statistics
 import subprocess
 import sys
@@ -41,6 +55,13 @@ REPS = 5
 P_MAIN, LOG_N_MAIN = 256, 26
 INSTANCES_MAIN = ("Uniform", "Zero", "AllToOne")
 P_CHECK, LOG_N_CHECK, OVERFLOW_CHECK = 64, 20, 3442
+P_EXT, LOG_N_EXT, BUDGET_EXT = 16, 28, 1 << 21
+INSTANCES_EXT = ("Uniform", "Zero")
+LOG_N_EXT_CHECK, BUDGET_EXT_CHECK = 20, 1 << 13
+# the kernels each path launches
+RAMS_KERNELS = ("tile_sort", "run_merge", "partition_classify",
+                "partition_rank")
+EXTERNAL_KERNELS = ("kway_classify",)
 
 
 def emit(obj) -> None:
@@ -84,8 +105,37 @@ def max_abs_err(torch, pairs) -> int:
     return err
 
 
+def measure(torch, results, name, source, replaces, got, want, fn, plain,
+            nbytes, ops, library=None, shape=None, **extra):
+    """Hold one kernel against its plain version, time both (and the library
+    call, where there is one), emit the row and keep it in ``results``."""
+    err = max_abs_err(torch, zip(got, want))
+    if err != 0:
+        raise AssertionError(f"{name} differs from its plain version "
+                             f"(max abs err {err})")
+    b_ms, b_by = bound(nbytes, ops)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "max_abs_err": err,
+           "ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None if library is None
+           else cuda_ms(torch, library)}
+    emit({"phase": "kernel", "shape": shape, **extra, **row,
+          "kernel_ms": row["ms"]})
+    results.setdefault(name, row)
+    return row
+
+
+def padded(torch, x, width, fill):
+    """``x`` (rows, C) with columns of ``fill`` up to a multiple of
+    ``width``, so a library call can take its (rows·C/width, width) view."""
+    extra = -x.shape[1] % width
+    return torch.cat([x, x.new_full((x.shape[0], extra), fill)], 1)
+
+
 def kernel_phases(torch):
-    """Phase 3: each kernel against its plain version at main-path shapes."""
+    """Phase 3: each RAMS kernel against its plain version at main-path
+    shapes."""
     from repro_torch.kernels import bitonic as bt
     from repro_torch.kernels import partition as pt
     from repro_torch.kernels.bitonic import ref as bref
@@ -101,41 +151,54 @@ def kernel_phases(torch):
     n = rows * C
     results = {}
 
-    def record(name, source, replaces, got, want, fn, plain, nbytes, ops,
-               library=None, shape=None):
-        err = max_abs_err(torch, zip(got, want))
-        if err != 0:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"(max abs err {err})")
-        b_ms, b_by = bound(nbytes, ops)
-        row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "max_abs_err": err,
-               "ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None if library is None
-               else cuda_ms(torch, library)}
-        emit({"phase": "kernel", "shape": shape, **row,
-              "kernel_ms": row["ms"]})
-        results[name] = row
+    def record(*args, **kw):
+        return measure(torch, results, *args, **kw)
+
+    def lib_segments(k, v, width):
+        """The library's stable sort of every ``width`` segment (k and v
+        padded to a multiple of it with the pad word, which sorts last)."""
+        ks, order = torch.sort(k.view(-1, width), dim=1, stable=True)
+        return (ks.view(rows, -1),
+                torch.gather(v.view(-1, width), 1, order).view(rows, -1))
 
     src_b = "src/repro_torch/kernels/bitonic/csrc/bitonic.cu"
     src_p = "src/repro_torch/kernels/partition/csrc/partition.cu"
     t = bt.TILE
+    pad_word = 2 ** 31 - 1
+    kp, vp = padded(torch, keys, t, pad_word), padded(torch, vals, t, 0)
     tiles_sorted = bt.sort_tiles(keys, vals)
+    lib = [a[:, :C] for a in lib_segments(kp, vp, t)]
+    if max_abs_err(torch, zip(tiles_sorted, lib)) != 0:
+        raise AssertionError("tile_sort differs from the library's "
+                             "segmented stable sort")
+    del lib
     record("tile_sort", src_b, "src/repro/kernels/bitonic/bitonic.py:121",
            tiles_sorted, bref.sort_tiles_ref(keys, vals, t),
            lambda: bt.sort_tiles(keys, vals),
            lambda: bref.sort_tiles_ref(keys, vals, t),
-           nbytes=16 * n, ops=n * (t.bit_length() - 1), shape=[rows, C])
+           nbytes=16 * n, ops=n * (t.bit_length() - 1),
+           library=lambda: lib_segments(kp, vp, t), shape=[rows, C])
+    del kp, vp
     runs_k, runs_v = tiles_sorted
     del tiles_sorted
+    # one merge pass: a stable sort of two adjacent sorted runs is their
+    # left-ties-first merge
+    kp = padded(torch, runs_k, 2 * t, pad_word)
+    vp = padded(torch, runs_v, 2 * t, 0)
+    merged = bt.merge_runs(runs_k, runs_v, t)
+    lib = [a[:, :C] for a in lib_segments(kp, vp, 2 * t)]
+    if max_abs_err(torch, zip(merged, lib)) != 0:
+        raise AssertionError("run_merge differs from the library's "
+                             "segmented stable sort")
+    del lib
     record("run_merge", src_b, "src/repro/kernels/bitonic/bitonic.py:146",
-           bt.merge_runs(runs_k, runs_v, t),
-           bref.merge_runs_ref(runs_k, runs_v, t),
+           merged, bref.merge_runs_ref(runs_k, runs_v, t),
            lambda: bt.merge_runs(runs_k, runs_v, t),
            lambda: bref.merge_runs_ref(runs_k, runs_v, t),
-           nbytes=16 * n, ops=n * t.bit_length(), shape=[rows, C])
-    del runs_k, runs_v
+           nbytes=16 * n, ops=n * t.bit_length(),
+           library=lambda: lib_segments(kp, vp, 2 * t), shape=[rows, C])
+    del runs_k, runs_v, merged, kp, vp
+    torch.cuda.empty_cache()
     # the whole local sort (tile sort + every merge pass) beside the
     # library's stable sort + payload gather, which computes the same
     def lib_sort():
@@ -214,6 +277,59 @@ def kernel_phases(torch):
     return results
 
 
+def kway_phase(torch):
+    """Phase 3b: the k-way classifier against its plain version at the
+    shapes of the external lane, and with splitters out of lex order."""
+    from repro_torch.kernels import kway as kw
+    from repro_torch.kernels.kway import ref as kref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    src = "src/repro_torch/kernels/kway/csrc/kway.cu"
+    results = {}
+    # (what, C, nb, splitters in lex order); the first is the main row
+    shapes = [("pass C", P_EXT * BUDGET_EXT, P_EXT, True),
+              ("pass D", BUDGET_EXT, 8, True),
+              ("unordered ties", P_EXT * BUDGET_EXT, 2, False),
+              ("unordered ties", P_EXT * BUDGET_EXT, 128, False),
+              ("unordered ties", P_EXT * BUDGET_EXT, 2048, False)]
+    for what, C, nb, ordered in shapes:
+        # the runs of one pass: sorted segments of BUDGET_EXT keys
+        keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (C,), generator=g,
+                             device=dev, dtype=torch.int32)
+        keys = torch.sort(keys.view(-1, min(C, BUDGET_EXT)), dim=1)[0]
+        keys = keys.reshape(-1)
+        ties = torch.randint(-2 ** 31, 2 ** 31 - 1, (C,), generator=g,
+                             device=dev, dtype=torch.int32)
+        pick = torch.randint(0, C, (nb - 1,), generator=g, device=dev)
+        s_keys = torch.sort(keys[pick])[0]
+        s_ties = ties[pick]
+        if ordered:
+            comp = torch.sort((s_keys.to(torch.int64) << 32)
+                              | (s_ties.to(torch.int64) & 0xFFFFFFFF))[0]
+            s_keys = (comp >> 32).to(torch.int32)
+            s_ties = ((comp & 0xFFFFFFFF) - ((comp & 0x80000000) << 1)).to(
+                torch.int32)
+        s_keys, s_ties = s_keys.contiguous(), s_ties.contiguous()
+        got = kw.kway_classify(keys, ties, s_keys, s_ties, n_buckets=nb)
+        if int(got[1].sum()) != C:
+            raise AssertionError(f"kway histogram sums to "
+                                 f"{int(got[1].sum())}, not C = {C}")
+        measure(torch, results, "kway_classify", src,
+                "src/repro/kernels/kway/kway.py:59", got,
+                kref.kway_classify_ref(keys, ties, s_keys, s_ties,
+                                       n_buckets=nb),
+                lambda: kw.kway_classify(keys, ties, s_keys, s_ties,
+                                         n_buckets=nb),
+                lambda: kref.kway_classify_ref(keys, ties, s_keys, s_ties,
+                                               n_buckets=nb),
+                nbytes=12 * C + 4 * nb + 8 * (nb - 1), ops=C * (nb - 1),
+                shape=[C], nb=nb, what=what)
+        del keys, ties, got
+        torch.cuda.empty_cache()
+    return results
+
+
 def check_sorted(torch, np, x_np, out, info, n):
     """Phase-4 assertions on one psort result (all on the card)."""
     dev = out.device
@@ -239,6 +355,27 @@ def check_sorted(torch, np, x_np, out, info, n):
         raise AssertionError("output differs from np.sort(input)")
 
 
+def check_external(torch, np, x_np, out, info, n):
+    """Phase-6 assertions on one external psort result (all on the card):
+    the lane ran, nothing overflowed, the output is the sorted input and
+    ``perm`` a permutation with ``input[perm] == output``."""
+    if info["algorithm"] != "external" or info["overflow"] != 0:
+        raise AssertionError(f"algorithm {info['algorithm']}, overflow "
+                             f"{info['overflow']}")
+    flip = -(1 << 31)
+    words = torch.from_numpy(x_np.view(np.int32)).to(out.device) ^ flip
+    o = out.view(torch.int32) ^ flip
+    if not torch.equal(torch.sort(words)[0], o):
+        raise AssertionError("output differs from torch.sort(input)")
+    perm = info["perm"]
+    seen = torch.zeros(n, dtype=torch.bool, device=out.device)
+    seen[perm] = True
+    if perm.numel() != n or not bool(seen.all()):
+        raise AssertionError("perm is not a permutation of the input")
+    if not torch.equal(words[perm], o):
+        raise AssertionError("input[perm] != output")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -248,7 +385,7 @@ def main() -> int:
     if not (src / "repro_torch" / "__init__.py").is_file():
         return fail(f"the port is not beside this script ({src}/repro_torch)")
     sys.path.insert(0, str(src))
-    from repro_torch import SortConfig, psort
+    from repro_torch import ExternalPolicy, SortConfig, psort
     from repro_torch.data import generate_instance
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 
@@ -272,6 +409,7 @@ def main() -> int:
 
     # --- 3. kernels against their plain versions -----------------------------
     kernels = kernel_phases(torch)
+    kernels.update(kway_phase(torch))
 
     # --- 4. psort end to end at p = 256, n = 2^26 ----------------------------
     n = 1 << LOG_N_MAIN
@@ -293,7 +431,7 @@ def main() -> int:
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         check_sorted(torch, np, x, out, info, n)
-        missing = [k for k, v in launches.items() if v <= 0]
+        missing = [k for k in RAMS_KERNELS if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{missing}")
@@ -326,12 +464,78 @@ def main() -> int:
                              f"{OVERFLOW_CHECK}")
     check_sorted(torch, np, x, go, gi, n)
 
-    # --- 6. summary ------------------------------------------------------------
+    # --- 6. psort through the external lane at p = 16, n = 2^28 ------------
+    n = 1 << LOG_N_EXT
+    cfg = SortConfig(p=P_EXT, external=ExternalPolicy(budget=BUDGET_EXT))
+    warm = generate_instance("Uniform", P_EXT, 1 << 22).astype(np.uint32)
+    psort(warm, SortConfig(p=P_EXT, external=ExternalPolicy(          # 8 runs
+        budget=BUDGET_EXT >> 6)))
+    torch.cuda.synchronize()
+    del warm
+    ext_launches = None
+    for name in INSTANCES_EXT:
+        x = generate_instance(name, P_EXT, n).astype(np.uint32)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, info = psort(x, cfg, return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        check_external(torch, np, x, out, info, n)
+        missing = [k for k in EXTERNAL_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the external "
+                                 f"lane: {missing}")
+        if ext_launches is None:
+            ext_launches = launches
+        emit({"phase": "external", "instance": name, "p": P_EXT, "n": n,
+              "budget": BUDGET_EXT, "runs": info["external"]["runs"],
+              "merge": info["external"]["merge"], "wall_s": wall,
+              "keys_per_s": n / wall, "max_memory_allocated": peak,
+              "peak_host_rss_bytes": rss,
+              "pass_seconds": info["pass_seconds"],
+              "balance": info["balance"], "overflow": info["overflow"],
+              "counts": info["counts"].tolist(), "launches": launches})
+        del out, info, x
+
+    # --- 7. card vs CPU on the external lane at p = 16, n = 2^20 -----------
+    n = 1 << LOG_N_EXT_CHECK
+    x = generate_instance("Uniform", P_EXT, n).astype(np.uint32)
+    cfg = SortConfig(p=P_EXT, external=ExternalPolicy(
+        budget=BUDGET_EXT_CHECK))
+    runs = {}
+    for label, dev, db in (("cuda", "cuda", True), ("cpu", "cpu", True),
+                           ("cuda_single_buffer", "cuda", False)):
+        c = cfg.replace(external=ExternalPolicy(budget=BUDGET_EXT_CHECK,
+                                                double_buffer=db))
+        o, i = psort(x, c, return_info=True, device=dev)
+        runs[label] = (o.view(torch.int32).cpu(), i["perm"].cpu(),
+                       i["counts"].cpu(), i["overflow"])
+    same = {label: all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                       for a, b in zip(runs["cuda"], r))
+            for label, r in runs.items() if label != "cuda"}
+    emit({"phase": "external_cuda_vs_cpu", "p": P_EXT, "n": n,
+          "budget": BUDGET_EXT_CHECK, "instance": "Uniform",
+          "identical": same, "overflow": runs["cuda"][3]})
+    if not all(same.values()):
+        raise AssertionError(f"external runs differ: {same}")
+    if not np.array_equal(np.sort(x), runs["cuda"][0].numpy().view(
+            np.uint32)):
+        raise AssertionError("external output differs from np.sort(input)")
+
+    # --- 8. summary ------------------------------------------------------------
     rows = []
+    path_launches = {**{k: main_launches[k] for k in RAMS_KERNELS},
+                     **{k: ext_launches[k] for k in EXTERNAL_KERNELS}}
     for name, row in kernels.items():
         rows.append({"name": name, "route": row["route"],
                      "source": row["source"], "replaces": row["replaces"],
-                     "launches": main_launches[name],
+                     "launches": path_launches[name],
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],

@@ -1,24 +1,30 @@
-"""Public API: ``psort`` on the sim backend with RAMS (counterpart of
-``repro/core/api.py``).
+"""Public API: ``psort`` on the sim backend with RAMS and the external
+lane (counterpart of ``repro/core/api.py``).
 
 The sim backend runs p PEs on one device; here every PE is a row of a
 (p, C) tensor and the per-PE body of the reference (``_sort_body``) runs
-once over all rows.  The port runs on ``cuda`` unless the caller passes
-``device="cpu"``, where every kernel wrapper takes its plain version; it
-never moves to the CPU on its own.
+once over all rows.  ``SortConfig(external=ExternalPolicy(budget))``
+streams shards larger than ``budget`` through the device in runs
+(``external.py``), exactly when the reference does.  The port runs on
+``cuda`` unless the caller passes ``device="cpu"``, where every kernel
+wrapper takes its plain version; it never moves to the CPU on its own.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .external import (ExternalPolicy, _get_keys, _psort_external_once,
+                       _put_keys)
 from .rams import as_int32_bits, rams
-from .types import int_to_key, key_to_int, make_shard, pad_value
+from .types import (int_to_key, key_to_int, make_shard, pad_value,
+                    resolve_device)
 
 # knobs of the reference's SortConfig that this port does not honour yet,
 # with the ROADMAP item (queue 1) that brings each
@@ -30,7 +36,6 @@ _UNPORTED = {
     "mesh_axes": "item 9 (batched keys and nested meshes)",
     "cost_model": "item 8 (selection)",
     "fault_policy": "item 13 (faults and elastic rescale)",
-    "external": "item 12 (external sorting)",
     "overlap": "item 11 (exchange/merge overlap)",
 }
 _ALGORITHMS = {
@@ -56,7 +61,9 @@ class SortConfig:
     ("rams"), ``capacity_factor`` (slack of the per-PE buffers), ``levels``
     (RAMS level count) and ``algo_kw`` (RAMS keywords: ``seed``,
     ``level_bits``, ``oversample``, ``tie_break``, ``shuffle``,
-    ``slot_factor``), as a sorted tuple of pairs.  Asking for a knob of the
+    ``slot_factor``), as a sorted tuple of pairs; ``external``
+    (an :class:`ExternalPolicy`, or None) and ``algorithm="external"``
+    select the out-of-core lane.  Asking for a knob of the
     reference that is not ported raises ``NotImplementedError`` naming the
     ROADMAP item that brings it."""
 
@@ -66,9 +73,11 @@ class SortConfig:
     capacity_factor: float = 2.0
     levels: Optional[int] = None
     algo_kw: tuple = ()
+    external: Optional[ExternalPolicy] = None
 
     def __init__(self, p=None, backend="sim", algorithm="rams",
-                 capacity_factor=2.0, levels=None, algo_kw=(), **unported):
+                 capacity_factor=2.0, levels=None, algo_kw=(), external=None,
+                 **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"SortConfig got an unexpected keyword "
@@ -81,7 +90,11 @@ class SortConfig:
             raise NotImplementedError(
                 f"backend={backend!r} is not ported yet: ROADMAP queue 1 "
                 f"{_UNPORTED['mesh']}")
-        if algorithm != "rams":
+        if external is not None and not isinstance(external,
+                                                   ExternalPolicy):
+            raise TypeError(f"external must be an ExternalPolicy, got "
+                            f"{type(external).__name__}")
+        if algorithm not in ("rams", "external"):
             if algorithm not in _ALGORITHMS:
                 raise ValueError(f"unknown algorithm {algorithm!r}")
             raise NotImplementedError(
@@ -101,21 +114,12 @@ class SortConfig:
                             ("algorithm", algorithm),
                             ("capacity_factor", capacity_factor),
                             ("levels", levels),
-                            ("algo_kw", tuple(sorted(kw.items())))):
+                            ("algo_kw", tuple(sorted(kw.items()))),
+                            ("external", external)):
             object.__setattr__(self, name, value)
 
     def replace(self, **changes) -> "SortConfig":
         return dataclasses.replace(self, **changes)
-
-
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("psort runs on CUDA by default and no CUDA "
-                               "device is available; pass device='cpu' to "
-                               "run the plain versions of the kernels")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _sort_body(keys2d, row_counts, p, capacity, algo_kw):
@@ -150,14 +154,21 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     ``balance``, ``perm`` (input index of every output element, int64),
     ``n``, ``algorithm`` and ``backend`` — the reference's keys, equal to
     its values bit for bit.  Like the reference, an exchange slot that
-    fills up drops elements and counts them in ``overflow``."""
+    fills up drops elements and counts them in ``overflow``.
+
+    With an :class:`ExternalPolicy` (``config.external`` or the
+    ``REPRO_EXTERNAL_BUDGET`` environment variable) the out-of-core lane
+    runs when ``algorithm="external"`` or n/p exceeds the budget; it also
+    takes 8-byte keys (int64, uint64, float64), and its info adds the
+    reference's ``mesh_shape``, ``d`` and ``external`` ({budget, runs,
+    merge}) and the host-clock ``pass_seconds`` of passes A–D."""
     cfg = config if config is not None else SortConfig()
     if cfg.p is None:
         raise ValueError("backend='sim' needs an explicit p")
     p = int(cfg.p)
     if p < 1 or p & (p - 1):
         raise ValueError(f"p={p} must be a power of two (hypercube layout)")
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     x = torch.from_numpy(np.ascontiguousarray(keys)) \
         if isinstance(keys, np.ndarray) else torch.as_tensor(keys)
     if x.dim() != 1:
@@ -166,18 +177,29 @@ def psort(keys, config: Optional[SortConfig] = None, *,
                 "2-D (batched) keys are not ported yet: ROADMAP queue 1 "
                 "item 9")
         raise ValueError(f"keys must be 1-D; got shape {tuple(x.shape)}")
+    external = _resolve_external(cfg.external)
+    if external is None and cfg.algorithm == "external":
+        raise ValueError("algorithm='external' needs external="
+                         "ExternalPolicy(...) (or REPRO_EXTERNAL_BUDGET)")
+    n = x.shape[0]
+    per = -(-max(n, 1) // p)                              # ceil(n/p)
+    if external is not None and (cfg.algorithm == "external"
+                                 or per > external.budget):
+        if x.dtype not in _EXTERNAL_DTYPES:
+            raise ValueError(f"the external lane sorts int32, uint32, "
+                             f"float32, int64, uint64 or float64 keys; got "
+                             f"{x.dtype}")
+        return _psort_external(x, n, p, external, return_info, dev)
     if x.dtype not in (torch.int32, torch.uint32, torch.float32):
         raise ValueError(f"rams sorts 4-byte keys (int32, uint32, float32); "
                          f"got {x.dtype}")
     algo_kw = dict(cfg.algo_kw)
     if cfg.levels is not None:
         algo_kw.setdefault("levels", cfg.levels)
-    n = x.shape[0]
     orig_dtype = x.dtype
     s = key_to_int(x.to(dev))
     del x
 
-    per = -(-max(n, 1) // p)                              # ceil(n/p)
     capacity = max(4, int(math.ceil(per * cfg.capacity_factor)))
     flat = torch.full((p * per,), pad_value(s.dtype), dtype=s.dtype,
                       device=dev)
@@ -203,5 +225,56 @@ def psort(keys, config: Optional[SortConfig] = None, *,
         "balance": float(counts_out.max()) / max(1.0, n / p),
         "perm": perm,
         "n": n,
+    }
+    return result, info
+
+
+_EXTERNAL_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
+                    torch.uint64, torch.float64)
+
+
+def _resolve_external(external) -> Optional[ExternalPolicy]:
+    """Explicit policy wins; else ``REPRO_EXTERNAL_BUDGET``."""
+    if external is not None:
+        return external
+    env = os.environ.get("REPRO_EXTERNAL_BUDGET")
+    return ExternalPolicy(budget=int(env)) if env else None
+
+
+def _psort_external(x, n, p, policy, return_info, dev):
+    """The external lane: the four passes from host memory, then the
+    reference's reassembly of the output."""
+    orig_dtype = x.dtype
+    u = _get_keys(key_to_int(x.cpu()))        # host words, unsigned
+    del x
+    seconds = {}
+    keys_out, idx_out, counts_out, overflow = _psort_external_once(
+        u, n, p=p, policy=policy, device=dev, seconds=seconds)
+    del u
+    c = counts_out[0]
+    with record_function("reassemble"):
+        rows = np.concatenate([keys_out[0, pe, :c[pe]] for pe in range(p)])
+        result = int_to_key(_put_keys(rows, dev), orig_dtype)
+        if not return_info:
+            return result
+        perm = np.concatenate([idx_out[0, pe, :c[pe]] for pe in range(p)])
+        perm = torch.from_numpy(perm.astype(np.int64)).to(dev)
+    per = -(-max(n, 1) // p)
+    info = {
+        "algorithm": "external",
+        "backend": "sim",
+        "mesh_shape": None,
+        "counts": torch.as_tensor(c, dtype=torch.int64, device=dev),
+        "overflow": int(overflow.sum()),
+        "balance": float(c.max()) / max(1.0, n / p),
+        "perm": perm,
+        "n": n,
+        "d": 1,
+        "external": {
+            "budget": policy.budget,
+            "runs": max(1, -(-per // policy.budget)),
+            "merge": policy.merge,
+        },
+        "pass_seconds": seconds,
     }
     return result, info

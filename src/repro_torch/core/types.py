@@ -57,6 +57,17 @@ def int_to_key(s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(s < 0, s ^ _PAD[s.dtype], s).view(dtype)
 
 
+def resolve_device(device) -> torch.device:
+    """``device``, or CUDA when it is None; never the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("psort runs on CUDA by default and no CUDA "
+                               "device is available; pass device='cpu' to "
+                               "run the plain versions of the kernels")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
 def pad_value(dtype: torch.dtype) -> int:
     """The internal pad word: the flip of the reference's all-ones word."""
     return _PAD[dtype]

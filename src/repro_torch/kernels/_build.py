@@ -25,7 +25,8 @@ from typing import Dict, List
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "build"
 SOURCES = {"bitonic": _HERE / "bitonic" / "csrc" / "bitonic.cu",
-           "partition": _HERE / "partition" / "csrc" / "partition.cu"}
+           "partition": _HERE / "partition" / "csrc" / "partition.cu",
+           "kway": _HERE / "kway" / "csrc" / "kway.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

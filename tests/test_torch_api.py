@@ -16,7 +16,7 @@ from repro.core import SortConfig as JConfig
 from repro.core import psort as j_psort
 from repro.core import types as jt
 from repro.data.distributions import generate_instance
-from repro_torch import SortConfig, psort
+from repro_torch import ExternalPolicy, SortConfig, psort
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -85,8 +85,8 @@ def test_psort_without_a_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kw,match", [
     ({"overlap": True}, "item 11"), ({"mesh_shape": (2, 2)}, "item 9"),
-    ({"fault_policy": object()}, "item 13"), ({"external": object()},
-                                              "item 12"),
+    ({"fault_policy": object()}, "item 13"),
+    ({"external": ExternalPolicy(budget=4), "overlap": True}, "item 11"),
     ({"algorithm": "rquick"}, "item 6"), ({"algorithm": "auto"}, "item 8"),
     ({"algorithm": "ssort"}, "item 7"), ({"backend": "shard_map"},
                                          "item 10"),

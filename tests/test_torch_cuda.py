@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import SortConfig, psort
+from repro_torch import ExternalPolicy, SortConfig, psort
 from repro_torch.data import INSTANCES, generate_instance
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitonic as bt
+from repro_torch.kernels import kway as kw
 from repro_torch.kernels import partition as pt
 from repro_torch.kernels.bitonic import ref as bref
+from repro_torch.kernels.kway import ref as kref
 from repro_torch.kernels.partition import ref as pref
 
 pytestmark = pytest.mark.cuda
@@ -137,3 +139,50 @@ def test_psort_cuda_equals_cpu(dev, name, p, per):
     assert torch.equal(gi["perm"].cpu(), ci["perm"])
     assert torch.equal(gi["counts"].cpu(), ci["counts"])
     assert gi["overflow"] == ci["overflow"]
+
+
+@pytest.mark.parametrize("C,nb,ordered", [
+    (1, 2, True), (1000, 8, False), (1024, 16, True), (8192 + 7, 16, True),
+    (100_003, 2, False), (100_003, 128, False), (300_000, 2048, False),
+    (50_000, 20_000, False), (5000, 1, True), (0, 4, True)])
+def test_kway_matches_plain(dev, C, nb, ordered):
+    """Ragged C (no multiple of the block), splitters in and out of lex
+    order, more than one staged chunk (nb > 1024) and a histogram too
+    large for shared memory (nb > 8192)."""
+    g = np.random.default_rng(C + nb)
+    keys = np.sort(g.integers(-2 ** 31, 2 ** 31, size=C)).astype(np.int32)
+    ties = g.integers(-2 ** 31, 2 ** 31, size=C).astype(np.int32)
+    sk = np.sort(g.integers(-2 ** 31, 2 ** 31, size=nb - 1)).astype(np.int32)
+    if C:
+        sk[: (nb - 1) // 2] = g.choice(keys, size=(nb - 1) // 2)  # equal keys
+        sk = np.sort(sk)
+    st = g.integers(-2 ** 31, 2 ** 31, size=nb - 1).astype(np.int32)
+    if ordered:                                  # lex order, ties unsigned
+        comp = np.sort((sk.astype(np.int64) << 32)
+                       | (st.astype(np.int64) & 0xFFFFFFFF))
+        sk = (comp >> 32).astype(np.int32)
+        st = (comp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (keys, ties, sk, st)]
+    b, h = kw.kway_classify(*args, n_buckets=nb)
+    rb, rh = kref.kway_classify_ref(*args, n_buckets=nb)
+    torch.cuda.synchronize()
+    assert torch.equal(b, rb) and torch.equal(h, rh)
+    assert int(h.sum()) == C
+
+
+@pytest.mark.parametrize("name,dtype,budget", [
+    ("Uniform", np.uint32, 1000), ("Zero", np.int32, 1000),
+    ("Staggered", np.float32, 333), ("Uniform", np.int64, 1000)])
+def test_external_psort_cuda_equals_cpu(dev, name, dtype, budget):
+    p = 16
+    x = generate_instance(name, p, p * 5000).astype(dtype)
+    for double_buffer in (True, False):
+        cfg = SortConfig(p=p, external=ExternalPolicy(
+            budget=budget, double_buffer=double_buffer))
+        go, gi = psort(x, cfg, return_info=True, device="cuda")
+        co, ci = psort(x, cfg, return_info=True, device="cpu")
+        assert gi["algorithm"] == "external"
+        assert gi["overflow"] == ci["overflow"] == 0
+        assert torch.equal(go.cpu().view(torch.uint8), co.view(torch.uint8))
+        assert torch.equal(gi["perm"].cpu(), ci["perm"])
+        assert torch.equal(gi["counts"].cpu(), ci["counts"])

@@ -2,9 +2,11 @@
 tensor, and what the CUDA kernels are held against on the card) against
 the reference: the kernel-off JAX ``local_sort`` (a stable argsort), the
 Pallas ``sort_tile`` / ``merge_tiles`` in interpret mode (keys only: the
-bitonic network is not stable), and ``partition_ref`` plus the Pallas
-``partition_tile`` in interpret mode for the partition.  Integers
-throughout, so everything must be identical."""
+bitonic network is not stable), ``partition_ref`` plus the Pallas
+``partition_tile`` in interpret mode for the partition, and
+``kway_classify_ref`` plus the Pallas ``kway_classify`` in interpret mode
+for the k-way classifier.  Integers throughout, so everything must be
+identical."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +17,11 @@ import repro.core  # noqa: F401  (turns on jax_enable_x64)
 from repro.core import types as jt
 from repro.kernels.bitonic import merge_tiles, sort_tile
 from repro.kernels.partition import partition_buckets as j_partition
+from repro.kernels.kway.ops import kway_classify as j_kway
+from repro.kernels.kway.ref import kway_classify_ref as j_kway_ref
 from repro.kernels.partition import partition_ref as j_partition_ref
 from repro_torch.kernels import bitonic as bt
+from repro_torch.kernels import kway as kw
 from repro_torch.kernels import partition as pt
 from repro_torch.kernels.bitonic import ref as bref
 from repro_torch.kernels.partition import ref as pref
@@ -184,6 +189,66 @@ def test_plain_classify_then_rank_equals_the_fused_partition(nb):
     assert torch.equal(th.sum(1, dtype=torch.int32)[:, :nb], rh)
 
 
+def _kway_port(keys, ties, sk, st, nb):
+    return kw.kway_classify(_port(keys), torch.from_numpy(ties.view(np.int32)),
+                            _port(sk), torch.from_numpy(st.view(np.int32)),
+                            n_buckets=nb)
+
+
+def _kway_same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("nb", [2, 8, 64, 128])
+@pytest.mark.parametrize("C", [8192, 8192 + 7, 16384])
+def test_plain_kway_matches_pallas_kway_and_its_reference(nb, C):
+    """The splitters of tests/test_kernels.py: sorted keys, unordered ties
+    (so not in lex order: a search over them would answer otherwise)."""
+    g = np.random.default_rng(nb * 7 + C)
+    keys = g.integers(0, 1000, size=C).astype(np.uint32)
+    ties = g.integers(0, 2 ** 20, size=C).astype(np.uint32)
+    sk = np.sort(g.integers(0, 1000, size=nb - 1)).astype(np.uint32)
+    st = g.integers(0, 2 ** 20, size=nb - 1).astype(np.uint32)
+    args = [jnp.asarray(a) for a in (keys, ties, sk, st)]
+    got = _kway_port(keys, ties, sk, st, nb)
+    _kway_same(got, j_kway(*args, n_buckets=nb, interpret=True,
+                           use_kernel=True))
+    _kway_same(got, j_kway_ref(*args, n_buckets=nb))
+    assert int(got[1].sum()) == C
+
+
+def test_plain_kway_splits_equal_keys_by_tie():
+    """All-equal keys split by the tie alone (the reference's App. G test),
+    with full-range uint32 ties, which compare unsigned."""
+    C, nb = 8192, 8
+    keys = np.zeros(C, np.uint32)
+    ties = (np.arange(C, dtype=np.uint64) * 524_287 % 2 ** 32).astype(
+        np.uint32)
+    qs = np.sort(ties)[np.linspace(0, C, nb, endpoint=False)[1:].astype(int)]
+    sk = np.zeros(nb - 1, np.uint32)
+    got = _kway_port(keys, ties, sk, qs, nb)
+    _kway_same(got, j_kway(*[jnp.asarray(a) for a in (keys, ties, sk, qs)],
+                           n_buckets=nb, interpret=True, use_kernel=True))
+    h = got[1].numpy()
+    assert h.max() - h.min() <= 1
+
+
+def test_plain_kway_counts_past_n_buckets_like_the_reference():
+    """More splitters than n_buckets − 1, and none: bucket ids count every
+    splitter, the histogram keeps the first n_buckets."""
+    g = np.random.default_rng(3)
+    keys = g.integers(0, 2 ** 32, size=300, dtype=np.int64).astype(np.uint32)
+    ties = g.integers(0, 2 ** 32, size=300, dtype=np.int64).astype(np.uint32)
+    for S, nb in ((9, 4), (0, 1), (0, 3)):
+        sk = g.integers(0, 2 ** 32, size=S, dtype=np.int64).astype(np.uint32)
+        st = g.integers(0, 2 ** 32, size=S, dtype=np.int64).astype(np.uint32)
+        _kway_same(_kway_port(keys, ties, sk, st, nb),
+                   j_kway_ref(*[jnp.asarray(a) for a in (keys, ties, sk, st)],
+                              n_buckets=nb))
+
+
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
     k = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -194,3 +259,5 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         pt.classify(k, k, k[:, :1], k[:, :1],
                     torch.zeros(2, dtype=torch.int64, device="meta"),
                     n_buckets=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kw.kway_classify(k[0], k[0], k[0, :1], k[0, :1], n_buckets=2)
