@@ -6,12 +6,16 @@
 Phases, each fatal on failure (no phase catches its own error):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build every CUDA source of the port with nvcc, in parallel, timed;
+2. build every CUDA source of the port with nvcc, in parallel, timed,
+   and each local-sort kernel's registers, shared memory and spills as
+   ``ptxas -v`` reports them;
 3. every RAMS kernel at the shapes of the main path at p = 256, n = 2^26
    (sort and merge on (256, 2 196 992) with an int32 payload, partition on
    (256, 1 048 576) with nb = 64): equal to its plain PyTorch version on
    the card, timed with CUDA events (kernel, plain, library call) beside
-   its bound;
+   its bound; the whole local sort on full rows and at the main path's
+   occupancy (about 2^18 valid keys per row, a tail of pad words), and on
+   all-equal keys;
 3b. the k-way classifier at the shapes of the external lane (C = 2^25
    with nb = 16 for pass C, C = 2^21 with nb = 8 for pass D) and with
    splitters out of lex order (C = 2^25, nb = 2, 128, 2048): bucket and
@@ -30,7 +34,7 @@ Phases, each fatal on failure (no phase catches its own error):
    host-clock seconds of passes A–D and kernel launches, with the output
    checked (overflow 0, equal to ``torch.sort`` of the input on the card,
    ``perm`` a permutation with ``input[perm] == output``, the classifier
-   launched);
+   and the local-sort kernels launched);
 7. the card and the CPU agree bit for bit on the external lane at p = 16,
    n = 2^20, budget 2^13, and double buffering off equals on;
 8. one ``kernels`` JSON line, the card line, and the ``ok`` line last.
@@ -41,6 +45,7 @@ without the repository around it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import resource
 import statistics
 import subprocess
@@ -61,7 +66,7 @@ LOG_N_EXT_CHECK, BUDGET_EXT_CHECK = 20, 1 << 13
 # the kernels each path launches
 RAMS_KERNELS = ("tile_sort", "run_merge", "partition_classify",
                 "partition_rank")
-EXTERNAL_KERNELS = ("kway_classify",)
+EXTERNAL_KERNELS = ("kway_classify", "tile_sort", "run_merge")
 
 
 def emit(obj) -> None:
@@ -124,6 +129,26 @@ def measure(torch, results, name, source, replaces, got, want, fn, plain,
           "kernel_ms": row["ms"]})
     results.setdefault(name, row)
     return row
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, static shared memory and spills of every kernel in one
+    nvcc log (``-Xptxas -v``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)_kernel", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def padded(torch, x, width, fill):
@@ -209,14 +234,51 @@ def kernel_phases(torch):
     if err != 0:
         raise AssertionError("local_sort_fast differs from a stable sort")
     del got
-    passes = (-(-C // t) - 1).bit_length()
+    passes = bt.ops.merge_passes(C)
     emit({"phase": "local_sort", "shape": [rows, C], "merge_passes": passes,
           "max_abs_err": err,
           "kernel_ms": cuda_ms(torch, lambda: bt.local_sort_fast(keys, vals)),
           "plain_ms": cuda_ms(torch, lambda: bref.sort_ref(keys, vals)),
           "library_ms": cuda_ms(torch, lib_sort),
           "bound_ms": bound(16 * n * (1 + passes), 0)[0]})
-    del keys, vals
+    # the main path's occupancy: about 2^18 valid keys per row (the level-0
+    # output), then pad words; the library's full-row stable sort computes
+    # the same function there, because the pad word sorts last
+    count = (1 << 18) - 2000 + (torch.arange(rows, device=dev) * 997) % 4000
+    col = torch.arange(C, device=dev)
+    keys = torch.where(col[None, :] < count[:, None], keys, pad_word)
+    del col
+    got = bt.local_sort_fast(keys, vals, count)
+    err = max(max_abs_err(torch, zip(got, lib_sort())),
+              max_abs_err(torch, zip(got, bref.sort_ref(keys, vals, count))))
+    if err != 0:
+        raise AssertionError("count-aware local_sort_fast differs from a "
+                             "stable sort")
+    del got
+    valid = int(count.sum())
+    passes = bt.ops.merge_passes(int(count.max()))
+    occ = {"kernel_ms": cuda_ms(torch, lambda: bt.local_sort_fast(
+        keys, vals, count)),
+        "plain_ms": cuda_ms(torch, lambda: bref.sort_ref(keys, vals, count)),
+        "library_ms": cuda_ms(torch, lib_sort)}
+    emit({"phase": "local_sort_occupancy", "shape": [rows, C],
+          "valid_keys": valid, "merge_passes": passes, "max_abs_err": err,
+          **occ, "kernel_over_library": occ["kernel_ms"] / occ["library_ms"],
+          "bound_ms": bound(16 * valid * (1 + passes) + 16 * (n - valid),
+                            0)[0]})
+    # all keys equal (the Zero instance): every diagonal inside one tie run
+    keys.zero_()
+    got = bt.local_sort_fast(keys, vals)
+    err = max_abs_err(torch, zip(got, bref.sort_ref(keys, vals)))
+    if err != 0 or not torch.equal(got[1], vals):
+        raise AssertionError("local_sort_fast on equal keys differs from its "
+                             "plain version")
+    del got
+    emit({"phase": "local_sort_equal_keys", "shape": [rows, C],
+          "max_abs_err": err,
+          "kernel_ms": cuda_ms(torch, lambda: bt.local_sort_fast(keys,
+                                                                  vals))})
+    del keys, vals, count
     torch.cuda.empty_cache()
 
     # partition at level 0: (256, 2^20) locally sorted keys, nb = 64
@@ -406,6 +468,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {k: str(v.relative_to(src.parent))
                       for k, v in _build.SOURCES.items()}})
+    log = _build.BUILD_LOG.get("bitonic")        # None: built before
+    emit({"phase": "ptxas", "source": "bitonic",
+          "kernels": None if log is None else ptxas_report(log)})
 
     # --- 3. kernels against their plain versions -----------------------------
     kernels = kernel_phases(torch)
@@ -530,8 +595,9 @@ def main() -> int:
 
     # --- 8. summary ------------------------------------------------------------
     rows = []
-    path_launches = {**{k: main_launches[k] for k in RAMS_KERNELS},
-                     **{k: ext_launches[k] for k in EXTERNAL_KERNELS}}
+    # each kernel's launches on its main path: RAMS where it runs there
+    path_launches = {**{k: ext_launches[k] for k in EXTERNAL_KERNELS},
+                     **{k: main_launches[k] for k in RAMS_KERNELS}}
     for name, row in kernels.items():
         rows.append({"name": name, "route": row["route"],
                      "source": row["source"], "replaces": row["replaces"],

@@ -25,9 +25,10 @@ keys, uint32 ties and indices), so each per-PE function takes and returns
 what its counterpart does.  Device tensors hold the port's sign-flipped
 words (``types.py``); ``_put_keys``/``_get_keys`` (and ``_put_bits``/
 ``_get_bits`` for uint32 planes carried in int32) are the only crossings.
-4-byte keys ride the int64 composite ``int64(key) << 32 | tie`` (pad
-0x7FFF…F, the convention of ``rams.py``) through ``types.local_sort``;
-8-byte keys keep separate planes and sort by tie, then stably by key,
+4-byte keys sort by tie, then stably by key, in two int32 passes of
+``types.local_sort`` (the Hopper local-sort kernels on the card), which
+equals the reference's sort of the composite ``key << 32 | tie``; 8-byte
+keys keep separate planes and sort the same way with torch's stable sort,
 which is the reference's ``lexsort`` (ties are unique).
 
 Each pass runs under a ``record_function`` scope (``ext:runs``,
@@ -141,11 +142,20 @@ def _sort_planes(k, i, count):
     valid = torch.arange(L, device=k.device)[None, :] < count[:, None]
     tie = torch.where(valid, _mix32(i.to(torch.int64)), _M32)
     if k.dtype == torch.int32:
-        c = (k.to(torch.int64) << 32) | tie
-        shard = local_sort(SortShard(keys=c, vals={"idx": i}, count=count))
-        ck = shard.keys
-        return ((ck >> 32).to(torch.int32), as_int32_bits(ck & _M32),
-                shard.vals["idx"])
+        # by tie, then stably by key: two int32 local sorts (the Hopper
+        # kernels on the card) carrying the positions, which equal one
+        # stable sort of the composite key << 32 | tie
+        pos = torch.arange(L, dtype=torch.int32, device=k.device)
+        by_tie = local_sort(SortShard(
+            keys=(tie - (1 << 31)).to(torch.int32),
+            vals={"pos": pos.expand_as(k).contiguous()}, count=count))
+        order = by_tie.vals["pos"]
+        by_key = local_sort(SortShard(
+            keys=torch.gather(k, 1, order.to(torch.int64)),
+            vals={"pos": order}, count=count))
+        perm = by_key.vals["pos"].to(torch.int64)
+        return (by_key.keys, as_int32_bits(torch.gather(tie, 1, perm)),
+                torch.gather(i, 1, perm))
     km = torch.where(valid, k, pad_value(torch.int64))
     perm = _lex_order(km, tie)
     return (torch.gather(km, 1, perm),

@@ -125,19 +125,21 @@ def local_sort(shard: SortShard) -> SortShard:
 
     Pads are written over the tail first, so a valid key equal to the pad
     word still precedes every pad (the stable order keeps it in front).
-    4-byte keys with at most one 4-byte payload go through the Hopper
-    tile-sort and run-merge kernels on the card (their plain stable sort on
-    the CPU); other shards take torch's stable sort, as the reference takes
-    its stable argsort where no kernel lowers."""
+    The valid elements are a prefix, so a stable sort leaves the pad tail
+    exactly where it is, payload included.  4-byte keys with at most one
+    4-byte payload go through the Hopper tile-sort and run-merge kernels on
+    the card (their plain stable sort on the CPU), which sort only each
+    row's prefix [0, count); other shards take torch's stable sort, as the
+    reference takes its stable argsort where no kernel lowers."""
     keys = torch.where(shard.valid_mask(), shard.keys, shard.pad)
     if keys.dtype == torch.int32 and len(shard.vals) <= 1 and all(
             v.dtype == torch.int32 for v in shard.vals.values()):
         from repro_torch.kernels.bitonic import local_sort_fast
         if not shard.vals:
-            ks, _ = local_sort_fast(keys)
+            ks, _ = local_sort_fast(keys, count=shard.count.contiguous())
             return shard.replace(keys=ks)
         (name, v), = shard.vals.items()
-        ks, vs = local_sort_fast(keys, v)
+        ks, vs = local_sort_fast(keys, v, shard.count.contiguous())
         return shard.replace(keys=ks, vals={name: vs})
     ks, order = torch.sort(keys, dim=1, stable=True)
     return shard.replace(keys=ks, vals={k: torch.gather(v, 1, order)

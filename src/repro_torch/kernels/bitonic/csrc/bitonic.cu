@@ -7,127 +7,331 @@
 //
 // Keys are the port's sign-flipped int32 words (signed order == the
 // reference's unsigned order); the optional payload is one int32 plane.
-// Rows are PEs: arrays are (rows, C), row-major, contiguous.
+// Rows are PEs: arrays are (rows, C), row-major, contiguous.  An optional
+// (rows,) int64 count limits the sort to each row's prefix [0, count[r]);
+// the rest of the row passes through unchanged.  Ties keep their input
+// order.
 //
-// What bounds them on the card: the sort moves 16 bytes per element (key and
-// payload in and out) per pass, so device-memory bandwidth is the floor; the
-// tile sort adds log2(T)(log2(T)+1)/2 shared-memory compare-exchange steps
-// per element, and each merge pass a binary search per element.  Design:
-// the tile sort keeps its whole tile in shared memory as 64-bit words
-// (key ^ 0x80000000) << 32 | in-tile index, so the network touches device
-// memory once per element and the unique words make any network stable;
-// the payload is gathered once at the end through the index.  A merge pass
-// reads each key and payload once and writes them once; the partner-run
-// searches of neighbouring threads hit neighbouring addresses, so they are
-// served mostly from L1/L2.  Simple first: the merge does not use merge-path
-// partitioning or shared-memory staging yet.
+// What bounds them on the card: device-memory bytes.  Every pass reads and
+// writes each key and payload word once, 16 bytes per element, so the sort
+// of C keys costs 16 * C * (1 + merge passes) bytes at best; the compares
+// are a few per byte moved.  What the design does about it:
+//
+// * tile_sort is a block merge sort of TILE = 8192 keys, 512 threads x 16
+//   items.  Keys and payload are read once, coalesced, into shared memory.
+//   Each thread sorts its 16 items in registers (odd-even transposition,
+//   swapping only strictly greater neighbours, so it is stable), then 9
+//   rounds of merge-path merges in shared memory double the runs from 16 to
+//   8192: each thread finds its diagonal by binary search and merges 16
+//   outputs serially, left ties first.  Only the in-tile index travels with
+//   a key; the payload is gathered from shared memory once at the end, and
+//   everything leaves through shared memory as coalesced stores.  A larger
+//   tile leaves fewer merge passes over device memory.
+// * run_merge is a merge-path merge: each block of 256 threads x 16 items
+//   makes 4096 contiguous outputs of one run pair.  Two warps find the
+//   co-ranks of the block's two end diagonals in device memory, each by a
+//   32-way search (about 5 dependent loads instead of 21); the block stages
+//   the two input slices (keys and payload) in shared memory with coalesced
+//   loads, each thread searches its own diagonal there and merges 16 items,
+//   and the outputs leave through shared memory as coalesced stores.  Each
+//   element is read once and written once per pass.
+// * Only the valid prefix is sorted.  Positions at or past count[r] are
+//   copied once, by the tile-sort launch, into the buffer the last merge
+//   pass ends in; merge blocks wholly past the count exit at once.
+//
+// Shared memory is indexed with one pad word every 32 (pad()), so a
+// thread's 16 consecutive words (blocked order) fall into distinct banks
+// across a warp.  The merge-path device functions (merge_path,
+// serial_merge) are shared by both kernels.
+//
+// Occupancy, from ptxas -v for sm_90a: tile_sort uses 64 registers (the
+// launch bound's cap for 2 blocks of 512), no spills, and 100 864 bytes of
+// dynamic shared memory with a payload, so 2 blocks run per SM; run_merge
+// uses 60 registers, no spills, and 34 320 bytes of static shared memory,
+// so registers allow 4 blocks of 256 per SM.  Either way 1024 of the SM's
+// 2048 threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE 4096
+#define TILE 8192                                  // keys per tile sort
 #define SORT_THREADS 512
+#define SORT_ITEMS (TILE / SORT_THREADS)           // 16
 #define MERGE_THREADS 256
+#define MERGE_ITEMS 16
+#define MERGE_SPAN (MERGE_THREADS * MERGE_ITEMS)   // outputs per merge block
+// words of a padded shared array of n entries, with room for the serial
+// merge's reads past the end of its runs
+#define PADDED(n) ((n) + ((n) >> 5) + 64)
 
-__device__ __forceinline__ uint64_t pack(int32_t key, uint32_t idx) {
-  return ((uint64_t)((uint32_t)key ^ 0x80000000u) << 32) | idx;
+__device__ __forceinline__ int pad(int x) { return x + (x >> 5); }
+
+// Merge path in shared memory: runs a = s[a0, a0 + la) and b = s[b0, b0 +
+// lb), each sorted.  Returns how many of a's keys are among the first diag
+// outputs of their merge with a's ties first (a[i] goes before b[j] iff
+// a[i] <= b[j]).
+__device__ __forceinline__ int merge_path(const int32_t* s, int a0, int la,
+                                          int b0, int lb, int diag) {
+  int lo = max(0, diag - lb), hi = min(diag, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[pad(a0 + mid)] <= s[pad(b0 + diag - 1 - mid)]) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
 }
 
-__global__ void __launch_bounds__(SORT_THREADS)
+// ITEMS outputs of the merge of s[ai, a_end) and s[bi, b_end), a's ties
+// first: key[j] is each output's key and src[j] its shared-memory position,
+// through which the caller gathers what travels with the key.  Reads may go
+// up to ITEMS words past either end (the arrays are PADDED).
+template <int ITEMS>
+__device__ __forceinline__ void serial_merge(const int32_t* s, int ai,
+                                             int a_end, int bi, int b_end,
+                                             int32_t (&key)[ITEMS],
+                                             int (&src)[ITEMS]) {
+  int32_t ka = s[pad(ai)], kb = s[pad(bi)];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const bool take_b = bi < b_end && (ai >= a_end || kb < ka);
+    key[j] = take_b ? kb : ka;
+    src[j] = take_b ? bi : ai;
+    if (take_b) kb = s[pad(++bi)];
+    else ka = s[pad(++ai)];
+  }
+}
+
+// The co-rank of diagonal d for runs a[0, la) and b[0, lb) in device memory
+// (how many of a's keys are among the first d merged outputs), found by one
+// whole warp: each step tests 32 points of the open interval at once and
+// keeps the gap where the test turns false, 33 times narrower.
+__device__ int64_t corank_warp(const int32_t* __restrict__ a, int64_t la,
+                               const int32_t* __restrict__ b, int64_t lb,
+                               int64_t d) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = d - lb > 0 ? d - lb : 0;
+  int64_t hi = d < la ? d : la;                    // the co-rank is in [lo, hi]
+  while (hi > lo) {
+    const int64_t len = hi - lo;
+    const bool small = len <= 32;
+    const int64_t m = small ? lo + lane : lo + len * (lane + 1) / 33;
+    // a[m] is among the first d outputs: true below the co-rank, false from it
+    const bool below = m < hi && __ldg(a + m) <= __ldg(b + (d - 1 - m));
+    const int t = __popc(__ballot_sync(0xffffffffu, below));
+    if (small) return lo + t;
+    const int64_t hi_next = t == 32 ? hi : lo + len * (t + 1) / 33;
+    if (t > 0) lo = lo + len * t / 33 + 1;
+    hi = hi_next;
+  }
+  return lo;
+}
+
+// Tile sort: block (x, y) sorts keys [x * TILE, (x + 1) * TILE) of row y,
+// clipped at count[y], into out; the part of the tile at or past count[y]
+// goes unchanged into tail (which may be out).
+__global__ void __launch_bounds__(SORT_THREADS, 2)
 tile_sort_kernel(const int32_t* __restrict__ keys,
                  const int32_t* __restrict__ vals,
                  int32_t* __restrict__ out_keys,
-                 int32_t* __restrict__ out_vals, int64_t C) {
-  __shared__ uint64_t s[TILE];
-  const int64_t row_off = (int64_t)blockIdx.y * C;
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-  const int n = (int)min((int64_t)TILE, C - base);
-  const int32_t* k = keys + row_off + base;
-  // ragged last tile: the all-ones word sorts after every real word
-  for (int i = threadIdx.x; i < TILE; i += SORT_THREADS)
-    s[i] = i < n ? pack(__ldg(k + i), (uint32_t)i) : ~0ull;
+                 int32_t* __restrict__ out_vals,
+                 int32_t* __restrict__ tail_keys,
+                 int32_t* __restrict__ tail_vals,
+                 const int64_t* __restrict__ count, int64_t C) {
+  extern __shared__ int32_t smem[];
+  int32_t* sk = smem;                     // keys (padded)
+  int32_t* si = sk + PADDED(TILE);        // in-tile index, then payload out
+  int32_t* sv = si + PADDED(TILE);        // payload in (unpadded)
+  const int tid = threadIdx.x;
+  const int64_t off = (int64_t)blockIdx.y * C + (int64_t)blockIdx.x * TILE;
+  const int64_t left = C - (int64_t)blockIdx.x * TILE;
+  const int64_t valid =
+      (count == nullptr ? C : count[blockIdx.y]) - (int64_t)blockIdx.x * TILE;
+  const int m = (int)(left < TILE ? left : TILE);       // words in the tile
+  const int n = (int)(valid <= 0 ? 0 : valid < m ? valid : m);  // to sort
+  for (int i = n + tid; i < m; i += SORT_THREADS) {
+    tail_keys[off + i] = keys[off + i];
+    if (vals != nullptr) tail_vals[off + i] = vals[off + i];
+  }
+  if (n == 0) return;
+  // past n the largest key: the stable sort keeps it behind every real key
+  // equal to it, so the first n outputs are the sorted valid keys
+#pragma unroll
+  for (int j = 0; j < SORT_ITEMS; ++j) {
+    const int i = j * SORT_THREADS + tid;
+    sk[pad(i)] = i < n ? __ldg(keys + off + i) : INT32_MAX;
+    if (vals != nullptr && i < n) sv[i] = __ldg(vals + off + i);
+  }
   __syncthreads();
-  for (int size = 2; size <= TILE; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < TILE / 2; t += SORT_THREADS) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool asc = (lo & size) == 0;
-        const uint64_t a = s[lo], b = s[hi];
-        if ((a > b) == asc) {
-          s[lo] = b;
-          s[hi] = a;
-        }
+  const int x0 = tid * SORT_ITEMS;
+  int32_t k[SORT_ITEMS];
+  int ix[SORT_ITEMS];
+#pragma unroll
+  for (int j = 0; j < SORT_ITEMS; ++j) {
+    k[j] = sk[pad(x0 + j)];
+    ix[j] = x0 + j;
+  }
+#pragma unroll
+  for (int r = 0; r < SORT_ITEMS; ++r) {
+#pragma unroll
+    for (int j = r & 1; j + 1 < SORT_ITEMS; j += 2) {
+      if (k[j + 1] < k[j]) {
+        const int32_t tk = k[j];
+        k[j] = k[j + 1];
+        k[j + 1] = tk;
+        const int ti = ix[j];
+        ix[j] = ix[j + 1];
+        ix[j + 1] = ti;
       }
-      __syncthreads();
     }
   }
-  int32_t* ok = out_keys + row_off + base;
-  for (int i = threadIdx.x; i < n; i += SORT_THREADS) {
-    const uint64_t w = s[i];
-    ok[i] = (int32_t)((uint32_t)(w >> 32) ^ 0x80000000u);
-    if (vals != nullptr)
-      out_vals[row_off + base + i] =
-          __ldg(vals + row_off + base + (uint32_t)(w & 0xFFFFFFFFu));
+  for (int L = SORT_ITEMS; L < TILE; L <<= 1) {   // runs of L -> runs of 2L
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SORT_ITEMS; ++j) {
+      sk[pad(x0 + j)] = k[j];
+      si[pad(x0 + j)] = ix[j];
+    }
+    __syncthreads();
+    const int p0 = x0 & ~(2 * L - 1);
+    const int d = x0 - p0;
+    const int i = merge_path(sk, p0, L, p0 + L, L, d);
+    int src[SORT_ITEMS];
+    serial_merge<SORT_ITEMS>(sk, p0 + i, p0 + L, p0 + L + d - i, p0 + 2 * L,
+                             k, src);
+#pragma unroll
+    for (int j = 0; j < SORT_ITEMS; ++j) ix[j] = si[pad(src[j])];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < SORT_ITEMS; ++j) {
+    sk[pad(x0 + j)] = k[j];
+    si[pad(x0 + j)] = vals != nullptr ? sv[ix[j]] : 0;
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += SORT_THREADS) {
+    out_keys[off + i] = sk[pad(i)];
+    if (vals != nullptr) out_vals[off + i] = si[pad(i)];
   }
 }
 
-// Merge adjacent sorted runs [2m·w, (2m+1)·w) and [(2m+1)·w, (2m+2)·w) of
-// every row into one run of 2w (clipped at C).  a[i] lands at i + #{b < a[i]}
-// and b[j] at j + #{a <= b[j]}: a's ties first, so the merge is stable.
+// Run merge: the runs [2m·w, (2m+1)·w) and [(2m+1)·w, (2m+2)·w) of every
+// row, clipped at count, merge into one run of 2w, a's ties first.  Block
+// (x, y) writes outputs [x, x + 1) * MERGE_SPAN of row y (2w is a multiple
+// of MERGE_SPAN, so they belong to one pair); an unpaired run is copied.
 __global__ void __launch_bounds__(MERGE_THREADS)
 run_merge_kernel(const int32_t* __restrict__ keys,
                  const int32_t* __restrict__ vals,
                  int32_t* __restrict__ out_keys,
-                 int32_t* __restrict__ out_vals, int64_t C, int64_t w) {
-  const int64_t x = (int64_t)blockIdx.x * MERGE_THREADS + threadIdx.x;
-  if (x >= C) return;
-  const int64_t row_off = (int64_t)blockIdx.y * C;
-  const int32_t* k = keys + row_off;
-  const int64_t run = x / w;
-  const int64_t a_beg = (run >> 1) * 2 * w;
-  const int64_t a_end = min(a_beg + w, C);
-  const int64_t b_end = min(a_beg + 2 * w, C);
-  const int32_t key = __ldg(k + x);
-  int64_t pos;
-  if ((run & 1) == 0) {
-    int64_t lo = a_end, hi = b_end;          // lower bound in b
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      if (__ldg(k + mid) < key) lo = mid + 1; else hi = mid;
+                 int32_t* __restrict__ out_vals,
+                 const int64_t* __restrict__ count, int64_t C, int64_t w) {
+  __shared__ int32_t sk[PADDED(MERGE_SPAN)];
+  __shared__ int32_t sv[PADDED(MERGE_SPAN)];
+  __shared__ int64_t cut[2];
+  const int tid = threadIdx.x;
+  const int64_t row = (int64_t)blockIdx.y * C;
+  const int64_t cnt = count == nullptr ? C : count[blockIdx.y];
+  const int64_t o0 = (int64_t)blockIdx.x * MERGE_SPAN;
+  if (o0 >= cnt) return;
+  const int n = (int)(cnt - o0 < MERGE_SPAN ? cnt - o0 : MERGE_SPAN);
+  const int64_t p0 = o0 - o0 % (2 * w);                 // the pair's start
+  const int64_t la = cnt - p0 < w ? cnt - p0 : w;
+  const int64_t lb = cnt - p0 - la < w ? cnt - p0 - la : w;
+  if (lb == 0) {                                         // unpaired run
+    for (int x = tid; x < n; x += MERGE_THREADS) {
+      out_keys[row + o0 + x] = __ldg(keys + row + o0 + x);
+      if (vals != nullptr) out_vals[row + o0 + x] = __ldg(vals + row + o0 + x);
     }
-    pos = x + (lo - a_end);
-  } else {
-    int64_t lo = a_beg, hi = a_end;          // upper bound in a
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      if (__ldg(k + mid) <= key) lo = mid + 1; else hi = mid;
-    }
-    pos = a_beg + (x - a_end) + (lo - a_beg);
+    return;
   }
-  out_keys[row_off + pos] = key;
-  if (vals != nullptr) out_vals[row_off + pos] = __ldg(vals + row_off + x);
+  const int32_t* a = keys + row + p0;
+  const int64_t d0 = o0 - p0;
+  if (tid < 64) {
+    const int64_t i = corank_warp(a, la, a + la, lb, tid < 32 ? d0 : d0 + n);
+    if ((tid & 31) == 0) cut[tid >> 5] = i;
+  }
+  __syncthreads();
+  const int64_t i0 = cut[0];
+  const int na = (int)(cut[1] - i0);                    // a[i0, i0 + na)
+  const int64_t j0 = la + d0 - i0;                       // b from a + j0
+  // stage a's slice, then b's, at [0, na) and [na, n): all loads first
+  int32_t rk[MERGE_ITEMS], rv[MERGE_ITEMS];
+#pragma unroll
+  for (int j = 0; j < MERGE_ITEMS; ++j) {
+    const int x = j * MERGE_THREADS + tid;
+    const int64_t at = x < na ? i0 + x : j0 + (x - na);
+    if (x < n) {
+      rk[j] = __ldg(a + at);
+      if (vals != nullptr) rv[j] = __ldg(vals + row + p0 + at);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MERGE_ITEMS; ++j) {
+    const int x = j * MERGE_THREADS + tid;
+    if (x < n) {
+      sk[pad(x)] = rk[j];
+      if (vals != nullptr) sv[pad(x)] = rv[j];
+    }
+  }
+  __syncthreads();
+  const int x0 = tid * MERGE_ITEMS;
+  int32_t k[MERGE_ITEMS];
+  int src[MERGE_ITEMS];
+  if (x0 < n) {
+    const int i = merge_path(sk, 0, na, na, n - na, x0);
+    serial_merge<MERGE_ITEMS>(sk, i, na, na + x0 - i, n, k, src);
+    if (vals != nullptr) {
+#pragma unroll
+      for (int j = 0; j < MERGE_ITEMS; ++j) rv[j] = sv[pad(src[j])];
+    }
+  }
+  __syncthreads();
+  if (x0 < n) {
+#pragma unroll
+    for (int j = 0; j < MERGE_ITEMS; ++j) {
+      if (x0 + j < n) {
+        sk[pad(x0 + j)] = k[j];
+        if (vals != nullptr) sv[pad(x0 + j)] = rv[j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = tid; x < n; x += MERGE_THREADS) {
+    out_keys[row + o0 + x] = sk[pad(x)];
+    if (vals != nullptr) out_vals[row + o0 + x] = sv[pad(x)];
+  }
 }
 
 extern "C" {
 
+// tail_keys/tail_vals receive each row's [count, C); count may be null
+// (every row full).
 int tile_sort(const int32_t* keys, const int32_t* vals, int32_t* out_keys,
-              int32_t* out_vals, int64_t rows, int64_t C, void* stream) {
+              int32_t* out_vals, int32_t* tail_keys, int32_t* tail_vals,
+              const int64_t* count, int64_t rows, int64_t C, void* stream) {
   if (rows == 0 || C == 0) return 0;
+  const int smem =
+      (2 * PADDED(TILE) + (vals != nullptr ? TILE : 0)) * sizeof(int32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((C + TILE - 1) / TILE), (unsigned)rows);
-  tile_sort_kernel<<<grid, SORT_THREADS, 0, (cudaStream_t)stream>>>(
-      keys, vals, out_keys, out_vals, C);
+  tile_sort_kernel<<<grid, SORT_THREADS, smem, (cudaStream_t)stream>>>(
+      keys, vals, out_keys, out_vals, tail_keys, tail_vals, count, C);
   return (int)cudaGetLastError();
 }
 
+// Merges within [0, count[r]) of every row and writes nothing past it;
+// cmax = max(count) (C when count is null) sizes the grid.  width must be a
+// multiple of MERGE_SPAN / 2.
 int run_merge(const int32_t* keys, const int32_t* vals, int32_t* out_keys,
-              int32_t* out_vals, int64_t rows, int64_t C, int64_t width,
-              void* stream) {
-  if (rows == 0 || C == 0) return 0;
-  dim3 grid((unsigned)((C + MERGE_THREADS - 1) / MERGE_THREADS),
-            (unsigned)rows);
+              int32_t* out_vals, const int64_t* count, int64_t rows,
+              int64_t C, int64_t cmax, int64_t width, void* stream) {
+  if (rows == 0 || cmax == 0) return 0;
+  if (width <= 0 || (2 * width) % MERGE_SPAN != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((cmax + MERGE_SPAN - 1) / MERGE_SPAN), (unsigned)rows);
   run_merge_kernel<<<grid, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-      keys, vals, out_keys, out_vals, C, width);
+      keys, vals, out_keys, out_vals, count, C, width);
   return (int)cudaGetLastError();
 }
 

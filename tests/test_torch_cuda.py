@@ -45,43 +45,86 @@ def _payload(rows, C, device):
                         device=device).reshape(rows, C)
 
 
-@pytest.mark.parametrize("rows,C,hi", [(1, 1, 5), (3, 4096, 50),
-                                       (2, 5000, 2 ** 31), (4, 12345, 7),
-                                       (16, 300_000, 2 ** 31)])
+T = bt.TILE
+# shapes: C below, at and just above a multiple of the tile; 256 rows (the
+# main path's p)
+SORT_SHAPES = [(1, 1), (4, T - 1), (4, T), (3, T + 1), (2, 5 * T),
+               (2, 5 * T + 3), (256, 2 * T + 100)]
+
+
+def _sort_inputs(rows, C, keys, counts, with_vals, device, seed=0):
+    """Keys all equal (the Zero instance), of 3-20 distinct values (the
+    diagonals fall inside long tie runs) or over the whole int32 range,
+    with the pad word as a real key; counts full (None), at the edges (0,
+    1, C) or ragged."""
+    g = np.random.default_rng(seed + rows + C)
+    if keys == "equal":
+        k = np.zeros((rows, C), np.int32)
+    elif keys == "few":
+        k = g.integers(0, int(g.integers(3, 21)), size=(rows, C)) * 1000
+    else:
+        k = g.integers(-2 ** 31, 2 ** 31, size=(rows, C))
+        k[0, :min(C, 10)] = 2 ** 31 - 1
+    k = torch.from_numpy(np.asarray(k, np.int64).astype(np.int32)).to(device)
+    if counts is None:
+        cnt = None
+    elif counts == "edges":
+        cnt = np.array([0, 1, C][:rows] + [C] * max(0, rows - 3))
+    else:
+        cnt = g.integers(0, C + 1, size=rows)
+        cnt[0] = C
+    if cnt is not None:
+        cnt = torch.from_numpy(np.asarray(cnt, np.int64)).to(device)
+    v = _payload(rows, C, device) if with_vals else None
+    return k, v, cnt
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) == (want[1] is None)
+    if want[1] is not None:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("rows,C", SORT_SHAPES)
+@pytest.mark.parametrize("keys", ["equal", "few", "wide"])
+@pytest.mark.parametrize("counts", [None, "edges", "ragged"])
 @pytest.mark.parametrize("with_vals", [True, False])
-def test_tile_sort_matches_plain(dev, rows, C, hi, with_vals):
-    k = _keys(rows, C, hi, 1, dev)
-    k[0, :min(C, 10)] = 2 ** 31 - 1          # the pad word as a real key
-    v = _payload(rows, C, dev) if with_vals else None
-    ks, vs = bt.sort_tiles(k, v)
-    rk, rv = bref.sort_tiles_ref(k, v, bt.TILE)
-    torch.cuda.synchronize()
-    assert torch.equal(ks, rk)
-    if with_vals:
-        assert torch.equal(vs, rv)
+def test_tile_sort_matches_plain(dev, rows, C, keys, counts, with_vals):
+    k, v, cnt = _sort_inputs(rows, C, keys, counts, with_vals, dev)
+    _same(bt.sort_tiles(k, v, cnt), bref.sort_tiles_ref(k, v, T, cnt))
 
 
-@pytest.mark.parametrize("rows,C,width", [(2, 8192, 4096), (3, 9000, 4096),
-                                          (2, 70_001, 16384),
-                                          (8, 300_000, 4096)])
-def test_run_merge_matches_plain(dev, rows, C, width):
-    k = _keys(rows, C, 20, 2, dev)
-    v = _payload(rows, C, dev)
-    k, v = bref._segment_sort(k, v, width)   # sorted runs of ``width``
-    ks, vs = bt.merge_runs(k.contiguous(), v.contiguous(), width)
-    rk, rv = bref.merge_runs_ref(k, v, width)
-    torch.cuda.synchronize()
-    assert torch.equal(ks, rk) and torch.equal(vs, rv)
+@pytest.mark.parametrize("rows,C,width", [
+    (2, 2 * T, T), (3, 3 * T - 1, T), (256, 3 * T + 7, T),
+    (2, 9 * T + 1, 4 * T), (2, (1 << 21) + 5, 1 << 20)])
+@pytest.mark.parametrize("keys", ["equal", "few", "wide"])
+@pytest.mark.parametrize("counts", [None, "edges", "ragged"])
+@pytest.mark.parametrize("with_vals", [True, False])
+def test_run_merge_matches_plain(dev, rows, C, width, keys, counts,
+                                 with_vals):
+    k, v, cnt = _sort_inputs(rows, C, keys, counts, with_vals, dev)
+    k, v = bref._segment_sort(k, v, width, cnt)  # sorted runs of width
+    _same(bt.merge_runs(k, v, width, cnt),
+          bref.merge_runs_ref(k, v, width, cnt))
 
 
-@pytest.mark.parametrize("rows,C", [(1, 1), (5, 4095), (4, 100_000)])
-def test_local_sort_fast_matches_stable_sort(dev, rows, C):
-    k = _keys(rows, C, 1000, 3, dev)
-    v = _payload(rows, C, dev)
-    ks, vs = bt.local_sort_fast(k, v)
-    rk, rv = bref.sort_ref(k, v)
-    torch.cuda.synchronize()
-    assert torch.equal(ks, rk) and torch.equal(vs, rv)
+@pytest.mark.parametrize("rows,C", [*SORT_SHAPES, (256, (1 << 18) + 3),
+                                    (2, (1 << 20) + 1)])
+@pytest.mark.parametrize("keys", ["equal", "few", "wide"])
+@pytest.mark.parametrize("counts", [None, "edges", "ragged"])
+@pytest.mark.parametrize("with_vals", [True, False])
+def test_local_sort_fast_matches_stable_sort(dev, rows, C, keys, counts,
+                                             with_vals):
+    k, v, cnt = _sort_inputs(rows, C, keys, counts, with_vals, dev)
+    before = dict(bt.LAUNCHES)
+    got = bt.local_sort_fast(k, v, cnt)
+    cmax = C if cnt is None else int(cnt.max())
+    assert bt.LAUNCHES["tile_sort"] == before["tile_sort"] + 1
+    assert bt.LAUNCHES["run_merge"] == (before["run_merge"]
+                                        + bt.ops.merge_passes(cmax))
+    _same(got, bref.sort_ref(k, v, cnt))
 
 
 def _partition_inputs(rows, C, nb, seed, device):

@@ -50,7 +50,8 @@ def _ref_u32(s):
 
 
 @pytest.mark.parametrize("hi", [4, 1000, 2 ** 32])
-@pytest.mark.parametrize("C", [1, 130, 4096, 5000])
+@pytest.mark.parametrize("C", [1, 130, 4096, 5000, bt.TILE - 1, bt.TILE,
+                               bt.TILE + 1])
 def test_plain_sort_matches_kernel_off_local_sort(kernels_off, hi, C):
     g = np.random.default_rng(C + hi % 97)
     keys = _u32(g, (4, C), hi)
@@ -69,6 +70,78 @@ def test_plain_sort_matches_kernel_off_local_sort(kernels_off, hi, C):
     ks, vs = bt.local_sort_fast(k, torch.from_numpy(idx.view(np.int32)))
     assert np.array_equal(_ref_u32(ks), np.asarray(rk))
     assert np.array_equal(vs.numpy().view(np.uint32), np.asarray(rv))
+
+
+def _counts(kind, rows, C, g):
+    if kind == "edges":
+        return np.array([0, 1, C, C // 2][:rows], np.int64)
+    cnt = g.integers(0, C + 1, size=rows)
+    cnt[0] = C
+    return cnt.astype(np.int64)
+
+
+@pytest.mark.parametrize("hi", [1, 4, 2 ** 32])      # 1: all keys equal
+@pytest.mark.parametrize("C", [1, 300, bt.TILE - 1, bt.TILE, bt.TILE + 1])
+@pytest.mark.parametrize("counts", ["edges", "ragged"])
+def test_count_aware_plain_sort_matches_kernel_off_local_sort(
+        kernels_off, hi, C, counts):
+    """The count-aware sort of the padded rows is the reference's
+    kernel-off ``local_sort`` and the full-row stable sort; on rows whose
+    tail is not padded it sorts the prefix and leaves the tail in place."""
+    g = np.random.default_rng(C + hi % 89 + len(counts))
+    keys = _u32(g, (4, C), hi)
+    keys[:, : min(C, 3)] = 0xFFFFFFFF            # real keys equal to the pad
+    idx = np.arange(4 * C, dtype=np.uint32).reshape(4, C)
+    cnt = _counts(counts, 4, C, g)
+
+    def one(k, v, c):
+        sh = jt.local_sort(jt.SortShard(k, {"idx": v}, c))
+        return sh.keys, sh.vals["idx"]
+    rk, rv = jax.vmap(one)(jnp.asarray(keys), jnp.asarray(idx),
+                           jnp.asarray(cnt.astype(np.int32)))
+    pad = np.arange(C)[None, :] >= cnt[:, None]
+    k = _port(np.where(pad, np.uint32(0xFFFFFFFF), keys))
+    v = torch.from_numpy(idx.view(np.int32))
+    count = torch.from_numpy(cnt)
+    ks, vs = bt.local_sort_fast(k, v, count)
+    assert np.array_equal(_ref_u32(ks), np.asarray(rk))
+    assert np.array_equal(vs.numpy().view(np.uint32), np.asarray(rv))
+    fk, fv = bref.sort_ref(k, v)
+    assert torch.equal(ks, fk) and torch.equal(vs, fv)
+    # a tail that is not padding stays where it is
+    raw = _port(keys)
+    ks, vs = bt.local_sort_fast(raw, v, count)
+    for r in range(4):
+        c = int(cnt[r])
+        want, order = torch.sort(raw[r, :c], stable=True)
+        assert torch.equal(ks[r, :c], want)
+        assert torch.equal(vs[r, :c], v[r, :c][order])
+        assert torch.equal(ks[r, c:], raw[r, c:])
+        assert torch.equal(vs[r, c:], v[r, c:])
+
+
+@pytest.mark.parametrize("width", [64, 100])
+@pytest.mark.parametrize("counts", ["edges", "ragged"])
+def test_count_aware_plain_tiles_and_merge(width, counts):
+    """Tile sort and run merge with a count: each segment of the valid
+    prefix sorted (merged) on its own, the tail untouched."""
+    g = np.random.default_rng(width + len(counts))
+    C = 5 * width + 7
+    keys = _port(_u32(g, (4, C), 6))
+    vals = torch.arange(4 * C, dtype=torch.int32).reshape(4, C)
+    cnt = torch.from_numpy(_counts(counts, 4, C, g))
+    tk, tv = bref.sort_tiles_ref(keys, vals, width, cnt)
+    mk, mv = bref.merge_runs_ref(tk, tv, width, cnt)
+    for seg, (ok, ov) in ((width, (tk, tv)), (2 * width, (mk, mv))):
+        for r in range(4):
+            c = int(cnt[r])
+            for a in range(0, c, seg):
+                b = min(a + seg, c)
+                want, order = torch.sort(keys[r, a:b], stable=True)
+                assert torch.equal(ok[r, a:b], want)
+                assert torch.equal(ov[r, a:b], vals[r, a:b][order])
+            assert torch.equal(ok[r, c:], keys[r, c:])
+            assert torch.equal(ov[r, c:], vals[r, c:])
 
 
 @pytest.mark.parametrize("hi", [3, 2 ** 32])
