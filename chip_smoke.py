@@ -243,13 +243,23 @@ def kernel_phases(torch):
           "bound_ms": bound(16 * n * (1 + passes), 0)[0]})
     # the main path's occupancy: about 2^18 valid keys per row (the level-0
     # output), then pad words; the library's full-row stable sort computes
-    # the same function there, because the pad word sorts last
+    # the same function there, because the pad word sorts last, and so
+    # does its sort of the longest prefix alone
     count = (1 << 18) - 2000 + (torch.arange(rows, device=dev) * 997) % 4000
     col = torch.arange(C, device=dev)
     keys = torch.where(col[None, :] < count[:, None], keys, pad_word)
     del col
+    def lib_prefix():
+        """The library's stable sort + gather of the longest valid prefix
+        only, the tail copied: the same function on ~1/8 of the data."""
+        w = int(count.max())
+        ks, order = torch.sort(keys[:, :w], dim=1, stable=True)
+        vs = torch.gather(vals[:, :w], 1, order)
+        return torch.cat([ks, keys[:, w:]], 1), torch.cat([vs, vals[:, w:]],
+                                                          1)
     got = bt.local_sort_fast(keys, vals, count)
     err = max(max_abs_err(torch, zip(got, lib_sort())),
+              max_abs_err(torch, zip(got, lib_prefix())),
               max_abs_err(torch, zip(got, bref.sort_ref(keys, vals, count))))
     if err != 0:
         raise AssertionError("count-aware local_sort_fast differs from a "
@@ -260,10 +270,13 @@ def kernel_phases(torch):
     occ = {"kernel_ms": cuda_ms(torch, lambda: bt.local_sort_fast(
         keys, vals, count)),
         "plain_ms": cuda_ms(torch, lambda: bref.sort_ref(keys, vals, count)),
-        "library_ms": cuda_ms(torch, lib_sort)}
+        "library_ms": cuda_ms(torch, lib_sort),
+        "library_prefix_ms": cuda_ms(torch, lib_prefix)}
     emit({"phase": "local_sort_occupancy", "shape": [rows, C],
           "valid_keys": valid, "merge_passes": passes, "max_abs_err": err,
           **occ, "kernel_over_library": occ["kernel_ms"] / occ["library_ms"],
+          "kernel_over_library_prefix": occ["kernel_ms"]
+          / occ["library_prefix_ms"],
           "bound_ms": bound(16 * valid * (1 + passes) + 16 * (n - valid),
                             0)[0]})
     # all keys equal (the Zero instance): every diagonal inside one tie run
@@ -468,7 +481,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {k: str(v.relative_to(src.parent))
                       for k, v in _build.SOURCES.items()}})
-    log = _build.BUILD_LOG.get("bitonic")        # None: built before
+    log = _build.BUILD_LOG.get("bitonic")        # None: no log kept
     emit({"phase": "ptxas", "source": "bitonic",
           "kernels": None if log is None else ptxas_report(log)})
 

@@ -26,13 +26,14 @@ what its counterpart does.  Device tensors hold the port's sign-flipped
 words (``types.py``); ``_put_keys``/``_get_keys`` (and ``_put_bits``/
 ``_get_bits`` for uint32 planes carried in int32) are the only crossings.
 4-byte keys sort by tie, then stably by key, in two int32 passes of
-``types.local_sort`` (the Hopper local-sort kernels on the card), which
+``local_sort_fast`` (the Hopper local-sort kernels on the card), which
 equals the reference's sort of the composite ``key << 32 | tie``; 8-byte
 keys keep separate planes and sort the same way with torch's stable sort,
 which is the reference's ``lexsort`` (ties are unique).
 
 Each pass runs under a ``record_function`` scope (``ext:runs``,
-``ext:splitters``, ``ext:exchange``, ``ext:merge``).  The ``io(direction,
+``ext:splitters``, ``ext:exchange``, ``ext:merge``), and every device
+sort of a chunk under ``ext:sort``.  The ``io(direction,
 nbytes)`` callback of ``form_runs``/``merge_runs`` is called around every
 host↔device copy; the trace that records it in the reference
 (``CountingCollectives``) is not ported yet.
@@ -52,7 +53,8 @@ from torch.profiler import record_function
 from . import comm
 from .hypercube import _alltoall_route
 from .rams import _INVALID, _M32, _mix32, as_int32_bits, quantile_splitters
-from .types import SortShard, local_sort, pad_value, resolve_device
+from .types import SortShard, pad_value, resolve_device
+from repro_torch.kernels.bitonic import local_sort_fast
 from repro_torch.kernels.kway import kway_classify
 
 _HI32 = np.uint32(0xFFFFFFFF)
@@ -131,9 +133,10 @@ def _lex_order(keys, ties):
     return torch.gather(order, 1, by_key)
 
 
-def _sort_planes(k, i, count):
+def _sort_planes(k, i, count, cmax: int):
     """Sort padded (rows, L) (key, idx) chunks by the external (key, tie)
-    order, each row's first ``count`` entries valid.
+    order, each row's first ``count`` entries valid, ``cmax`` the largest
+    count (a host int).
 
     Returns the (key, tie, idx) planes, tie as int32 bits, with the invalid
     tail at (pad, 0xFFFFFFFF).  The tie is derived here (``_mix32(idx)``),
@@ -141,22 +144,21 @@ def _sort_planes(k, i, count):
     L = k.shape[1]
     valid = torch.arange(L, device=k.device)[None, :] < count[:, None]
     tie = torch.where(valid, _mix32(i.to(torch.int64)), _M32)
+    km = torch.where(valid, k, pad_value(k.dtype))
     if k.dtype == torch.int32:
-        # by tie, then stably by key: two int32 local sorts (the Hopper
-        # kernels on the card) carrying the positions, which equal one
-        # stable sort of the composite key << 32 | tie
+        # by tie, then stably by key: two passes of the local sort (the
+        # Hopper kernels on the card) carrying the positions, which equal
+        # one stable sort of the composite key << 32 | tie.  The caller's
+        # cmax spares both passes the read back of count.max().
         pos = torch.arange(L, dtype=torch.int32, device=k.device)
-        by_tie = local_sort(SortShard(
-            keys=(tie - (1 << 31)).to(torch.int32),
-            vals={"pos": pos.expand_as(k).contiguous()}, count=count))
-        order = by_tie.vals["pos"]
-        by_key = local_sort(SortShard(
-            keys=torch.gather(k, 1, order.to(torch.int64)),
-            vals={"pos": order}, count=count))
-        perm = by_key.vals["pos"].to(torch.int64)
-        return (by_key.keys, as_int32_bits(torch.gather(tie, 1, perm)),
+        _, order = local_sort_fast(
+            (tie - (1 << 31)).to(torch.int32), pos.expand_as(k).contiguous(),
+            count, max_count=cmax)
+        ks, order = local_sort_fast(torch.gather(km, 1, order.long()), order,
+                                    count, max_count=cmax)
+        perm = order.long()
+        return (ks, as_int32_bits(torch.gather(tie, 1, perm)),
                 torch.gather(i, 1, perm))
-    km = torch.where(valid, k, pad_value(torch.int64))
     perm = _lex_order(km, tie)
     return (torch.gather(km, 1, perm),
             as_int32_bits(torch.gather(tie, 1, perm)),
@@ -222,9 +224,10 @@ def _sorted_chunks(chunk, R: int, *, device, double_buffer: bool, io):
             idd.record_stream(main)
             kd = kd ^ _FLIP[kd.dtype]
         count = torch.as_tensor(np.asarray(cnt, np.int64), device=device)
-        ks, ts, is_ = _sort_planes(kd, idd, count)
-        del kd, idd
         w = int(np.max(cnt, initial=0))
+        with record_function("ext:sort"):
+            ks, ts, is_ = _sort_planes(kd, idd, count, w)
+        del kd, idd
         out = (_get_keys(ks[:, :w]), _get_bits(ts[:, :w]),
                _get_bits(is_[:, :w]))
         io("ext:d2h", sum(a.nbytes for a in out))
@@ -436,8 +439,9 @@ def _exchange_pass(kr, ir, counts, s_keys, s_ties, *, p: int, slot_cap: int,
                                          count=c), dest, p, slot_cap)
     del keys, i, dest
     ok = out.keys if wide else (out.keys >> 32).to(torch.int32)
-    ko, to, io_ = _sort_planes(ok, out.vals["idx"], out.count)
     w = int(out.count.max())
+    with record_function("ext:sort"):
+        ko, to, io_ = _sort_planes(ok, out.vals["idx"], out.count, w)
     return (_get_keys(ko[:, :w]), _get_bits(to[:, :w]),
             _get_bits(io_[:, :w]), out.count.cpu().numpy(),
             ovf.cpu().numpy())

@@ -31,7 +31,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}          # name -> nvcc's output (ptxas -v)
+BUILD_LOG: Dict[str, str] = {}          # name -> nvcc's output (ptxas -v),
+                                        # kept beside the library as .log
 
 
 def _nvcc() -> str:
@@ -51,6 +52,9 @@ def _target(name: str) -> Path:
 def _start(name: str):
     out = _target(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        if log.exists():
+            BUILD_LOG[name] = log.read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -66,6 +70,7 @@ def _finish(name: str, job) -> None:
     BUILD_LOG[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 

@@ -19,8 +19,9 @@
 //
 // * tile_sort is a block merge sort of TILE = 8192 keys, 512 threads x 16
 //   items.  Keys and payload are read once, coalesced, into shared memory.
-//   Each thread sorts its 16 items in registers (odd-even transposition,
-//   swapping only strictly greater neighbours, so it is stable), then 9
+//   Each thread sorts its 16 items in registers as 64-bit (key, in-tile
+//   index) words through a 60-comparator network (distinct words, so the
+//   order is stable), then 9
 //   rounds of merge-path merges in shared memory double the runs from 16 to
 //   8192: each thread finds its diagonal by binary search and merges 16
 //   outputs serially, left ties first.  Only the in-tile index travels with
@@ -57,6 +58,7 @@
 #define TILE 8192                                  // keys per tile sort
 #define SORT_THREADS 512
 #define SORT_ITEMS (TILE / SORT_THREADS)           // 16
+static_assert(SORT_ITEMS == 16, "the register sort is sort16");
 #define MERGE_THREADS 256
 #define MERGE_ITEMS 16
 #define MERGE_SPAN (MERGE_THREADS * MERGE_ITEMS)   // outputs per merge block
@@ -65,6 +67,42 @@
 #define PADDED(n) ((n) + ((n) >> 5) + 64)
 
 __device__ __forceinline__ int pad(int x) { return x + (x >> 5); }
+
+// (key, in-tile index) as one unsigned word whose order is the stable
+// order of the keys: the sign-flipped key above, the index below.
+__device__ __forceinline__ uint64_t order_word(int32_t key, int index) {
+  return ((uint64_t)((uint32_t)key ^ 0x80000000u) << 32) | (uint32_t)index;
+}
+
+__device__ __forceinline__ void cmp_swap(uint64_t& a, uint64_t& b) {
+  const bool s = b < a;
+  const uint64_t lo = s ? b : a;
+  b = s ? a : b;
+  a = lo;
+}
+
+// Sorts 16 words ascending: a 60-comparator network in 10 layers, one line
+// per layer (tests/test_torch_local_sort.py runs it on every 0-1 input).
+// The words are distinct (key, index) pairs, so the result is the stable
+// order of the keys.
+__device__ __forceinline__ void sort16(uint64_t (&u)[16]) {
+#define CS(a, b) cmp_swap(u[a], u[b])
+  CS(0, 13); CS(1, 12); CS(2, 15); CS(3, 14); CS(4, 8); CS(5, 6); CS(7, 11);
+  CS(9, 10);
+  CS(0, 5); CS(1, 7); CS(2, 9); CS(3, 4); CS(6, 13); CS(8, 14); CS(10, 15);
+  CS(11, 12);
+  CS(0, 1); CS(2, 3); CS(4, 5); CS(6, 8); CS(7, 9); CS(10, 11); CS(12, 13);
+  CS(14, 15);
+  CS(0, 2); CS(1, 3); CS(4, 10); CS(5, 11); CS(6, 7); CS(8, 9); CS(12, 14);
+  CS(13, 15);
+  CS(1, 2); CS(3, 12); CS(4, 6); CS(5, 7); CS(8, 10); CS(9, 11); CS(13, 14);
+  CS(1, 4); CS(2, 6); CS(5, 8); CS(7, 10); CS(9, 13); CS(11, 14);
+  CS(2, 4); CS(3, 6); CS(9, 12); CS(11, 13);
+  CS(3, 5); CS(6, 8); CS(7, 9); CS(10, 12);
+  CS(3, 4); CS(5, 6); CS(7, 8); CS(9, 10); CS(11, 12);
+  CS(6, 7); CS(8, 9);
+#undef CS
+}
 
 // Merge path in shared memory: runs a = s[a0, a0 + la) and b = s[b0, b0 +
 // lb), each sorted.  Returns how many of a's keys are among the first diag
@@ -165,23 +203,16 @@ tile_sort_kernel(const int32_t* __restrict__ keys,
   const int x0 = tid * SORT_ITEMS;
   int32_t k[SORT_ITEMS];
   int ix[SORT_ITEMS];
+  {
+    uint64_t u[SORT_ITEMS];
 #pragma unroll
-  for (int j = 0; j < SORT_ITEMS; ++j) {
-    k[j] = sk[pad(x0 + j)];
-    ix[j] = x0 + j;
-  }
+    for (int j = 0; j < SORT_ITEMS; ++j)
+      u[j] = order_word(sk[pad(x0 + j)], x0 + j);
+    sort16(u);
 #pragma unroll
-  for (int r = 0; r < SORT_ITEMS; ++r) {
-#pragma unroll
-    for (int j = r & 1; j + 1 < SORT_ITEMS; j += 2) {
-      if (k[j + 1] < k[j]) {
-        const int32_t tk = k[j];
-        k[j] = k[j + 1];
-        k[j + 1] = tk;
-        const int ti = ix[j];
-        ix[j] = ix[j + 1];
-        ix[j + 1] = ti;
-      }
+    for (int j = 0; j < SORT_ITEMS; ++j) {
+      k[j] = (int32_t)((uint32_t)(u[j] >> 32) ^ 0x80000000u);
+      ix[j] = (int)(uint32_t)u[j];
     }
   }
   for (int L = SORT_ITEMS; L < TILE; L <<= 1) {   // runs of L -> runs of 2L

@@ -166,12 +166,14 @@ def merge_runs(keys, vals=None, width: int = TILE, count=None):
     return ok, ov
 
 
-def local_sort_fast(keys, vals=None, count=None):
+def local_sort_fast(keys, vals=None, count=None, *, max_count=None):
     """Stable sort of every row's valid prefix; returns (keys,
-    vals-or-None)."""
+    vals-or-None).  A caller that holds ``max(count)`` on the host passes
+    it as ``max_count``, which saves the read back."""
     if keys.device.type == "cpu":
         return ref.sort_ref(keys, vals, count)
     _check_args(keys, vals, count)
-    cmax = _max_count(count, keys.shape[1])
+    cmax = (_max_count(count, keys.shape[1]) if max_count is None
+            else int(max_count))
     return schedule(keys, vals, count, cmax, launch_tile_sort,
                     launch_run_merge)

@@ -334,3 +334,18 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
                     n_buckets=2)
     with pytest.raises(ValueError, match="CUDA"):
         kw.kway_classify(k[0], k[0], k[0, :1], k[0, :1], n_buckets=2)
+
+
+def test_build_log_is_kept_beside_a_reused_library(tmp_path, monkeypatch):
+    """A library built earlier is reused without nvcc, and its ptxas log is
+    read back from beside it, so the register report survives a cached
+    build."""
+    from repro_torch.kernels import _build
+    lib = tmp_path / "libbitonic_0123456789abcdef.so"
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 64 registers")
+    monkeypatch.setattr(_build, "_target", lambda name: lib)
+    monkeypatch.setattr(_build, "BUILD_LOG", {})
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("rebuilt"))
+    _build.build_all(["bitonic"])
+    assert _build.BUILD_LOG == {"bitonic": "ptxas info    : Used 64 registers"}

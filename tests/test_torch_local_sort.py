@@ -6,6 +6,9 @@ straight to the plain sort, so these tests are where the schedule runs
 off the card.  The plain launchers below write what the CUDA kernels write
 and nothing else: the tile sort the sorted prefix into its output and the
 tail into the tail buffer, a merge pass only inside the counts."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -109,3 +112,20 @@ def test_cpu_wrappers_take_the_count():
             (bt.local_sort_fast(keys, vals, count),
              bref.sort_ref(keys, vals, count))):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_tile_sort_register_network_sorts_every_0_1_input():
+    """The comparators of ``sort16`` in csrc/bitonic.cu, read from the
+    source, sort all 2^16 inputs of zeros and ones, hence every input
+    (the 0-1 principle)."""
+    src = (Path(ops.__file__).parent / "csrc" / "bitonic.cu").read_text()
+    body = src[src.index("void sort16("):]
+    body = body[:body.index("#undef CS")]
+    net = [(int(a), int(b)) for a, b in re.findall(r"CS\((\d+), (\d+)\);",
+                                                  body)]
+    assert len(net) == 60 and all(0 <= a < b < 16 for a, b in net)
+    x = (np.arange(1 << 16)[:, None] >> np.arange(16)[None, :]) & 1
+    for a, b in net:
+        x[:, a], x[:, b] = (np.minimum(x[:, a], x[:, b]),
+                            np.maximum(x[:, a], x[:, b]))
+    assert (np.diff(x, axis=1) >= 0).all()

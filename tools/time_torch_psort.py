@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Wall time of ``repro_torch.psort`` on the GPU, for one tree of the port.
 
-    python3 tools/time_torch_psort.py [--src src] [--p 256] [--log-n 26]
-        [--instances Uniform,Zero,AllToOne] [--reps 3]
-        [--external-p 16] [--external-log-n 28] [--budget 2097152]
+    python3 tools/time_torch_psort.py [--src src] [--label name]
+        [--p 256] [--reps 3] [--external-p 0]
+        [--external-instances Uniform,Zero]
 
 Imports ``repro_torch`` from ``--src`` (default: this repository's
 ``src``), so that two trees -- for example a ``git archive`` of the parent
 commit and this one -- can be timed in turns on one card in one call.
-After one warm-up sort it times ``--reps`` sorts of each instance at
-``(--p, 2^--log-n)`` with the host clock around work that ends in
-``torch.cuda.synchronize()``, and prints one JSON line per sort: wall
-seconds, kernel launches and, for the external lane (``--external-p`` >
-0, budget ``--budget``), the host-clock seconds of passes A-D.  ``--p 0``
-skips the RAMS cell.  The first line is the card's name and power limit
-(nvidia-smi).  It needs a CUDA device and fails without one.
+After one warm-up sort it times ``--reps`` sorts of each instance with the
+host clock around work that ends in ``torch.cuda.synchronize()``, and
+prints one JSON line per sort: wall seconds, kernel launches and, for the
+external lane, the host-clock seconds of passes A-D.  The cells are those
+of ``chip_smoke.py``: RAMS at (``--p``, 2^26) on Uniform, Zero and
+AllToOne (``--p 0`` skips it), and the external lane at (``--external-p``,
+2^28) with budget 2^21 (``--external-p 0``, the default, skips it).  The
+first line is the card's name and power limit (nvidia-smi).  It needs a
+CUDA device and fails without one.
 """
 from __future__ import annotations
 
@@ -25,6 +27,11 @@ import sys
 import time
 from pathlib import Path
 
+LOG_N = 26
+INSTANCES = "Uniform,Zero,AllToOne"
+EXTERNAL_LOG_N = 28
+BUDGET = 1 << 21
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -32,13 +39,9 @@ def main(argv=None) -> int:
                                          / "src"))
     ap.add_argument("--label", default=None)
     ap.add_argument("--p", type=int, default=256)
-    ap.add_argument("--log-n", type=int, default=26)
-    ap.add_argument("--instances", default="Uniform,Zero,AllToOne")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--external-p", type=int, default=0)
-    ap.add_argument("--external-log-n", type=int, default=28)
     ap.add_argument("--external-instances", default="Uniform,Zero")
-    ap.add_argument("--budget", type=int, default=1 << 21)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -86,18 +89,17 @@ def main(argv=None) -> int:
                 print(json.dumps(row), flush=True)
                 del info
 
-    n = 1 << args.log_n
     if args.p:
-        run("rams", SortConfig(p=args.p), args.p, args.log_n,
-            args.instances,
-            generate_instance("Uniform", args.p, n).astype(np.uint32))
+        run("rams", SortConfig(p=args.p), args.p, LOG_N, INSTANCES,
+            generate_instance("Uniform", args.p, 1 << LOG_N).astype(
+                np.uint32))
     if args.external_p:
         p = args.external_p
-        cfg = SortConfig(p=p, external=ExternalPolicy(budget=args.budget))
-        warm = generate_instance("Uniform", p, args.budget * p * 2).astype(
+        cfg = SortConfig(p=p, external=ExternalPolicy(budget=BUDGET))
+        warm = generate_instance("Uniform", p, BUDGET * p * 2).astype(
             np.uint32)
-        run("external", cfg, p, args.external_log_n,
-            args.external_instances, warm)
+        run("external", cfg, p, EXTERNAL_LOG_N, args.external_instances,
+            warm)
     return 0
 
 
