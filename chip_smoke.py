@@ -37,7 +37,17 @@ Phases, each fatal on failure (no phase catches its own error):
    and the local-sort kernels launched);
 7. the card and the CPU agree bit for bit on the external lane at p = 16,
    n = 2^20, budget 2^13, and double buffering off equals on;
-8. one ``kernels`` JSON line, the card line, and the ``ok`` line last.
+8. RQuick at p = 2^18 emulated PEs, n = 2^26 uint32 keys (n/p = 2^8):
+   its two kernels at the shapes of that path (``tile_sort`` on
+   (2^18, 1024) rows with an int32 payload and 2^8 to 2^10 valid keys per
+   row; ``partition_classify`` with nb = 2 on the lifted key planes, both
+   ``inclusive`` values) against their plain versions, timed beside their
+   bounds; ``psort(algorithm="rquick")`` end to end on Uniform, Zero and
+   AllToOne after a warm-up, with the checks of phase 4; and the card
+   against the CPU bit for bit for ``rquick`` and ``ntb-quick`` at p = 64,
+   n = 2^20;
+9. one ``kernels`` JSON line (a row per kernel and path), the card line,
+   and the ``ok`` line last.
 
 It imports torch, numpy and the port only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -63,10 +73,13 @@ P_CHECK, LOG_N_CHECK, OVERFLOW_CHECK = 64, 20, 3442
 P_EXT, LOG_N_EXT, BUDGET_EXT = 16, 28, 1 << 21
 INSTANCES_EXT = ("Uniform", "Zero")
 LOG_N_EXT_CHECK, BUDGET_EXT_CHECK = 20, 1 << 13
+P_RQUICK, LOG_N_RQUICK = 1 << 18, 26
+INSTANCES_RQUICK = ("Uniform", "Zero", "AllToOne")
 # the kernels each path launches
 RAMS_KERNELS = ("tile_sort", "run_merge", "partition_classify",
                 "partition_rank")
 EXTERNAL_KERNELS = ("kway_classify", "tile_sort", "run_merge")
+RQUICK_KERNELS = ("tile_sort", "partition_classify")
 
 
 def emit(obj) -> None:
@@ -312,6 +325,9 @@ def kernel_phases(torch):
     n = rows * C
     tiles = -(-C // pt.PTILE)
     hist_bytes = rows * tiles * (nb + 1) * 4
+    # keys and ties are read only below the count, buckets written for all
+    # slots; plus the histogram and each row's splitters and count
+    valid = int(count.sum())
     cl = pt.classify(keys, ties, s_keys, s_ties, count, n_buckets=nb)
     record("partition_classify", src_p,
            "src/repro/kernels/partition/partition.py:72", cl,
@@ -321,8 +337,8 @@ def kernel_phases(torch):
                                n_buckets=nb),
            lambda: pref.classify_ref(keys, ties, s_keys, s_ties, count,
                                      n_buckets=nb, tile=pt.PTILE),
-           nbytes=12 * n + hist_bytes,
-           ops=int(count.sum()) * (nb - 1).bit_length(), shape=[rows, C])
+           nbytes=8 * valid + 4 * n + hist_bytes + rows * (8 * nb),
+           ops=valid * (nb - 1).bit_length(), shape=[rows, C])
     bucket, th = cl
     del cl
     off = torch.cumsum(th, dim=1, dtype=torch.int32) - th
@@ -403,6 +419,151 @@ def kway_phase(torch):
         del keys, ties, got
         torch.cuda.empty_cache()
     return results
+
+
+def rquick_kernel_phase(torch):
+    """Phase 8, first part: ``tile_sort`` and ``partition_classify`` at the
+    shapes of the RQuick path at p = 2^18, n = 2^26 — rows of C = 1024
+    (twice the input capacity 512) holding 2^8 to 2^10 valid keys, and
+    one splitter per row over the lifted (hi, lo) planes, whose hi word is
+    0 or 1 (the key 0xFFFFFFFF lifts to 2^32)."""
+    from repro_torch.core.median import lift
+    from repro_torch.core.rquick import _planes
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels import partition as pt
+    from repro_torch.kernels.bitonic import ref as bref
+    from repro_torch.kernels.partition import ref as pref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    rows = P_RQUICK
+    C = 2 * 2 * ((1 << LOG_N_RQUICK) // P_RQUICK)
+    pad_word = 2 ** 31 - 1                   # the flip of 0xFFFFFFFF
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, C), generator=g,
+                         device=dev, dtype=torch.int32)
+    keys[::7, 0] = pad_word                  # valid keys of 0xFFFFFFFF
+    vals = torch.arange(rows * C, device=dev,
+                        dtype=torch.int32).reshape(rows, C)
+    count = C // 4 + (torch.arange(rows, device=dev) * 997) % (3 * C // 4 + 1)
+    col = torch.arange(C, device=dev)
+    keys = torch.where(col[None, :] < count[:, None], keys, pad_word)
+    del col
+    valid = int(count.sum())
+    rows_out = []
+
+    def record(*args, **kw):
+        row = measure(torch, {}, *args, path="rquick", **kw)
+        if kw.get("inclusive", True):        # one row per kernel kept
+            rows_out.append(row)
+
+    def lib_sort():
+        """The library's stable row sort + payload gather: the same
+        function, because the tail past the count holds pad words, which
+        sort last and keep their order."""
+        ks, order = torch.sort(keys, dim=1, stable=True)
+        return ks, torch.gather(vals, 1, order)
+
+    got = bt.sort_tiles(keys, vals, count)
+    if max_abs_err(torch, zip(got, lib_sort())) != 0:
+        raise AssertionError("tile_sort at the RQuick shape differs from "
+                             "the library's stable sort")
+    record("tile_sort", "src/repro_torch/kernels/bitonic/csrc/bitonic.cu",
+           "src/repro/kernels/bitonic/bitonic.py:121", got,
+           bref.sort_tiles_ref(keys, vals, bt.TILE, count),
+           lambda: bt.sort_tiles(keys, vals, count),
+           lambda: bref.sort_tiles_ref(keys, vals, bt.TILE, count),
+           nbytes=16 * rows * C, ops=valid * (C.bit_length() - 1),
+           library=lib_sort, shape=[rows, C], valid_keys=valid)
+    sorted_keys = got[0]
+    del got, vals
+    torch.cuda.empty_cache()
+    e_key, e_tie = _planes(lift(sorted_keys))
+    pick = (torch.arange(rows, device=dev) * 7919) % count
+    s_key, s_tie = _planes(lift(torch.gather(sorted_keys, 1,
+                                             pick[:, None])))
+    del sorted_keys, pick
+    for inclusive in (True, False):
+        cl = pt.classify(e_key, e_tie, s_key, s_tie, count, n_buckets=2,
+                         inclusive=inclusive)
+        record("partition_classify",
+               "src/repro_torch/kernels/partition/csrc/partition.cu",
+               "src/repro/kernels/partition/partition.py:72", cl,
+               pref.classify_ref(e_key, e_tie, s_key, s_tie, count,
+                                 n_buckets=2, tile=pt.PTILE,
+                                 inclusive=inclusive),
+               lambda: pt.classify(e_key, e_tie, s_key, s_tie, count,
+                                   n_buckets=2, inclusive=inclusive),
+               lambda: pref.classify_ref(e_key, e_tie, s_key, s_tie, count,
+                                         n_buckets=2, tile=pt.PTILE,
+                                         inclusive=inclusive),
+               # as at the RAMS shape: reads below the count only
+               nbytes=8 * valid + 4 * rows * C + rows * (8 * 2 + 4 * 3),
+               ops=valid,
+               shape=[rows, C], nb=2, inclusive=inclusive)
+        del cl
+    del e_key, e_tie, s_key, s_tie, keys, count
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def rquick_phase(torch, np, psort, SortConfig, generate_instance,
+                 launch_counts, reset_launch_counts):
+    """Phase 8, second and third parts: ``psort`` with RQuick at p = 2^18,
+    n = 2^26 end to end, then the card against the CPU at p = 64.
+    Returns the launches of the first measured sort."""
+    n = 1 << LOG_N_RQUICK
+    cfg = SortConfig(p=P_RQUICK, algorithm="rquick")
+    first = None
+    for i, name in enumerate(INSTANCES_RQUICK):
+        x = generate_instance(name, P_RQUICK, n).astype(np.uint32)
+        if i == 0:                                   # warm-up
+            psort(x, cfg)
+            torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, info = psort(x, cfg, return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_sorted(torch, np, x, out, info, n)
+        missing = [k for k in RQUICK_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the RQuick "
+                                 f"path: {missing}")
+        if info["algorithm"] != "rquick":
+            raise AssertionError(f"algorithm {info['algorithm']} ran")
+        if first is None:
+            first = launches
+        emit({"phase": "rquick_psort", "instance": name, "p": P_RQUICK,
+              "n": n, "algorithm": info["algorithm"], "wall_s": wall,
+              "keys_per_s": n / wall, "max_memory_allocated": peak,
+              "balance": info["balance"], "overflow": info["overflow"],
+              "launches": launches})
+        del out, info, x
+        torch.cuda.empty_cache()
+
+    n = 1 << LOG_N_CHECK
+    x = generate_instance("Uniform", P_CHECK, n).astype(np.uint32)
+    for algorithm in ("rquick", "ntb-quick"):
+        cfg = SortConfig(p=P_CHECK, algorithm=algorithm)
+        go, gi = psort(x, cfg, return_info=True, device="cuda")
+        co, ci = psort(x, cfg, return_info=True, device="cpu")
+        same = (torch.equal(go.view(torch.int32).cpu(), co.view(torch.int32))
+                and torch.equal(gi["perm"].cpu(), ci["perm"])
+                and torch.equal(gi["counts"].cpu(), ci["counts"])
+                and gi["overflow"] == ci["overflow"])
+        emit({"phase": "rquick_cuda_vs_cpu", "algorithm": algorithm,
+              "p": P_CHECK, "n": n, "instance": "Uniform",
+              "identical": same, "overflow_cuda": gi["overflow"],
+              "overflow_cpu": ci["overflow"]})
+        if not same:
+            raise AssertionError(f"{algorithm}: cuda and cpu runs differ")
+        check_sorted(torch, np, x, go, gi, n)
+    return first
 
 
 def check_sorted(torch, np, x_np, out, info, n):
@@ -606,20 +767,29 @@ def main() -> int:
             np.uint32)):
         raise AssertionError("external output differs from np.sort(input)")
 
-    # --- 8. summary ------------------------------------------------------------
+    # --- 8. RQuick at p = 2^18, n = 2^26 --------------------------------------
+    rquick_rows = rquick_kernel_phase(torch)
+    rquick_launches = rquick_phase(torch, np, psort, SortConfig,
+                                   generate_instance, launch_counts,
+                                   reset_launch_counts)
+
+    # --- 9. summary ------------------------------------------------------------
+    # a row per kernel and path: its time at the shapes of that path and its
+    # launches in that path's measured run (RAMS where a kernel runs there)
     rows = []
-    # each kernel's launches on its main path: RAMS where it runs there
-    path_launches = {**{k: ext_launches[k] for k in EXTERNAL_KERNELS},
-                     **{k: main_launches[k] for k in RAMS_KERNELS}}
     for name, row in kernels.items():
-        rows.append({"name": name, "route": row["route"],
-                     "source": row["source"], "replaces": row["replaces"],
-                     "launches": path_launches[name],
-                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"],
-                     "library_ms": row["library_ms"]})
-    emit({"kernels": rows})
+        path = "rams" if name in RAMS_KERNELS else "external"
+        rows.append((row, path, (main_launches if path == "rams"
+                                 else ext_launches)[name]))
+    for row in rquick_rows:
+        rows.append((row, "rquick", rquick_launches[row["name"]]))
+    emit({"kernels": [
+        {"name": row["name"], "path": path, "route": row["route"],
+         "source": row["source"], "replaces": row["replaces"],
+         "launches": launches, "max_abs_err": row["max_abs_err"],
+         "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+         "library_ms": row["library_ms"]} for row, path, launches in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Public API: ``psort`` on the sim backend with RAMS and the external
-lane (counterpart of ``repro/core/api.py``).
+"""Public API: ``psort`` on the sim backend with RAMS, RQuick/NTB-Quick
+and the external lane (counterpart of ``repro/core/api.py``).
 
 The sim backend runs p PEs on one device; here every PE is a row of a
 (p, C) tensor and the per-PE body of the reference (``_sort_body``) runs
@@ -12,6 +12,7 @@ wrapper takes its plain version; it never moves to the CPU on its own.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Optional
@@ -23,6 +24,7 @@ from torch.profiler import record_function
 from .external import (ExternalPolicy, _get_keys, _psort_external_once,
                        _put_keys)
 from .rams import as_int32_bits, rams
+from .rquick import rquick
 from .types import (int_to_key, key_to_int, make_shard, pad_value,
                     resolve_device)
 
@@ -40,7 +42,6 @@ _UNPORTED = {
 }
 _ALGORITHMS = {
     "auto": "item 8 (selection)",
-    "rquick": "item 6 (RQuick)", "ntb-quick": "item 6 (RQuick)",
     "ntb-ams": "item 7 (the other algorithms)",
     "rfis": "item 7 (the other algorithms)",
     "bitonic": "item 7 (the other algorithms)",
@@ -49,8 +50,15 @@ _ALGORITHMS = {
     "gatherm": "item 7 (the other algorithms)",
     "allgatherm": "item 7 (the other algorithms)",
 }
-_RAMS_KW = ("seed", "levels", "level_bits", "oversample", "tie_break",
-            "shuffle", "slot_factor")
+# the ported algorithms: each one's function and the keywords it takes
+_PORTED = {
+    "rams": (rams, ("seed", "levels", "level_bits", "oversample",
+                    "tie_break", "shuffle", "slot_factor")),
+    "rquick": (rquick, ("seed", "window_k", "robust", "shuffle",
+                        "tie_break", "capacity", "dims")),
+}
+_PORTED["ntb-quick"] = (functools.partial(rquick, robust=False),
+                        _PORTED["rquick"][1])
 
 
 @dataclasses.dataclass(frozen=True, init=False)
@@ -58,10 +66,12 @@ class SortConfig:
     """The knobs of one sort that this slice honours.
 
     ``p`` (PE count, a power of two), ``backend`` ("sim"), ``algorithm``
-    ("rams"), ``capacity_factor`` (slack of the per-PE buffers), ``levels``
-    (RAMS level count) and ``algo_kw`` (RAMS keywords: ``seed``,
+    ("rams", "rquick" or "ntb-quick"), ``capacity_factor`` (slack of the
+    per-PE buffers), ``levels`` (RAMS level count) and ``algo_kw`` (the
+    algorithm's keywords, as a sorted tuple of pairs: for RAMS ``seed``,
     ``level_bits``, ``oversample``, ``tie_break``, ``shuffle``,
-    ``slot_factor``), as a sorted tuple of pairs; ``external``
+    ``slot_factor``; for RQuick ``seed``, ``window_k``, ``robust``,
+    ``shuffle``, ``tie_break``, ``capacity``, ``dims``); ``external``
     (an :class:`ExternalPolicy`, or None) and ``algorithm="external"``
     select the out-of-core lane.  Asking for a knob of the
     reference that is not ported raises ``NotImplementedError`` naming the
@@ -94,7 +104,7 @@ class SortConfig:
                                                    ExternalPolicy):
             raise TypeError(f"external must be an ExternalPolicy, got "
                             f"{type(external).__name__}")
-        if algorithm not in ("rams", "external"):
+        if algorithm not in _PORTED and algorithm != "external":
             if algorithm not in _ALGORITHMS:
                 raise ValueError(f"unknown algorithm {algorithm!r}")
             raise NotImplementedError(
@@ -106,9 +116,11 @@ class SortConfig:
                 f"overlap is not ported yet: ROADMAP queue 1 "
                 f"{_UNPORTED['overlap']}")
         kw.pop("overlap", None)
-        unknown = set(kw) - set(_RAMS_KW)
+        known = _PORTED.get(algorithm, _PORTED["rams"])[1]
+        unknown = set(kw) - set(known)
         if unknown:
-            raise ValueError(f"unknown RAMS keywords {sorted(unknown)}")
+            raise ValueError(f"unknown {algorithm.upper()} keywords "
+                             f"{sorted(unknown)}")
         kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
         for name, value in (("p", p), ("backend", backend),
                             ("algorithm", algorithm),
@@ -122,12 +134,13 @@ class SortConfig:
         return dataclasses.replace(self, **changes)
 
 
-def _sort_body(keys2d, row_counts, p, capacity, algo_kw):
+def _sort_body(keys2d, row_counts, p, capacity, algorithm, algo_kw):
     """The reference's per-PE body over all p rows at once.
 
     Returns (keys (p, ≤ capacity) int32 words, idx int32 rows holding uint32
-    indices, count (p,), overflow (p,)); RAMS's output capacity is its
-    input capacity."""
+    indices, count (p,), overflow (p,)); the output capacity of RAMS and
+    RQuick is the input capacity (RQuick's shards grow to twice it inside),
+    and what is cut counts in the overflow."""
     per = keys2d.shape[1]
     dev = keys2d.device
     # global index payload proves permutation-ness (uint32 values)
@@ -137,7 +150,7 @@ def _sort_body(keys2d, row_counts, p, capacity, algo_kw):
         shard = make_shard(keys2d, count=row_counts, capacity=capacity,
                            vals={"idx": idx})
     del idx
-    out, overflow = rams(shard, p, **algo_kw)
+    out, overflow = _PORTED[algorithm][0](shard, p, **algo_kw)
     overflow = overflow + torch.clamp(out.count - capacity, min=0)
     ok = torch.clamp(out.count, max=capacity)
     return (out.keys[:, :capacity], out.vals["idx"][:, :capacity], ok,
@@ -146,8 +159,8 @@ def _sort_body(keys2d, row_counts, p, capacity, algo_kw):
 
 def psort(keys, config: Optional[SortConfig] = None, *,
           return_info: bool = False, device=None):
-    """Sort 1-D keys (int32, uint32 or float32; numpy or torch) with RAMS
-    over p emulated PEs.
+    """Sort 1-D keys (int32, uint32 or float32; numpy or torch) with RAMS,
+    RQuick or NTB-Quick (``config.algorithm``) over p emulated PEs.
 
     Returns the sorted tensor on ``device`` in the keys' dtype and, with
     ``return_info``, a dict with ``counts`` (p,), ``overflow``,
@@ -191,10 +204,10 @@ def psort(keys, config: Optional[SortConfig] = None, *,
                              f"{x.dtype}")
         return _psort_external(x, n, p, external, return_info, dev)
     if x.dtype not in (torch.int32, torch.uint32, torch.float32):
-        raise ValueError(f"rams sorts 4-byte keys (int32, uint32, float32); "
-                         f"got {x.dtype}")
+        raise ValueError(f"{cfg.algorithm} sorts 4-byte keys (int32, uint32, "
+                         f"float32); got {x.dtype}")
     algo_kw = dict(cfg.algo_kw)
-    if cfg.levels is not None:
+    if cfg.levels is not None and cfg.algorithm == "rams":
         algo_kw.setdefault("levels", cfg.levels)
     orig_dtype = x.dtype
     s = key_to_int(x.to(dev))
@@ -207,7 +220,8 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     del s
     row_counts = torch.clamp(n - per * torch.arange(p, device=dev), 0, per)
     keys_out, idx_out, counts_out, overflow = _sort_body(
-        flat.reshape(p, per), row_counts, p, capacity, algo_kw)
+        flat.reshape(p, per), row_counts, p, capacity, cfg.algorithm,
+        algo_kw)
     del flat
 
     with record_function("reassemble"):
@@ -218,7 +232,7 @@ def psort(keys, config: Optional[SortConfig] = None, *,
             return result
         perm = idx_out[take].to(torch.int64) & 0xFFFFFFFF
     info = {
-        "algorithm": "rams",
+        "algorithm": cfg.algorithm,
         "backend": "sim",
         "counts": counts_out,
         "overflow": int(overflow.sum()),

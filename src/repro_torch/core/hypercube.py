@@ -1,20 +1,17 @@
 """Hypercube patterns over the leading PE dimension (counterpart of the
-RAMS-path functions of ``repro/core/hypercube.py``): XOR exchange,
-subcube groups and prefix sums, the one-shot random shuffle and the
-barrier path of the slotted all-to-all route.
+RAMS- and RQuick-path functions of ``repro/core/hypercube.py``): XOR
+exchange of tensors and shards, subcube groups, butterfly sums and prefix
+sums, the one-shot and the hypercube random shuffles, and the barrier path
+of the slotted all-to-all route.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import comm, prng
-from .types import SortShard, compact
-
-
-def xor_perm(p: int, j: int):
-    return [(i, i ^ (1 << j)) for i in range(p)]
+from .types import SortShard, compact, merge_shards
 
 
 def subcube_groups(p: int, dims: int):
@@ -24,8 +21,25 @@ def subcube_groups(p: int, dims: int):
 
 
 def hc_exchange(x: torch.Tensor, p: int, j: int) -> torch.Tensor:
-    """Every PE receives its partner ``i ^ 2^j``'s value."""
-    return comm.ppermute(x, xor_perm(p, j))
+    """Every PE receives its partner ``i ^ 2^j``'s value: a swap of the
+    halves of every 2^(j+1) block of rows, with no index table."""
+    rest = tuple(x.shape[1:])
+    return x.reshape((p >> (j + 1), 2, 1 << j) + rest).flip(1).reshape(
+        x.shape)
+
+
+def exchange_shard(shard: SortShard, p: int, j: int) -> SortShard:
+    return SortShard(keys=hc_exchange(shard.keys, p, j),
+                     vals={k: hc_exchange(v, p, j)
+                           for k, v in shard.vals.items()},
+                     count=hc_exchange(shard.count, p, j))
+
+
+def butterfly_sum(x: torch.Tensor, p: int, dims: Sequence[int]):
+    """All-reduce(+) over the subcube spanned by ``dims``."""
+    for t in dims:
+        x = x + hc_exchange(x, p, t)
+    return x
 
 
 def subcube_prefix_sum(x: torch.Tensor, p: int, dims: Sequence[int]):
@@ -40,6 +54,45 @@ def subcube_prefix_sum(x: torch.Tensor, p: int, dims: Sequence[int]):
         prefix = prefix + torch.where(upper, other, torch.zeros_like(other))
         total = total + other
     return prefix, total
+
+
+def hypercube_shuffle(shard: SortShard, p: int, seed: int,
+                      dims: Optional[Sequence[int]] = None
+                      ) -> Tuple[SortShard, torch.Tensor]:
+    """Random redistribution, one dimension at a time: every PE sends
+    exactly ⌊m/2⌋ of its m elements, chosen at random, to its partner along
+    the dimension and merges what it keeps with what it receives.
+
+    The choice is the reference's: float64 ``uniform`` scores drawn with
+    key ``fold_in(fold_in(PRNGKey(seed), t), me)``, +inf for invalid
+    elements, and the ⌊m/2⌋ smallest in a stable sort are sent.  Returns
+    the shuffled shard (sorted, since the merge sorts) and the per-PE
+    overflow."""
+    dims = list(dims) if dims is not None else list(range(p.bit_length() - 1))
+    dev = shard.keys.device
+    me = comm.axis_index(p, dev)
+    overflow = torch.zeros(p, dtype=torch.int64, device=dev)
+    cap = shard.capacity
+    rank = torch.arange(cap, device=dev)[None, :]
+    # every step's fold_in(PRNGKey(seed), t), made on the host, one copy
+    steps = prng.fold_in(prng.PRNGKey(seed),
+                         torch.tensor(dims, dtype=torch.int64)).to(dev)
+    for i, t in enumerate(dims):
+        key = prng.fold_in(steps[i], me)
+        scores = torch.where(shard.valid_mask(), prng.uniform(key, cap),
+                             torch.inf)
+        order = torch.sort(scores, dim=1, stable=True)[1]
+        del scores
+        send_sorted = rank < (shard.count // 2)[:, None]
+        send = torch.empty_like(send_sorted).scatter_(1, order, send_sorted)
+        del order, send_sorted
+        sent, kept = compact(shard, send), compact(shard, ~send)
+        del shard, send
+        shard, ovf = merge_shards(kept, exchange_shard(sent, p, t),
+                                  capacity=cap)
+        del sent, kept
+        overflow += ovf
+    return shard, overflow
 
 
 def alltoall_shuffle(shard: SortShard, p: int, seed: int, slot_cap: int

@@ -1,0 +1,95 @@
+"""Approximate median selection with a single reduction (counterpart of
+the median-window functions of ``repro/core/median.py``; see there for the
+algorithm).
+
+Every PE takes the k elements around its local median; at each butterfly
+step it exchanges its window with partner ``i ^ 2^t`` and keeps the middle
+k of the merged 2k, so every PE of the subcube ends with the same window.
+
+Windows live in the reference's lifted space, real key u ↦ u + 1 with 0
+as the "-inf" filler and 2^64 − 1 as "+inf", a uint64.  The port holds a
+lifted word sign-flipped in int64 (``lifted ^ 0x80…0``, so signed order is
+the reference's unsigned order): the fillers are :data:`LO` = −2^63 and
+:data:`HI` = 2^63 − 1.  Windows are (p, k) tensors, one row per PE.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from . import prng
+from .hypercube import hc_exchange
+from .types import SortShard
+
+LO = -(1 << 63)                 # lifted 0, the -inf filler
+HI = (1 << 63) - 1              # lifted 2^64 - 1, the +inf filler
+_M32 = 0xFFFFFFFF
+
+
+def lift(keys: torch.Tensor) -> torch.Tensor:
+    """The port's int32 words (4-byte keys) → lifted int64 words: the
+    reference's unsigned key is ``s + 2^31``, lifted ``+ 1``, flipped
+    ``− 2^63``."""
+    return keys.to(torch.int64) + ((1 << 31) + 1 + LO)
+
+
+def unlift(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`lift`, wrapping like the reference's ``(w − 1)``
+    cast to uint32 (a filler maps to the word of 0xFFFFFFFF or
+    0xFFFFFFFE)."""
+    u = ((w ^ LO) - 1) & _M32                      # the reference's uint32
+    return (u - (1 << 31)).to(torch.int32)
+
+
+def _coin(seed: int, *fold) -> int:
+    """``jax.random.bernoulli`` of ``PRNGKey(seed)`` folded with ``fold``,
+    drawn on the host: the coin is one per subcube call, not per PE."""
+    key = prng.PRNGKey(seed)
+    for d in fold:
+        key = prng.fold_in(key, d)
+    return int(prng.bernoulli(key))
+
+
+def local_window(shard: SortShard, k: int, coin: int) -> torch.Tensor:
+    """Each PE's k elements around its local median, ±inf-filled: positions
+    ``m//2 − k/2 (+ coin when m is odd)`` onward of its valid keys, LO
+    before them and HI past the count.  A gather with a per-row start (no
+    filler concatenation)."""
+    assert k % 2 == 0, "window size k must be even"
+    m = shard.count
+    start = m // 2 - k // 2 + torch.where(m % 2 == 1, coin, 0)
+    idx = start[:, None] + torch.arange(k, device=m.device)[None, :]
+    got = torch.gather(shard.keys, 1, idx.clamp(0, shard.capacity - 1))
+    return torch.where(idx < 0, LO,
+                       torch.where(idx < m[:, None], lift(got), HI))
+
+
+def merge_windows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Middle k of the merged 2k (the internal-node step), per row."""
+    k = a.shape[1]
+    merged = torch.sort(torch.cat([a, b], dim=1), dim=1)[0]
+    return merged[:, k // 2:k // 2 + k].contiguous()
+
+
+def butterfly_median_window(shard: SortShard, p: int, dims: Sequence[int],
+                            k: int, seed: int) -> torch.Tensor:
+    """All PEs of the subcube spanned by ``dims`` obtain the same k-window;
+    the centring coin is drawn from ``PRNGKey(seed)``, with no PE term."""
+    w = local_window(shard, k, _coin(seed))
+    for t in dims:
+        w = merge_windows(w, hc_exchange(w, p, t))
+    return w
+
+
+def splitter_from_window(w: torch.Tensor, seed: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's window median, still lifted: ``w[k/2 − 1 + coin]``, or
+    the other middle entry where the coin picked a filler.  Returns
+    (splitter (p,), is_empty (p,)); a window of fillers only means the
+    subcube holds no elements."""
+    k = w.shape[1]
+    coin = _coin(seed, 1)
+    s, other = w[:, k // 2 - 1 + coin], w[:, k // 2 - coin]
+    s = torch.where((s == LO) | (s == HI), other, s)
+    return s, (s == LO) | (s == HI)

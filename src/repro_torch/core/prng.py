@@ -1,5 +1,6 @@
 """Bit-exact threefry2x32 counterpart of the ``jax.random`` calls on the
-RAMS path: ``PRNGKey``, ``fold_in`` and ``randint``.
+RAMS and RQuick paths: ``PRNGKey``, ``fold_in``, ``randint``, ``uniform``
+and ``bernoulli``.
 
 It reproduces jax 0.9.0 with ``jax_enable_x64`` on and
 ``jax_threefry_partitionable=True`` (the settings ``repro.core`` runs
@@ -75,6 +76,26 @@ def _bits64(key, n: int):
     ctr = torch.arange(n, dtype=torch.int64, device=key.device)
     return threefry2x32(key[..., 0, None], key[..., 1, None],
                         torch.zeros_like(ctr), ctr)
+
+
+_ONE_BITS = 0x3FF0000000000000                  # the bits of float64 1.0
+
+
+def uniform(key: torch.Tensor, n=None) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))`` in x64 mode, where it is float64
+    in [0, 1): one 64-bit draw per element, its top 52 bits as the
+    mantissa of a float in [1, 2), minus one.  ``n=None`` is the scalar
+    shape ``()``.  A batch of keys gives one row per key."""
+    hi, lo = _bits64(key, 1 if n is None else n)
+    mant = (hi << 20) | (lo >> 12)               # bits >> 12, 52 bits
+    out = (mant | _ONE_BITS).view(torch.float64) - 1.0
+    return out[..., 0] if n is None else out
+
+
+def bernoulli(key: torch.Tensor, n=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key)`` with its default p = 0.5 (a float64
+    in x64 mode): ``uniform(key) < 0.5``, so the draw's top bit is 0."""
+    return uniform(key, n) < 0.5
 
 
 def randint(key: torch.Tensor, n: int, minval, maxval) -> torch.Tensor:

@@ -185,6 +185,60 @@ def compact(shard: SortShard, keep_mask: torch.Tensor) -> SortShard:
     return SortShard(out_k, vals, n_keep[:, 0].clone())
 
 
+def merge_shards(a: SortShard, b: SortShard, capacity: Optional[int] = None,
+                 tie_a_first=True):
+    """Merge two sorted padded shards into one of ``capacity`` per PE.
+
+    Returns (merged, overflow (p,)): the elements past the capacity are
+    dropped and counted.  The order is the reference's lexsort of the
+    concatenation by (key, tie rank) with tie ranks valid a (0) < valid b
+    (1) < padding (2), a and b swapped where ``tie_a_first`` (a bool or a
+    (p,) bool tensor, one per PE) is false; so a valid key equal to the pad
+    word stays before every pad.  Both inputs are sorted in that order
+    (valid prefix ascending, pad words after it), so each element's place
+    is its own index plus a count in the other shard: a[i] goes to ``i +
+    #{b < a[i]}`` and b[j] to ``j + #{a ≤ b[j]}`` on the composite ``key <<
+    2 | rank`` (one ``searchsorted`` each).  4-byte keys (int32 words)."""
+    if a.keys.dtype != torch.int32 or b.keys.dtype != torch.int32:
+        raise TypeError("merge_shards merges int32 words (4-byte keys)")
+    cap = capacity or max(a.capacity, b.capacity)
+    dev = a.keys.device
+    if isinstance(tie_a_first, torch.Tensor):    # one order per PE
+        first = tie_a_first.to(dev)
+        first = first[:, None] if first.dim() else first
+        rank_a, rank_b = torch.where(first, 0, 1), torch.where(first, 1, 0)
+    else:                                        # a host bool: no copy
+        rank_a, rank_b = (0, 1) if tie_a_first else (1, 0)
+
+    def composite(sh, rank):
+        valid = sh.valid_mask()
+        key = torch.where(valid, sh.keys, sh.pad).to(torch.int64)
+        return (key << 2) | torch.where(valid, rank, 2)
+
+    ca, cb = composite(a, rank_a), composite(b, rank_b)
+    pos_a = torch.searchsorted(cb, ca)
+    pos_a += torch.arange(a.capacity, device=dev)
+    pos_b = torch.searchsorted(ca, cb, right=True)
+    pos_b += torch.arange(b.capacity, device=dev)
+    del ca, cb
+    p, width = a.keys.shape[0], a.capacity + b.capacity
+
+    def merged(va, vb):
+        out = va.new_empty((p, width))
+        out.scatter_(1, pos_a, va).scatter_(1, pos_b, vb)
+        if width >= cap:
+            return out[:, :cap].contiguous()
+        return torch.cat([out, out.new_zeros((p, cap - width))], dim=1)
+
+    keys = merged(a.keys, b.keys)
+    vals = {k: merged(a.vals[k], b.vals[k]) for k in a.vals}
+    total = a.count + b.count
+    count = torch.clamp(total, max=cap)
+    idx = torch.arange(cap, device=dev)
+    keys = torch.where(idx[None, :] < count[:, None], keys, a.pad)
+    return SortShard(keys, vals, count), torch.clamp(total - cap, min=0)
+
+
 # ---------------------------------------------------------------------------
 # State carried across from the reference: numpy u32 planes <-> port shard
 # ---------------------------------------------------------------------------

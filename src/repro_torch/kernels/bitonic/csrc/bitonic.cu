@@ -7,7 +7,12 @@
 //
 // Keys are the port's sign-flipped int32 words (signed order == the
 // reference's unsigned order); the optional payload is one int32 plane.
-// Rows are PEs: arrays are (rows, C), row-major, contiguous.  An optional
+// Rows are PEs: arrays are (rows, C), row-major, contiguous.  Both grids
+// are one-dimensional, block b taking row b / blocks_per_row, so the row
+// count is bounded by gridDim.x (2^31 - 1 blocks), not by gridDim.y's 65 535
+// (RQuick runs p = 2^18 rows); the division is 32-bit (split()), since a
+// 64-bit one costs each thread more than a partition tile's compares.  An
+// optional
 // (rows,) int64 count limits the sort to each row's prefix [0, count[r]);
 // the rest of the row passes through unchanged.  Ties keep their input
 // order.
@@ -67,6 +72,15 @@ static_assert(SORT_ITEMS == 16, "the register sort is sort16");
 #define PADDED(n) ((n) + ((n) >> 5) + 64)
 
 __device__ __forceinline__ int pad(int x) { return x + (x >> 5); }
+
+// This block's (row, index within the row) for blocks_per_row blocks a row.
+__device__ __forceinline__ void split(int64_t blocks_per_row, int64_t& row,
+                                      int64_t& index) {
+  const unsigned per = (unsigned)blocks_per_row;
+  const unsigned r = blockIdx.x / per;
+  row = r;
+  index = blockIdx.x - r * per;
+}
 
 // (key, in-tile index) as one unsigned word whose order is the stable
 // order of the keys: the sign-flipped key above, the index below.
@@ -164,9 +178,9 @@ __device__ int64_t corank_warp(const int32_t* __restrict__ a, int64_t la,
   return lo;
 }
 
-// Tile sort: block (x, y) sorts keys [x * TILE, (x + 1) * TILE) of row y,
-// clipped at count[y], into out; the part of the tile at or past count[y]
-// goes unchanged into tail (which may be out).
+// Tile sort: block b = y * tiles + x sorts keys [x * TILE, (x + 1) * TILE)
+// of row y, clipped at count[y], into out; the part of the tile at or past
+// count[y] goes unchanged into tail (which may be out).
 __global__ void __launch_bounds__(SORT_THREADS, 2)
 tile_sort_kernel(const int32_t* __restrict__ keys,
                  const int32_t* __restrict__ vals,
@@ -174,16 +188,19 @@ tile_sort_kernel(const int32_t* __restrict__ keys,
                  int32_t* __restrict__ out_vals,
                  int32_t* __restrict__ tail_keys,
                  int32_t* __restrict__ tail_vals,
-                 const int64_t* __restrict__ count, int64_t C) {
+                 const int64_t* __restrict__ count, int64_t C,
+                 int64_t tiles) {
   extern __shared__ int32_t smem[];
   int32_t* sk = smem;                     // keys (padded)
   int32_t* si = sk + PADDED(TILE);        // in-tile index, then payload out
   int32_t* sv = si + PADDED(TILE);        // payload in (unpadded)
   const int tid = threadIdx.x;
-  const int64_t off = (int64_t)blockIdx.y * C + (int64_t)blockIdx.x * TILE;
-  const int64_t left = C - (int64_t)blockIdx.x * TILE;
-  const int64_t valid =
-      (count == nullptr ? C : count[blockIdx.y]) - (int64_t)blockIdx.x * TILE;
+  int64_t row, tile;
+  split(tiles, row, tile);
+  const int64_t first = tile * TILE;
+  const int64_t off = row * C + first;
+  const int64_t left = C - first;
+  const int64_t valid = (count == nullptr ? C : count[row]) - first;
   const int m = (int)(left < TILE ? left : TILE);       // words in the tile
   const int n = (int)(valid <= 0 ? 0 : valid < m ? valid : m);  // to sort
   for (int i = n + tid; i < m; i += SORT_THREADS) {
@@ -247,21 +264,25 @@ tile_sort_kernel(const int32_t* __restrict__ keys,
 
 // Run merge: the runs [2m·w, (2m+1)·w) and [(2m+1)·w, (2m+2)·w) of every
 // row, clipped at count, merge into one run of 2w, a's ties first.  Block
-// (x, y) writes outputs [x, x + 1) * MERGE_SPAN of row y (2w is a multiple
-// of MERGE_SPAN, so they belong to one pair); an unpaired run is copied.
+// b = y * span_blocks + x writes outputs [x, x + 1) * MERGE_SPAN of row y
+// (2w is a multiple of MERGE_SPAN, so they belong to one pair); an unpaired
+// run is copied.
 __global__ void __launch_bounds__(MERGE_THREADS)
 run_merge_kernel(const int32_t* __restrict__ keys,
                  const int32_t* __restrict__ vals,
                  int32_t* __restrict__ out_keys,
                  int32_t* __restrict__ out_vals,
-                 const int64_t* __restrict__ count, int64_t C, int64_t w) {
+                 const int64_t* __restrict__ count, int64_t C, int64_t w,
+                 int64_t span_blocks) {
   __shared__ int32_t sk[PADDED(MERGE_SPAN)];
   __shared__ int32_t sv[PADDED(MERGE_SPAN)];
   __shared__ int64_t cut[2];
   const int tid = threadIdx.x;
-  const int64_t row = (int64_t)blockIdx.y * C;
-  const int64_t cnt = count == nullptr ? C : count[blockIdx.y];
-  const int64_t o0 = (int64_t)blockIdx.x * MERGE_SPAN;
+  int64_t y, span;
+  split(span_blocks, y, span);
+  const int64_t row = y * C;
+  const int64_t cnt = count == nullptr ? C : count[y];
+  const int64_t o0 = span * MERGE_SPAN;
   if (o0 >= cnt) return;
   const int n = (int)(cnt - o0 < MERGE_SPAN ? cnt - o0 : MERGE_SPAN);
   const int64_t p0 = o0 - o0 % (2 * w);                 // the pair's start
@@ -345,9 +366,12 @@ int tile_sort(const int32_t* keys, const int32_t* vals, int32_t* out_keys,
   cudaError_t err = cudaFuncSetAttribute(
       tile_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((C + TILE - 1) / TILE), (unsigned)rows);
-  tile_sort_kernel<<<grid, SORT_THREADS, smem, (cudaStream_t)stream>>>(
-      keys, vals, out_keys, out_vals, tail_keys, tail_vals, count, C);
+  const int64_t tiles = (C + TILE - 1) / TILE;
+  if (tiles * rows > INT32_MAX) return (int)cudaErrorInvalidValue;
+  tile_sort_kernel<<<(unsigned)(tiles * rows), SORT_THREADS, smem,
+                     (cudaStream_t)stream>>>(keys, vals, out_keys, out_vals,
+                                             tail_keys, tail_vals, count, C,
+                                             tiles);
   return (int)cudaGetLastError();
 }
 
@@ -360,9 +384,11 @@ int run_merge(const int32_t* keys, const int32_t* vals, int32_t* out_keys,
   if (rows == 0 || cmax == 0) return 0;
   if (width <= 0 || (2 * width) % MERGE_SPAN != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((cmax + MERGE_SPAN - 1) / MERGE_SPAN), (unsigned)rows);
-  run_merge_kernel<<<grid, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-      keys, vals, out_keys, out_vals, count, C, width);
+  const int64_t span_blocks = (cmax + MERGE_SPAN - 1) / MERGE_SPAN;
+  if (span_blocks * rows > INT32_MAX) return (int)cudaErrorInvalidValue;
+  run_merge_kernel<<<(unsigned)(span_blocks * rows), MERGE_THREADS, 0,
+                     (cudaStream_t)stream>>>(keys, vals, out_keys, out_vals,
+                                             count, C, width, span_blocks);
   return (int)cudaGetLastError();
 }
 

@@ -53,8 +53,6 @@ def _check_args(keys, vals, count):
                         f"{tuple(keys.shape)} {keys.dtype}")
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
-    if keys.shape[0] > 65535:
-        raise ValueError("at most 65535 rows per launch")
     if vals is not None:
         if vals.shape != keys.shape or vals.dtype != torch.int32:
             raise TypeError("vals must be an int32 tensor shaped like keys")

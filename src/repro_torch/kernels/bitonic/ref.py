@@ -40,6 +40,8 @@ def _segment_sort(keys, vals, width: int, count=None):
     """Stable sort of each width-segment of every row's valid prefix (the
     ragged last segment too)."""
     rows, C = keys.shape
+    if C <= width:         # one segment: no padding to the width
+        return sort_ref(keys, vals, count)
     segs = -(-C // width)
     order_keys = _masked(keys, count)
     extra = segs * width - C

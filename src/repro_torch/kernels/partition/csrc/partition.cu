@@ -17,6 +17,10 @@
 // lexicographically, the key signed (the port's sign-flipped word) and the
 // tie unsigned, which equals the reference's u64 (key << 32 | tie) order.
 // Flat index >= count goes to the trash bucket nb.  sum(hist) == count.
+// Both grids are one-dimensional, block b taking row b / blocks_per_row, so
+// the row count is bounded by gridDim.x (2^31 - 1 blocks), not by
+// gridDim.y's 65 535 (RQuick runs p = 2^18 rows); the division is 32-bit
+// (split()), since a 64-bit one costs each thread more than its compares.
 //
 // What bounds them on the card: bytes.  Classify reads key and tie (8 bytes)
 // and writes the bucket (4); rank reads the bucket and writes the position
@@ -34,6 +38,15 @@
 #define CLASSIFY_THREADS 256
 #define RANK_WARPS 4
 
+// This block's (row, index within the row) for blocks_per_row blocks a row.
+__device__ __forceinline__ void split(int64_t blocks_per_row, int64_t& row,
+                                      int64_t& index) {
+  const unsigned per = (unsigned)blocks_per_row;
+  const unsigned r = blockIdx.x / per;
+  row = r;
+  index = blockIdx.x - r * per;
+}
+
 __global__ void __launch_bounds__(CLASSIFY_THREADS)
 partition_classify_kernel(const int32_t* __restrict__ keys,
                           const int32_t* __restrict__ ties,
@@ -42,14 +55,14 @@ partition_classify_kernel(const int32_t* __restrict__ keys,
                           const int64_t* __restrict__ count,
                           int32_t* __restrict__ bucket,
                           int32_t* __restrict__ tile_hist, int64_t C, int nb,
-                          int inclusive) {
+                          int inclusive, int64_t ntiles) {
   extern __shared__ int32_t sh[];
   const int S = nb - 1;
   int32_t* sk = sh;
   uint32_t* st = (uint32_t*)(sh + S);
   int32_t* hist = sh + 2 * S;
-  const int64_t row = blockIdx.y;
-  const int64_t tile = blockIdx.x;
+  int64_t row, tile;
+  split(ntiles, row, tile);
   for (int j = threadIdx.x; j < S; j += CLASSIFY_THREADS) {
     sk[j] = s_keys[row * S + j];
     st[j] = (uint32_t)s_ties[row * S + j];
@@ -78,7 +91,7 @@ partition_classify_kernel(const int32_t* __restrict__ keys,
     atomicAdd(&hist[b], 1);
   }
   __syncthreads();
-  int32_t* out = tile_hist + (row * gridDim.x + tile) * (nb + 1);
+  int32_t* out = tile_hist + (row * ntiles + tile) * (nb + 1);
   for (int j = threadIdx.x; j <= nb; j += CLASSIFY_THREADS) out[j] = hist[j];
 }
 
@@ -86,12 +99,13 @@ __global__ void __launch_bounds__(RANK_WARPS * 32)
 partition_rank_kernel(const int32_t* __restrict__ bucket,
                       const int32_t* __restrict__ tile_off,
                       int32_t* __restrict__ pos, int64_t C, int nb,
-                      int64_t ntiles) {
+                      int64_t ntiles, int64_t row_blocks) {
   extern __shared__ int32_t counts[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t row = blockIdx.y;
-  const int64_t tile = (int64_t)blockIdx.x * RANK_WARPS + warp;
+  int64_t row, block;
+  split(row_blocks, row, block);
+  const int64_t tile = block * RANK_WARPS + warp;
   int32_t* c = counts + warp * (nb + 1);
   for (int j = lane; j <= nb; j += 32) c[j] = 0;
   __syncwarp();
@@ -126,10 +140,11 @@ int partition_classify(const int32_t* keys, const int32_t* ties,
   if (rows == 0 || C == 0) return 0;
   const int64_t ntiles = (C + PTILE - 1) / PTILE;
   const size_t smem = (size_t)(2 * (nb - 1) + nb + 1) * sizeof(int32_t);
-  dim3 grid((unsigned)ntiles, (unsigned)rows);
-  partition_classify_kernel<<<grid, CLASSIFY_THREADS, smem,
-                              (cudaStream_t)stream>>>(
-      keys, ties, s_keys, s_ties, count, bucket, tile_hist, C, nb, inclusive);
+  if (ntiles * rows > INT32_MAX) return (int)cudaErrorInvalidValue;
+  partition_classify_kernel<<<(unsigned)(ntiles * rows), CLASSIFY_THREADS,
+                              smem, (cudaStream_t)stream>>>(
+      keys, ties, s_keys, s_ties, count, bucket, tile_hist, C, nb, inclusive,
+      ntiles);
   return (int)cudaGetLastError();
 }
 
@@ -139,11 +154,12 @@ int partition_rank(const int32_t* bucket, const int32_t* tile_off,
   if (rows == 0 || C == 0) return 0;
   const int64_t ntiles = (C + PTILE - 1) / PTILE;
   const size_t smem = (size_t)RANK_WARPS * (nb + 1) * sizeof(int32_t);
-  dim3 grid((unsigned)((ntiles + RANK_WARPS - 1) / RANK_WARPS),
-            (unsigned)rows);
-  partition_rank_kernel<<<grid, RANK_WARPS * 32, smem,
-                          (cudaStream_t)stream>>>(bucket, tile_off, pos, C,
-                                                  nb, ntiles);
+  const int64_t row_blocks = (ntiles + RANK_WARPS - 1) / RANK_WARPS;
+  if (row_blocks * rows > INT32_MAX) return (int)cudaErrorInvalidValue;
+  partition_rank_kernel<<<(unsigned)(row_blocks * rows), RANK_WARPS * 32,
+                          smem, (cudaStream_t)stream>>>(bucket, tile_off, pos,
+                                                        C, nb, ntiles,
+                                                        row_blocks);
   return (int)cudaGetLastError();
 }
 

@@ -66,8 +66,6 @@ def _check(keys, ties, s_keys, s_ties, count, n_buckets):
                              f"device")
     if not 1 <= n_buckets <= MAX_BUCKETS:
         raise ValueError(f"n_buckets must be in [1, {MAX_BUCKETS}]")
-    if rows > 65535:
-        raise ValueError("at most 65535 rows per launch")
 
 
 def classify(keys, ties, s_keys, s_ties, count, *, n_buckets: int,
@@ -108,8 +106,8 @@ def rank(bucket, tile_off, *, n_buckets: int):
             or tile_off.device != bucket.device:
         raise TypeError(f"tile_off must be contiguous ({rows}, {tiles}, "
                         f"{n_buckets + 1}) int32 on the bucket's device")
-    if not 1 <= n_buckets <= MAX_BUCKETS or rows > 65535:
-        raise ValueError("n_buckets or rows out of the kernel's range")
+    if not 1 <= n_buckets <= MAX_BUCKETS:
+        raise ValueError(f"n_buckets must be in [1, {MAX_BUCKETS}]")
     pos = torch.empty_like(bucket)
     err = _lib().partition_rank(bucket.data_ptr(), tile_off.data_ptr(),
                                 pos.data_ptr(), rows, C, n_buckets,

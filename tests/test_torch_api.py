@@ -87,7 +87,7 @@ def test_psort_without_a_device_needs_cuda(monkeypatch):
     ({"overlap": True}, "item 11"), ({"mesh_shape": (2, 2)}, "item 9"),
     ({"fault_policy": object()}, "item 13"),
     ({"external": ExternalPolicy(budget=4), "overlap": True}, "item 11"),
-    ({"algorithm": "rquick"}, "item 6"), ({"algorithm": "auto"}, "item 8"),
+    ({"algorithm": "ntb-ams"}, "item 7"), ({"algorithm": "auto"}, "item 8"),
     ({"algorithm": "ssort"}, "item 7"), ({"backend": "shard_map"},
                                          "item 10"),
     ({"algo_kw": {"overlap": True}}, "item 11")])

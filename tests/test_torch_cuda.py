@@ -127,6 +127,21 @@ def test_local_sort_fast_matches_stable_sort(dev, rows, C, keys, counts,
     _same(got, bref.sort_ref(k, v, cnt))
 
 
+@pytest.mark.parametrize("rows,C", [(70_001, 1024), (1 << 18, 1024),
+                                    (65_537, 2 * T + 3)])
+@pytest.mark.parametrize("keys", ["few", "wide"])
+@pytest.mark.parametrize("counts", [None, "ragged"])
+def test_local_sort_fast_on_more_than_65535_rows(dev, rows, C, keys, counts):
+    """The kernels' grids are one-dimensional, so the row count is not
+    capped at gridDim.y's 65 535 (RQuick's p = 2^18 rows); odd row counts
+    and a merge pass included."""
+    k, v, cnt = _sort_inputs(rows, C, keys, counts, True, dev)
+    before = dict(bt.LAUNCHES)
+    got = bt.local_sort_fast(k, v, cnt)
+    assert bt.LAUNCHES["tile_sort"] == before["tile_sort"] + 1
+    _same(got, bref.sort_ref(k, v, cnt))
+
+
 def _partition_inputs(rows, C, nb, seed, device):
     g = np.random.default_rng(seed)
     keys = np.sort(g.integers(-50, 50, size=(rows, C)), axis=1)
@@ -166,6 +181,43 @@ def test_partition_matches_plain(dev, nb, inclusive, C):
     assert torch.equal(bk, rbk) and torch.equal(th, rth)
     assert torch.equal(pt.rank(bk, off, n_buckets=nb),
                        pref.rank_ref(bk, off, n_buckets=nb, tile=pt.PTILE))
+
+
+@pytest.mark.parametrize("nb", [2, 16])
+@pytest.mark.parametrize("inclusive", [True, False])
+@pytest.mark.parametrize("rows,C", [(70_001, 1024), (1 << 18, 1024),
+                                    (65_537, 3000)])
+def test_partition_on_more_than_65535_rows(dev, nb, inclusive, rows, C):
+    keys, ties, sk, st, cnt = _partition_inputs(rows, C, nb, rows + nb, dev)
+    for want_pos in (True, False):
+        got = pt.partition_buckets(keys, ties, sk, st, n_buckets=nb,
+                                   count=cnt, inclusive=inclusive,
+                                   want_pos=want_pos)
+        want = pref.partition_ref(keys, ties, sk, st, n_buckets=nb,
+                                  count=cnt, inclusive=inclusive,
+                                  want_pos=want_pos)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algorithm,name,p,per", [
+    ("rquick", "Uniform", 64, 1024), ("rquick", "Zero", 64, 1024),
+    ("rquick", "AllToOne", 64, 1000), ("ntb-quick", "Uniform", 64, 1024),
+    ("ntb-quick", "Zero", 64, 1024), ("rquick", "Uniform", 1 << 17, 4),
+    ("rquick", "DeterDupl", 1 << 17, 3)])
+def test_rquick_psort_cuda_equals_cpu(dev, algorithm, name, p, per):
+    """RQuick and NTB-Quick on the card equal the CPU run bit for bit,
+    also at more than 65 535 PEs (p = 2^17)."""
+    x = generate_instance(name, p, p * per).astype(np.uint32)
+    cfg = SortConfig(p=p, algorithm=algorithm)
+    go, gi = psort(x, cfg, return_info=True, device="cuda")
+    co, ci = psort(x, cfg, return_info=True, device="cpu")
+    assert gi["algorithm"] == algorithm
+    assert torch.equal(go.view(torch.int32).cpu(), co.view(torch.int32))
+    assert torch.equal(gi["perm"].cpu(), ci["perm"])
+    assert torch.equal(gi["counts"].cpu(), ci["counts"])
+    assert gi["overflow"] == ci["overflow"]
 
 
 @pytest.mark.parametrize("name,p,per", [

@@ -97,3 +97,53 @@ def test_randint_edge_bounds(lo, hi):
 def test_randint_refuses_spans_it_cannot_reduce_exactly():
     with pytest.raises(ValueError, match="span"):
         prng.randint(prng.PRNGKey(0), 4, 0, 2 ** 31)
+
+
+@pytest.mark.parametrize("p,cap,t", [(4, 30, 0), (16, 48, 3), (64, 1024, 5)])
+def test_uniform_at_the_hypercube_shuffle_call_site(p, cap, t):
+    """scores = uniform(fold_in(fold_in(PRNGKey(seed), t), me), (cap,)):
+    float64 under x64, one row per PE."""
+    seed = 0x5EED
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), t), torch.arange(p))
+    got = prng.uniform(keys, cap).numpy()
+
+    def one(me):
+        k = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed),
+                                                  t), me)
+        return jax.random.uniform(k, (cap,))
+    want = np.asarray(jax.vmap(one)(jnp.arange(p, dtype=jnp.int32)))
+    assert got.dtype == want.dtype == np.float64
+    assert np.array_equal(got, want)
+    assert 0.0 <= got.min() and got.max() < 1.0
+
+
+@pytest.mark.parametrize("seed", [0, 7, 0x5EED])
+def test_uniform_scalar_shape(seed):
+    want = jax.random.uniform(jax.random.PRNGKey(seed))
+    got = prng.uniform(prng.PRNGKey(seed))
+    assert got.shape == () and np.asarray(want).shape == ()
+    assert float(got) == float(want)
+
+
+@pytest.mark.parametrize("it", range(0, 18, 3))
+@pytest.mark.parametrize("seed", [0x5EED, 1, 2 ** 20 + 3])
+def test_bernoulli_at_the_median_call_sites(seed, it):
+    """The window coin bernoulli(PRNGKey(s)) and the splitter coin
+    bernoulli(fold_in(PRNGKey(s), 1)), s = seed·1000003 + it (beyond
+    2^32 for the default seed)."""
+    s = seed * 1000003 + it
+    k = jax.random.PRNGKey(s)
+    assert bool(prng.bernoulli(prng.PRNGKey(s))) == bool(
+        jax.random.bernoulli(k))
+    assert bool(prng.bernoulli(prng.fold_in(prng.PRNGKey(s), 1))) == bool(
+        jax.random.bernoulli(jax.random.fold_in(k, 1)))
+
+
+def test_bernoulli_draws_from_the_float64_uniform():
+    """200 seeds: the coin is the float64 draw's top bit, which the float32
+    draw would not reproduce."""
+    seeds = range(200)
+    got = [bool(prng.bernoulli(prng.PRNGKey(s))) for s in seeds]
+    want = [bool(jax.random.bernoulli(jax.random.PRNGKey(s))) for s in seeds]
+    assert got == want
+    assert 60 < sum(got) < 140

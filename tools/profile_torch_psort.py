@@ -3,18 +3,20 @@
 
     PYTHONPATH=src python3 tools/profile_torch_psort.py [--p 256]
         [--log-n 26] [--instance Uniform] [--out profile_out]
-        [--external] [--src src]
+        [--algorithm rams|rquick] [--external] [--src src]
 
 Runs one warm-up sort, then one sort under ``torch.profiler`` (CPU and
 CUDA activity) and prints one JSON line: the card (nvidia-smi name and
 power limit), the wall time of the profiled sort, the device's busy time
 (the union of its kernel intervals) and idle share, the time of every
-scope the port opens (``make_shard``, ``shuffle``, ``level0``, …, or the
-external lane's ``ext:runs`` … ``ext:merge`` and ``ext:sort``: host span,
-the device's busy time inside it and, where the profiler records it,
-device span), the kernels by total device time, and the host operations
-by their own host time.  ``--external`` profiles the external lane's cell
-instead of RAMS: p = 16, n = 2^28, budget 2^21, warmed up at n = 2^26.
+scope the port opens (``make_shard``, ``shuffle``, RAMS's ``level0``, …,
+RQuick's ``iter0``, ``iter1``, …, or the external lane's ``ext:runs`` …
+``ext:merge`` and ``ext:sort``: host span, the device's busy time inside
+it and, where the profiler records it, device span), the kernels by total
+device time, and the host operations by their own host time.
+``--algorithm rquick`` profiles RQuick's cell (default p = 2^18 with
+n = 2^26); ``--external`` the external lane's cell instead of RAMS: p =
+16, n = 2^28, budget 2^21, warmed up at n = 2^26.
 ``--src`` imports ``repro_torch`` from another tree (default: this
 repository's ``src``), so that two trees can be profiled in one call.
 The profiler's own table and a Chrome trace go under ``--out``.
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,6 +37,11 @@ PHASES = ("make_shard", "shuffle", "level0", "level1", "level2",
           "reassemble", "ext:runs", "ext:splitters", "ext:exchange",
           "ext:merge", "ext:sort")
 EXTERNAL_P, EXTERNAL_LOG_N, EXTERNAL_BUDGET = 16, 28, 1 << 21
+DEFAULT_P = {"rams": 256, "rquick": 1 << 18}
+
+
+def _is_phase(name: str) -> bool:
+    return name in PHASES or re.fullmatch(r"iter\d+", name) is not None
 
 
 def _union_us(intervals):
@@ -50,7 +58,10 @@ def _union_us(intervals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--p", type=int, default=256)
+    ap.add_argument("--p", type=int, default=None,
+                    help="PEs (default 256 for RAMS, 2^18 for RQuick)")
+    ap.add_argument("--algorithm", default="rams",
+                    choices=sorted(DEFAULT_P))
     ap.add_argument("--log-n", type=int, default=26)
     ap.add_argument("--instance", default="Uniform")
     ap.add_argument("--out", default="profile_out")
@@ -79,8 +90,8 @@ def main(argv=None) -> int:
         cfg = SortConfig(p=p, external=ExternalPolicy(budget=EXTERNAL_BUDGET))
         warm = generate_instance("Uniform", p, n >> 2).astype(np.uint32)
     else:
-        p, n = args.p, 1 << args.log_n
-        cfg = SortConfig(p=p)
+        p, n = args.p or DEFAULT_P[args.algorithm], 1 << args.log_n
+        cfg = SortConfig(p=p, algorithm=args.algorithm)
         warm = None
     x = generate_instance(args.instance, p, n).astype(np.uint32)
     psort(x if warm is None else warm, cfg)             # warm-up
@@ -97,7 +108,7 @@ def main(argv=None) -> int:
 
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.name not in PHASES]
+               and not _is_phase(e.name)]
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in kernels)
     by_kernel = defaultdict(lambda: [0.0, 0])
@@ -107,7 +118,7 @@ def main(argv=None) -> int:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
     phases = {}
     for e in events:
-        if e.name in PHASES:
+        if _is_phase(e.name):
             side = "device_ms" if e.device_type == DeviceType.CUDA \
                 else "host_ms"
             ph = phases.setdefault(e.name, {})
@@ -121,7 +132,7 @@ def main(argv=None) -> int:
                     and k.time_range.end > a) / 1e3
     host_ops = defaultdict(lambda: [0.0, 0])
     for e in events:
-        if e.device_type == DeviceType.CPU and e.name not in PHASES:
+        if e.device_type == DeviceType.CPU and not _is_phase(e.name):
             host_ops[e.name][0] += e.self_cpu_time_total
             host_ops[e.name][1] += 1
     top_host = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:15]
@@ -134,7 +145,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": card, "device": torch.cuda.get_device_name(0),
         "tree": str(Path(args.src).resolve()), "p": p, "n": n,
-        "instance": args.instance,
+        "algorithm": info["algorithm"], "instance": args.instance,
         "overflow": info["overflow"], "wall_ms_profiled": wall * 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,

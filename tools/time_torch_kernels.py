@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Time the port's local-sort and partition kernels of one tree.
+
+    python3 tools/time_torch_kernels.py [--src src] [--label name]
+
+Builds the kernels of the tree whose ``src`` is given (default: this
+repository's), then times each launch with CUDA events (median of
+``REPS`` after one warm-up) at the shapes of ``chip_smoke.py``:
+``tile_sort`` and one ``run_merge`` pass on (256, 2 196 992) int32 keys
+with an int32 payload, ``partition_classify`` and ``partition_rank`` on
+(256, 2^20) with nb = 64 (RAMS at p = 256, n = 2^26), and, where the tree
+accepts 2^18 rows, ``tile_sort`` and ``partition_classify`` with nb = 2 on
+(2^18, 1024) (RQuick at p = 2^18, n = 2^26).  The inputs come from fixed
+seeds on the card, the same for every tree, so two trees are compared by
+running this for each in turns in one call (parent, this, this, parent).
+Prints one JSON line with the card, the label and the times in ms (null
+where the tree refuses the shape).  It needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+REPS = 20
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
+                                         / "src"))
+    ap.add_argument("--label", default="this")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("time_torch_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels import partition as pt
+    _build.build_all(["bitonic", "partition"])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def ints(shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    out = {}
+    rows, C = 256, 2_196_992
+    keys, vals = ints((rows, C)), ints((rows, C))
+    out["tile_sort"] = ms(lambda: bt.sort_tiles(keys, vals))
+    runs = bt.sort_tiles(keys, vals)
+    out["run_merge"] = ms(lambda: bt.merge_runs(*runs, bt.TILE))
+    del keys, vals, runs
+    rows, C, nb = 256, 1 << 20, 64
+    keys = torch.sort(ints((rows, C)), dim=1)[0]
+    ties = ints((rows, C))
+    s_keys = torch.sort(ints((rows, nb - 1)), dim=1)[0]
+    s_ties = ints((rows, nb - 1))
+    count = C - (torch.arange(rows, device=dev) * 997) % 5000
+    out["partition_classify"] = ms(lambda: pt.classify(
+        keys, ties, s_keys, s_ties, count, n_buckets=nb))
+    bucket, th = pt.classify(keys, ties, s_keys, s_ties, count, n_buckets=nb)
+    off = torch.cumsum(th, dim=1, dtype=torch.int32) - th
+    out["partition_rank"] = ms(lambda: pt.rank(bucket, off, n_buckets=nb))
+    del keys, ties, s_keys, s_ties, count, bucket, th, off
+    torch.cuda.empty_cache()
+
+    rows, C = 1 << 18, 1024
+    keys, vals = ints((rows, C)), ints((rows, C))
+    count = C // 4 + (torch.arange(rows, device=dev) * 997) % (3 * C // 4 + 1)
+    s_keys, s_ties = ints((rows, 1)), ints((rows, 1))
+    for name, fn in (
+            ("tile_sort_rquick", lambda: bt.sort_tiles(keys, vals, count)),
+            ("partition_classify_rquick", lambda: pt.classify(
+                keys, vals, s_keys, s_ties, count, n_buckets=2))):
+        try:
+            out[name] = ms(fn)
+        except ValueError:                 # a tree capped at 65 535 rows
+            out[name] = None
+    print(json.dumps({"card": card, "label": args.label,
+                      "tree": str(Path(args.src).resolve()), "ms": out}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
