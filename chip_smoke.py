@@ -46,8 +46,32 @@ Phases, each fatal on failure (no phase catches its own error):
    AllToOne after a warm-up, with the checks of phase 4; and the card
    against the CPU bit for bit for ``rquick`` and ``ntb-quick`` at p = 64,
    n = 2^20;
-9. one ``kernels`` JSON line (a row per kernel and path), the card line,
-   and the ``ok`` line last.
+9. printed last, after phase 10: one ``kernels`` JSON line (a row per
+   kernel, path and shape, NTB-AMS's at RAMS's), the card line, and the
+   ``ok`` line;
+10. the other algorithms, each at its regime: every kernel of those
+   paths at the shapes each path gives it (``partition_classify`` alone,
+   no rank, with nb = p = 256 at SSort's (256, 2^20) and NS-SSort's
+   (256, 2^19), ~2^18 valid keys per row; ``tile_sort`` and one
+   ``run_merge`` pass at (256, 2^19) with 2^18 valid keys per row, the
+   first sort of every path and both of bitonic's, and at SSort's
+   (256, p·slot_cap) after the shuffle and the route; ``tile_sort`` at
+   RFIS's (2^18, 4) and (2^18, 2048) and GatherM's (2^12, 4) rows), each
+   against its plain version and timed beside its bound; then ``psort``
+   after a warm-up with RFIS at p = 2^18, n = 2^18 (n/p = 1), GatherM and
+   AllGatherM at p = 2^12, n = 2^9 (n/p = 2^-3; the sim layout holds
+   p·p·capacity slots), each on Uniform and Zero, and SSort, NS-SSort,
+   bitonic and NTB-AMS at p = 256, n = 2^26 on Uniform, Staggered and
+   Zero (where the non-robust ones overflow, as the reference does), with
+   the checks of phase 4 and each path's kernels launched; and the card
+   against the CPU bit for bit for ``ssort``, ``ns-ssort``, ``bitonic``
+   and ``ntb-ams`` at p = 64, n = 2^20, ``rfis`` at p = 2^10, n = 2^12,
+   ``gatherm`` and ``allgatherm`` at p = 2^8, n = 2^5.
+
+Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5),
+``rquick`` and ``ntb-quick`` (8), the external lane (6, 7), and ``rfis``,
+``gatherm``, ``allgatherm``, ``ssort``, ``ns-ssort``, ``bitonic`` and
+``ntb-ams`` (10).
 
 It imports torch, numpy and the port only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -55,6 +79,7 @@ without the repository around it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import resource
 import statistics
@@ -80,6 +105,31 @@ RAMS_KERNELS = ("tile_sort", "run_merge", "partition_classify",
                 "partition_rank")
 EXTERNAL_KERNELS = ("kway_classify", "tile_sort", "run_merge")
 RQUICK_KERNELS = ("tile_sort", "partition_classify")
+# phase 10: each other path's p, log2 n, instances and kernels.  RFIS at
+# its band (n/p = 1) at the survey's 2^18 PEs; GatherM and AllGatherM at
+# n/p = 2^-3, cut to p = 2^12 because the sim layout carries p·p·capacity
+# slots; the four baselines at the RAMS phase's size
+P_RFIS, LOG_N_RFIS = 1 << 18, 18
+P_GATHER, LOG_N_GATHER = 1 << 12, 9
+SSORT_KERNELS = ("tile_sort", "run_merge", "partition_classify")
+OTHER_PATHS = (
+    ("rfis", P_RFIS, LOG_N_RFIS, ("Uniform", "Zero"), ("tile_sort",)),
+    ("gatherm", P_GATHER, LOG_N_GATHER, ("Uniform", "Zero"), ("tile_sort",)),
+    ("allgatherm", P_GATHER, LOG_N_GATHER, ("Uniform", "Zero"),
+     ("tile_sort",)),
+    ("ssort", P_MAIN, LOG_N_MAIN, ("Uniform", "Staggered", "Zero"),
+     SSORT_KERNELS),
+    ("ns-ssort", P_MAIN, LOG_N_MAIN, ("Uniform", "Staggered", "Zero"),
+     SSORT_KERNELS),
+    ("bitonic", P_MAIN, LOG_N_MAIN, ("Uniform", "Staggered", "Zero"),
+     ("tile_sort", "run_merge")),
+    ("ntb-ams", P_MAIN, LOG_N_MAIN, ("Uniform", "Staggered", "Zero"),
+     RAMS_KERNELS),
+)
+# the card against the CPU, bit for bit: (algorithm, p, log2 n)
+OTHER_CHECKS = (("ssort", 64, 20), ("ns-ssort", 64, 20), ("bitonic", 64, 20),
+                ("ntb-ams", 64, 20), ("rfis", 1 << 10, 12),
+                ("gatherm", 1 << 8, 5), ("allgatherm", 1 << 8, 5))
 
 
 def emit(obj) -> None:
@@ -132,13 +182,13 @@ def measure(torch, results, name, source, replaces, got, want, fn, plain,
         raise AssertionError(f"{name} differs from its plain version "
                              f"(max abs err {err})")
     b_ms, b_by = bound(nbytes, ops)
-    row = {"name": name, "route": "cuda", "source": source,
+    row = {"name": name, "shape": shape, "route": "cuda", "source": source,
            "replaces": replaces, "max_abs_err": err,
            "ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None if library is None
            else cuda_ms(torch, library)}
-    emit({"phase": "kernel", "shape": shape, **extra, **row,
+    emit({"phase": "kernel", **extra, **row,
           "kernel_ms": row["ms"]})
     results.setdefault(name, row)
     return row
@@ -566,6 +616,227 @@ def rquick_phase(torch, np, psort, SortConfig, generate_instance,
     return first
 
 
+def sort_kernel_rows(torch, g, rows, C, count, paths, merge):
+    """``tile_sort`` and, with ``merge``, one ``run_merge`` pass of width
+    TILE on (rows, C) int32 keys with an int32 payload, the first count[r]
+    keys of row r valid and pad words after them: each against its plain
+    version, timed beside its bound and the library's stable sort + gather
+    of the same segments of the prefix that holds every valid key.  The
+    merge is timed as one launch into buffers made beforehand, as
+    ``local_sort_fast`` launches it.  Returns [(row, paths)]."""
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels.bitonic import ref as bref
+    dev = torch.device("cuda")
+    src = "src/repro_torch/kernels/bitonic/csrc/bitonic.cu"
+    t, pad_word = bt.TILE, 2 ** 31 - 1
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, C), generator=g,
+                         device=dev, dtype=torch.int32)
+    col = torch.arange(C, device=dev)
+    keys = torch.where(col[None, :] < count[:, None], keys, pad_word)
+    del col
+    vals = torch.arange(rows * C, device=dev,
+                        dtype=torch.int32).reshape(rows, C)
+    valid, cmax = int(count.sum()), int(count.max())
+    info = {"shape": [rows, C], "valid_keys": valid, "paths": list(paths)}
+
+    def lib_segments(k, v, seg):
+        seg = min(seg, C)
+        w = -(-cmax // seg) * seg
+        ks, order = torch.sort(k[:, :w].reshape(-1, seg), dim=1, stable=True)
+        return ks.view(rows, w), torch.gather(v[:, :w].reshape(-1, seg), 1,
+                                              order).view(rows, w)
+
+    def same_as_library(got, lib, what):
+        w = lib[0].shape[1]
+        if max_abs_err(torch, zip((a[:, :w] for a in got), lib)) != 0:
+            raise AssertionError(f"{what} at {rows} x {C} differs from the "
+                                 f"library's segmented stable sort")
+
+    got = bt.sort_tiles(keys, vals, count)
+    same_as_library(got, lib_segments(keys, vals, t), "tile_sort")
+    out = [(measure(
+        torch, {}, "tile_sort", src,
+        "src/repro/kernels/bitonic/bitonic.py:121", got,
+        bref.sort_tiles_ref(keys, vals, t, count),
+        lambda: bt.sort_tiles(keys, vals, count),
+        lambda: bref.sort_tiles_ref(keys, vals, t, count),
+        nbytes=16 * rows * C, ops=valid * (min(C, t).bit_length() - 1),
+        library=lambda: lib_segments(keys, vals, t), **info), paths)]
+    del keys, vals
+    if merge:
+        runs_k, runs_v = got
+        ok, ov = runs_k.clone(), runs_v.clone()
+        merged = bt.merge_runs(runs_k, runs_v, t, count)
+        same_as_library(merged, lib_segments(runs_k, runs_v, 2 * t),
+                        "run_merge")
+        out.append((measure(
+            torch, {}, "run_merge", src,
+            "src/repro/kernels/bitonic/bitonic.py:146", merged,
+            bref.merge_runs_ref(runs_k, runs_v, t, count),
+            lambda: bt.ops.launch_run_merge(runs_k, runs_v, count, t, cmax,
+                                            ok, ov),
+            lambda: bref.merge_runs_ref(runs_k, runs_v, t, count),
+            nbytes=16 * valid, ops=valid * t.bit_length(),
+            library=lambda: lib_segments(runs_k, runs_v, 2 * t), **info),
+            paths))
+        del runs_k, runs_v, ok, ov, merged
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def other_kernel_phase(torch):
+    """Phase 10, first part: each kernel of the other paths at the shapes
+    those paths give it, against its plain version, timed beside its
+    bound.  ``partition_classify`` alone (no rank) with nb = p = 256 and
+    zero ties at SSort's (256, 2^20) and NS-SSort's (256, 2^19), ~2^18
+    valid keys per row; the local sort's kernels at every path's first
+    sort, (256, 2^19) with 2^18 valid keys per row (both of bitonic's
+    sorts), and at SSort's and NS-SSort's sorts after the shuffle or the
+    route, (256, p·slot_cap) with ~2^18; ``tile_sort`` at RFIS's (2^18, 4)
+    and (2^18, 2048) rows and at GatherM's and AllGatherM's (2^12, 4),
+    each with at most one valid key per row.  Returns [(row, paths)]."""
+    from repro_torch.kernels import partition as pt
+    from repro_torch.kernels.partition import ref as pref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    pad_word = 2 ** 31 - 1
+    rows_out = []
+    rows, nb = P_MAIN, P_MAIN
+    near = (1 << 18) - 2000 + (torch.arange(rows, device=dev) * 997) % 4000
+    full = torch.full((rows,), 1 << 18, dtype=torch.int64, device=dev)
+
+    for path, C, count in (("ssort", 1 << 20, near),
+                           ("ns-ssort", 1 << 19, full)):
+        keys = torch.sort(torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, C),
+                                        generator=g, device=dev,
+                                        dtype=torch.int32), dim=1)[0]
+        col = torch.arange(C, device=dev)
+        keys = torch.where(col[None, :] < count[:, None], keys, pad_word)
+        del col
+        ties = torch.zeros_like(keys)
+        pick = torch.randint(0, int(count.min()), (nb - 1,), generator=g,
+                             device=dev)
+        s_keys = torch.sort(keys[0, pick])[0].expand(rows,
+                                                     nb - 1).contiguous()
+        s_ties = torch.zeros_like(s_keys)
+        valid = int(count.sum())
+        row = measure(
+            torch, {}, "partition_classify",
+            "src/repro_torch/kernels/partition/csrc/partition.cu",
+            "src/repro/kernels/partition/partition.py:72",
+            pt.classify(keys, ties, s_keys, s_ties, count, n_buckets=nb),
+            pref.classify_ref(keys, ties, s_keys, s_ties, count,
+                              n_buckets=nb, tile=pt.PTILE),
+            lambda: pt.classify(keys, ties, s_keys, s_ties, count,
+                                n_buckets=nb),
+            lambda: pref.classify_ref(keys, ties, s_keys, s_ties, count,
+                                      n_buckets=nb, tile=pt.PTILE),
+            # what the path needs: key + tie reads below the count, a
+            # bucket per slot, each row's splitters and count.  The
+            # per-tile histogram the kernel also writes is left out: the
+            # path reads none of it
+            nbytes=8 * valid + 4 * rows * C + rows * (8 * (nb - 1) + 8),
+            ops=valid * (nb - 1).bit_length(), shape=[rows, C], nb=nb,
+            valid_keys=valid,
+            histogram_bytes=rows * (-(-C // pt.PTILE)) * (nb + 1) * 4,
+            paths=[path])
+        rows_out.append((row, (path,)))
+        del keys, ties, s_keys, s_ties, pick
+        torch.cuda.empty_cache()
+
+    # the shuffle's and the route's output: p slots of samplesort's
+    # slot_cap = ceil(2·mean + 6·sqrt(mean) + 6), mean = capacity / p
+    mean = 2 * (1 << LOG_N_MAIN) // P_MAIN / P_MAIN
+    slot_cap = int(math.ceil(2 * mean + 6 * math.sqrt(mean) + 6))
+    rows_out += sort_kernel_rows(torch, g, rows, 1 << 19, full,
+                                 ("bitonic",), merge=True)
+    rows_out += sort_kernel_rows(torch, g, rows, P_MAIN * slot_cap, near,
+                                 ("ssort", "ns-ssort"), merge=True)
+    one = torch.ones(P_RFIS, dtype=torch.int64, device=dev)
+    for C in (4, 2048):
+        rows_out += sort_kernel_rows(torch, g, P_RFIS, C, one, ("rfis",),
+                                     merge=False)
+    gathered = (torch.arange(P_GATHER, device=dev)
+                < (1 << LOG_N_GATHER)).to(torch.int64)
+    rows_out += sort_kernel_rows(torch, g, P_GATHER, 4, gathered,
+                                 ("gatherm", "allgatherm"), merge=False)
+    return rows_out
+
+
+def other_paths_phase(torch, np, psort, SortConfig, generate_instance,
+                      launch_counts, reset_launch_counts):
+    """Phase 10, second and third parts: ``psort`` with each other
+    algorithm at its size (``OTHER_PATHS``) after a warm-up, with the
+    checks of phase 4 and its kernels launched; then each on the card
+    against the CPU bit for bit (``OTHER_CHECKS``).  Returns each path's
+    launches in its first measured sort."""
+    first = {}
+    for algorithm, p, log_n, instances, kernels in OTHER_PATHS:
+        n = 1 << log_n
+        cfg = SortConfig(p=p, algorithm=algorithm)
+        for i, name in enumerate(instances):
+            x = generate_instance(name, p, n).astype(np.uint32)
+            if i == 0:                               # warm-up
+                psort(x, cfg)
+                torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, info = psort(x, cfg, return_info=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check_other(torch, np, x, out, info, n, p)
+            missing = [k for k in kernels if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"kernels never launched on the "
+                                     f"{algorithm} path: {missing}")
+            first.setdefault(algorithm, launches)
+            emit({"phase": "other_psort", "algorithm": info["algorithm"],
+                  "instance": name, "p": p, "n": n, "wall_s": wall,
+                  "keys_per_s": n / wall, "max_memory_allocated": peak,
+                  "balance": info["balance"], "overflow": info["overflow"],
+                  "launches": launches})
+            del out, info, x
+            torch.cuda.empty_cache()
+
+    for algorithm, p, log_n in OTHER_CHECKS:
+        n = 1 << log_n
+        x = generate_instance("Uniform", p, n).astype(np.uint32)
+        cfg = SortConfig(p=p, algorithm=algorithm)
+        go, gi = psort(x, cfg, return_info=True, device="cuda")
+        co, ci = psort(x, cfg, return_info=True, device="cpu")
+        same = (torch.equal(go.view(torch.int32).cpu(), co.view(torch.int32))
+                and torch.equal(gi["perm"].cpu(), ci["perm"])
+                and torch.equal(gi["counts"].cpu(), ci["counts"])
+                and gi["overflow"] == ci["overflow"])
+        emit({"phase": "other_cuda_vs_cpu", "algorithm": algorithm, "p": p,
+              "n": n, "instance": "Uniform", "identical": same,
+              "overflow_cuda": gi["overflow"], "overflow_cpu": ci["overflow"]})
+        if not same:
+            raise AssertionError(f"{algorithm}: cuda and cpu runs differ")
+        check_other(torch, np, x, go, gi, n, p)
+    return first
+
+
+def check_other(torch, np, x_np, out, info, n, p):
+    """Phase-4 assertions on a psort result of any algorithm.  AllGatherM
+    returns PE 0's copy, and its ``perm`` holds every PE's: p equal
+    copies, the first of which the checks read."""
+    if info["algorithm"] == "allgatherm":
+        perm = info["perm"]
+        if perm.numel() != p * n or not bool(
+                (perm.view(p, n) == perm[None, :n]).all()):
+            raise AssertionError("allgatherm's perm is not p copies of one")
+        info = {**info, "perm": perm[:n]}
+    check_sorted(torch, np, x_np, out, info, n)
+
+
 def check_sorted(torch, np, x_np, out, info, n):
     """Phase-4 assertions on one psort result (all on the card)."""
     dev = out.device
@@ -773,8 +1044,16 @@ def main() -> int:
                                    generate_instance, launch_counts,
                                    reset_launch_counts)
 
-    # --- 9. summary ------------------------------------------------------------
-    # a row per kernel and path: its time at the shapes of that path and its
+    # --- 10. the other algorithms at their sizes ----------------------------
+    t10 = time.perf_counter()
+    other_rows = other_kernel_phase(torch)
+    other_launches = other_paths_phase(torch, np, psort, SortConfig,
+                                       generate_instance, launch_counts,
+                                       reset_launch_counts)
+    emit({"phase": "other_done", "seconds": time.perf_counter() - t10})
+
+    # --- 9. summary (printed last) -----------------------------------------
+    # a row per kernel, path and shape: its time at that shape and its
     # launches in that path's measured run (RAMS where a kernel runs there)
     rows = []
     for name, row in kernels.items():
@@ -783,8 +1062,15 @@ def main() -> int:
                                  else ext_launches)[name]))
     for row in rquick_rows:
         rows.append((row, "rquick", rquick_launches[row["name"]]))
+    for name in RAMS_KERNELS:                  # NTB-AMS: RAMS's shapes
+        rows.append((kernels[name], "ntb-ams",
+                     other_launches["ntb-ams"][name]))
+    for row, paths in other_rows:
+        for path in paths:
+            rows.append((row, path, other_launches[path][row["name"]]))
     emit({"kernels": [
-        {"name": row["name"], "path": path, "route": row["route"],
+        {"name": row["name"], "path": path, "shape": row["shape"],
+         "route": row["route"],
          "source": row["source"], "replaces": row["replaces"],
          "launches": launches, "max_abs_err": row["max_abs_err"],
          "ms": row["ms"], "plain_ms": row["plain_ms"],

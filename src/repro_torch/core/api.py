@@ -1,5 +1,6 @@
-"""Public API: ``psort`` on the sim backend with RAMS, RQuick/NTB-Quick
-and the external lane (counterpart of ``repro/core/api.py``).
+"""Public API: ``psort`` on the sim backend with every algorithm of the
+reference but ``"auto"``, and the external lane (counterpart of
+``repro/core/api.py``).
 
 The sim backend runs p PEs on one device; here every PE is a row of a
 (p, C) tensor and the per-PE body of the reference (``_sort_body``) runs
@@ -21,10 +22,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .bitonic import bitonic
 from .external import (ExternalPolicy, _get_keys, _psort_external_once,
                        _put_keys)
+from .gatherm import allgather_merge_sort, gather_merge
 from .rams import as_int32_bits, rams
+from .rfis import rfis
 from .rquick import rquick
+from .samplesort import samplesort
 from .types import (int_to_key, key_to_int, make_shard, pad_value,
                     resolve_device)
 
@@ -40,42 +45,60 @@ _UNPORTED = {
     "fault_policy": "item 13 (faults and elastic rescale)",
     "overlap": "item 11 (exchange/merge overlap)",
 }
-_ALGORITHMS = {
-    "auto": "item 8 (selection)",
-    "ntb-ams": "item 7 (the other algorithms)",
-    "rfis": "item 7 (the other algorithms)",
-    "bitonic": "item 7 (the other algorithms)",
-    "ssort": "item 7 (the other algorithms)",
-    "ns-ssort": "item 7 (the other algorithms)",
-    "gatherm": "item 7 (the other algorithms)",
-    "allgatherm": "item 7 (the other algorithms)",
-}
+_ALGORITHMS = {"auto": "item 8 (selection)"}
 # the ported algorithms: each one's function and the keywords it takes
+_RAMS_KW = ("seed", "levels", "level_bits", "oversample", "tie_break",
+            "shuffle", "slot_factor")
+_RQUICK_KW = ("seed", "window_k", "robust", "shuffle", "tie_break",
+              "capacity", "dims")
+_SSORT_KW = ("seed", "robust", "sample_factor", "slot_factor",
+             "oracle_splitters")
 _PORTED = {
-    "rams": (rams, ("seed", "levels", "level_bits", "oversample",
-                    "tie_break", "shuffle", "slot_factor")),
-    "rquick": (rquick, ("seed", "window_k", "robust", "shuffle",
-                        "tie_break", "capacity", "dims")),
+    "rams": (rams, _RAMS_KW),
+    "ntb-ams": (functools.partial(rams, tie_break=False), _RAMS_KW),
+    "rquick": (rquick, _RQUICK_KW),
+    "ntb-quick": (functools.partial(rquick, robust=False), _RQUICK_KW),
+    "rfis": (rfis, ("capacity",)),
+    "ssort": (samplesort, _SSORT_KW),
+    "ns-ssort": (functools.partial(samplesort, robust=False), _SSORT_KW),
+    "bitonic": (bitonic, ()),
+    "gatherm": (gather_merge, ("dims",)),
+    "allgatherm": (allgather_merge_sort, ("dims",)),
 }
-_PORTED["ntb-quick"] = (functools.partial(rquick, robust=False),
-                        _PORTED["rquick"][1])
+# their output lives on PE 0 (gatherm) or on every PE (allgatherm)
+_CONCENTRATED = ("gatherm", "allgatherm")
 
 
 @dataclasses.dataclass(frozen=True, init=False)
 class SortConfig:
-    """The knobs of one sort that this slice honours.
+    """The knobs of one sort that the port honours.
 
-    ``p`` (PE count, a power of two), ``backend`` ("sim"), ``algorithm``
-    ("rams", "rquick" or "ntb-quick"), ``capacity_factor`` (slack of the
-    per-PE buffers), ``levels`` (RAMS level count) and ``algo_kw`` (the
-    algorithm's keywords, as a sorted tuple of pairs: for RAMS ``seed``,
-    ``level_bits``, ``oversample``, ``tie_break``, ``shuffle``,
-    ``slot_factor``; for RQuick ``seed``, ``window_k``, ``robust``,
-    ``shuffle``, ``tie_break``, ``capacity``, ``dims``); ``external``
-    (an :class:`ExternalPolicy`, or None) and ``algorithm="external"``
-    select the out-of-core lane.  Asking for a knob of the
-    reference that is not ported raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it."""
+    ``p`` (PE count, a power of two), ``backend`` ("sim"), ``algorithm``,
+    ``capacity_factor`` (slack of the per-PE buffers), ``levels`` (RAMS
+    and NTB-AMS level count; any other algorithm refuses it) and
+    ``algo_kw`` (the algorithm's keywords, as a sorted tuple of pairs,
+    lists made tuples).  The algorithms and their keywords:
+
+    - ``"rams"``, ``"ntb-ams"`` (RAMS without tie-breaking): ``seed``,
+      ``levels``, ``level_bits``, ``oversample``, ``tie_break``,
+      ``shuffle``, ``slot_factor``;
+    - ``"rquick"``, ``"ntb-quick"`` (no shuffle, no tie-breaking):
+      ``seed``, ``window_k``, ``robust``, ``shuffle``, ``tie_break``,
+      ``capacity``, ``dims``;
+    - ``"rfis"``: ``capacity`` (of the output shards);
+    - ``"ssort"``, ``"ns-ssort"`` (no random shuffle): ``seed``,
+      ``robust``, ``sample_factor``, ``slot_factor``, ``oracle_splitters``
+      (a tuple of p − 1 nondecreasing u64 words, one zero-extended u32 key
+      each);
+    - ``"bitonic"``: none;
+    - ``"gatherm"`` (everything to PE 0), ``"allgatherm"`` (everything to
+      every PE): ``dims``.
+
+    ``external`` (an :class:`ExternalPolicy`, or None) and
+    ``algorithm="external"`` select the out-of-core lane.  Asking for a
+    knob of the reference that is not ported (``algorithm="auto"``
+    among them) raises ``NotImplementedError`` naming the ROADMAP item
+    that brings it."""
 
     p: Optional[int] = None
     backend: str = "sim"
@@ -110,6 +133,9 @@ class SortConfig:
             raise NotImplementedError(
                 f"algorithm={algorithm!r} is not ported yet: ROADMAP queue 1 "
                 f"{_ALGORITHMS[algorithm]}")
+        if levels is not None and algorithm not in ("rams", "ntb-ams"):
+            raise ValueError(f"levels= applies to the multi-level AMS "
+                             f"family, not algorithm={algorithm!r}")
         kw = dict(algo_kw)
         if kw.get("overlap"):
             raise NotImplementedError(
@@ -134,13 +160,13 @@ class SortConfig:
         return dataclasses.replace(self, **changes)
 
 
-def _sort_body(keys2d, row_counts, p, capacity, algorithm, algo_kw):
+def _sort_body(keys2d, row_counts, p, capacity, out_capacity, algorithm,
+               algo_kw):
     """The reference's per-PE body over all p rows at once.
 
-    Returns (keys (p, ≤ capacity) int32 words, idx int32 rows holding uint32
-    indices, count (p,), overflow (p,)); the output capacity of RAMS and
-    RQuick is the input capacity (RQuick's shards grow to twice it inside),
-    and what is cut counts in the overflow."""
+    Returns (keys (p, ≤ out_capacity) int32 words, idx int32 rows holding
+    uint32 indices, count (p,), overflow (p,)); what the output capacity
+    cuts counts in the overflow."""
     per = keys2d.shape[1]
     dev = keys2d.device
     # global index payload proves permutation-ness (uint32 values)
@@ -151,23 +177,26 @@ def _sort_body(keys2d, row_counts, p, capacity, algorithm, algo_kw):
                            vals={"idx": idx})
     del idx
     out, overflow = _PORTED[algorithm][0](shard, p, **algo_kw)
-    overflow = overflow + torch.clamp(out.count - capacity, min=0)
-    ok = torch.clamp(out.count, max=capacity)
-    return (out.keys[:, :capacity], out.vals["idx"][:, :capacity], ok,
-            overflow)
+    overflow = overflow + torch.clamp(out.count - out_capacity, min=0)
+    ok = torch.clamp(out.count, max=out_capacity)
+    return (out.keys[:, :out_capacity], out.vals["idx"][:, :out_capacity],
+            ok, overflow)
 
 
 def psort(keys, config: Optional[SortConfig] = None, *,
           return_info: bool = False, device=None):
-    """Sort 1-D keys (int32, uint32 or float32; numpy or torch) with RAMS,
-    RQuick or NTB-Quick (``config.algorithm``) over p emulated PEs.
+    """Sort 1-D keys (int32, uint32 or float32; numpy or torch) with
+    ``config.algorithm`` (see :class:`SortConfig`) over p emulated PEs.
 
     Returns the sorted tensor on ``device`` in the keys' dtype and, with
     ``return_info``, a dict with ``counts`` (p,), ``overflow``,
     ``balance``, ``perm`` (input index of every output element, int64),
     ``n``, ``algorithm`` and ``backend`` — the reference's keys, equal to
     its values bit for bit.  Like the reference, an exchange slot that
-    fills up drops elements and counts them in ``overflow``.
+    fills up drops elements and counts them in ``overflow``.  GatherM and
+    AllGatherM concentrate the output (capacity p·⌈n/p⌉ per PE); the
+    result of AllGatherM is PE 0's copy, but its ``perm`` concatenates
+    every PE's, p·n entries, as the reference's does.
 
     With an :class:`ExternalPolicy` (``config.external`` or the
     ``REPRO_EXTERNAL_BUDGET`` environment variable) the out-of-core lane
@@ -207,7 +236,7 @@ def psort(keys, config: Optional[SortConfig] = None, *,
         raise ValueError(f"{cfg.algorithm} sorts 4-byte keys (int32, uint32, "
                          f"float32); got {x.dtype}")
     algo_kw = dict(cfg.algo_kw)
-    if cfg.levels is not None and cfg.algorithm == "rams":
+    if cfg.levels is not None:
         algo_kw.setdefault("levels", cfg.levels)
     orig_dtype = x.dtype
     s = key_to_int(x.to(dev))
@@ -219,15 +248,18 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     flat[:n] = s
     del s
     row_counts = torch.clamp(n - per * torch.arange(p, device=dev), 0, per)
+    out_capacity = max(1, p * per) if cfg.algorithm in _CONCENTRATED \
+        else capacity
     keys_out, idx_out, counts_out, overflow = _sort_body(
-        flat.reshape(p, per), row_counts, p, capacity, cfg.algorithm,
-        algo_kw)
+        flat.reshape(p, per), row_counts, p, capacity, out_capacity,
+        cfg.algorithm, algo_kw)
     del flat
 
     with record_function("reassemble"):
         take = torch.arange(keys_out.shape[1], device=dev)[None, :] \
             < counts_out[:, None]
-        result = int_to_key(keys_out[take], orig_dtype)
+        rows = 1 if cfg.algorithm == "allgatherm" else p  # PE 0's copy
+        result = int_to_key(keys_out[:rows][take[:rows]], orig_dtype)
         if not return_info:
             return result
         perm = idx_out[take].to(torch.int64) & 0xFFFFFFFF

@@ -1,8 +1,8 @@
-"""Hypercube patterns over the leading PE dimension (counterpart of the
-RAMS- and RQuick-path functions of ``repro/core/hypercube.py``): XOR
-exchange of tensors and shards, subcube groups, butterfly sums and prefix
-sums, the one-shot and the hypercube random shuffles, and the barrier path
-of the slotted all-to-all route.
+"""Hypercube patterns over the leading PE dimension (counterpart of
+``repro/core/hypercube.py``): XOR exchange of tensors and shards, subcube
+groups, the all-gather-merge, butterfly sums and prefix sums, the one-shot
+and the hypercube random shuffles, the barrier path of the slotted
+all-to-all route and the route by explicit target PE.
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import comm, prng
-from .types import SortShard, compact, merge_shards
+from .types import SortShard, compact, merge_shards, resize
 
 
 def subcube_groups(p: int, dims: int):
@@ -33,6 +33,28 @@ def exchange_shard(shard: SortShard, p: int, j: int) -> SortShard:
                      vals={k: hc_exchange(v, p, j)
                            for k, v in shard.vals.items()},
                      count=hc_exchange(shard.count, p, j))
+
+
+def allgather_merge(shard: SortShard, p: int,
+                    dims: Optional[Sequence[int]] = None) -> SortShard:
+    """Recursive-doubling all-gather-merge over the hypercube ``dims``
+    (low to high): after step t every PE holds the merged elements of its
+    2^(t+1)-subcube, its capacity doubled at each step.
+
+    Equal keys keep the order of their origin PEs: the two blocks of a
+    step cover disjoint, ordered ranges of origin PEs, so the block of the
+    lower half goes first on ties (the upper PE's partner holds the lower
+    block)."""
+    dims = list(dims) if dims is not None else list(range(p.bit_length() - 1))
+    me = comm.axis_index(p, shard.keys.device)
+    for t in dims:
+        partner = exchange_shard(shard, p, t)
+        tie_a = ((me >> t) & 1) == 0
+        shard, _ = merge_shards(shard, partner,
+                                capacity=shard.capacity + partner.capacity,
+                                tie_a_first=tie_a)
+        del partner
+    return shard
 
 
 def butterfly_sum(x: torch.Tensor, p: int, dims: Sequence[int]):
@@ -154,3 +176,25 @@ def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
     full = torch.full((P,), p * slot_cap, dtype=torch.int64, device=dev)
     out = compact(SortShard(keys, vals, full), valid)
     return out, overflow
+
+
+def route_by_target(shard: SortShard, p: int, dims: Sequence[int],
+                    capacity: Optional[int] = None
+                    ) -> Tuple[SortShard, torch.Tensor]:
+    """Route each element to the PE in its ``_tgt`` payload by per-dim
+    exchanges, high dim to low: in step j an element moves iff its target
+    differs from the current PE in bit j; what stays and what arrives
+    merge.  Returns the routed shard (sorted, capacity ``capacity``) and
+    the per-PE overflow of the resize and every merge."""
+    me = comm.axis_index(p, shard.keys.device)[:, None]
+    cap = capacity or shard.capacity
+    shard, overflow = resize(shard, cap)
+    for j in sorted(dims, reverse=True):
+        move = ((shard.vals["_tgt"].to(torch.int64) ^ me) >> j) & 1 == 1
+        sent, kept = compact(shard, move), compact(shard, ~move)
+        del shard, move
+        shard, ovf = merge_shards(kept, exchange_shard(sent, p, j),
+                                  capacity=cap)
+        del sent, kept
+        overflow = overflow + ovf
+    return shard, overflow

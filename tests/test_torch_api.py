@@ -87,13 +87,46 @@ def test_psort_without_a_device_needs_cuda(monkeypatch):
     ({"overlap": True}, "item 11"), ({"mesh_shape": (2, 2)}, "item 9"),
     ({"fault_policy": object()}, "item 13"),
     ({"external": ExternalPolicy(budget=4), "overlap": True}, "item 11"),
-    ({"algorithm": "ntb-ams"}, "item 7"), ({"algorithm": "auto"}, "item 8"),
-    ({"algorithm": "ssort"}, "item 7"), ({"backend": "shard_map"},
+    ({"cost_model": object()}, "item 8"), ({"algorithm": "auto"}, "item 8"),
+    ({"data_axis": "batch"}, "item 9"), ({"backend": "shard_map"},
                                          "item 10"),
     ({"algo_kw": {"overlap": True}}, "item 11")])
 def test_unported_knobs_raise_not_implemented(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         SortConfig(p=4, **kw)
+
+
+@pytest.mark.parametrize("algorithm,kw", [
+    ("ntb-ams", {"seed": 3, "levels": 2, "level_bits": [1, 2],
+                 "oversample": 2, "tie_break": False, "shuffle": False,
+                 "slot_factor": 1.5}),
+    ("rfis", {"capacity": 64}),
+    ("ssort", {"seed": 3, "robust": False, "sample_factor": 4,
+               "slot_factor": 1.5, "oracle_splitters": [1, 2, 3]}),
+    ("ns-ssort", {"seed": 3, "sample_factor": 4, "slot_factor": 1.5,
+                  "oracle_splitters": (1, 2, 3)}),
+    ("bitonic", {}),
+    ("gatherm", {"dims": [0, 1]}),
+    ("allgatherm", {"dims": (1,)})])
+def test_each_algorithm_takes_its_keywords_only(algorithm, kw):
+    cfg = SortConfig(p=4, algorithm=algorithm, algo_kw=kw)
+    assert cfg.algorithm == algorithm
+    assert dict(cfg.algo_kw) == {k: tuple(v) if isinstance(v, list) else v
+                                 for k, v in kw.items()}
+    hash(cfg)                       # lists become tuples: a hashable key
+    with pytest.raises(ValueError, match=f"unknown {algorithm.upper()} "
+                                         f"keywords"):
+        SortConfig(p=4, algorithm=algorithm, algo_kw={**kw, "typo": 1})
+
+
+@pytest.mark.parametrize("algorithm", ["rquick", "ntb-quick", "rfis",
+                                       "ssort", "ns-ssort", "bitonic",
+                                       "gatherm", "allgatherm", "external"])
+def test_levels_applies_to_the_ams_family_only(algorithm):
+    with pytest.raises(ValueError, match="levels= applies"):
+        SortConfig(p=4, algorithm=algorithm, levels=2)
+    for ams in ("rams", "ntb-ams"):
+        assert SortConfig(p=4, algorithm=ams, levels=2).levels == 2
 
 
 def test_bad_configs_are_refused():

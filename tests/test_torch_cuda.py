@@ -281,3 +281,54 @@ def test_external_psort_cuda_equals_cpu(dev, name, dtype, budget):
         assert torch.equal(go.cpu().view(torch.uint8), co.view(torch.uint8))
         assert torch.equal(gi["perm"].cpu(), ci["perm"])
         assert torch.equal(gi["counts"].cpu(), ci["counts"])
+
+
+@pytest.mark.parametrize("nb", [256, 1024, 2048])
+@pytest.mark.parametrize("C", [1000, 70_000])
+def test_partition_classify_without_rank_at_many_buckets(dev, nb, C):
+    """SSort's classify: nb = p buckets, ``want_pos=False`` (the classify
+    kernel alone), with more splitters than one tile has elements."""
+    keys, ties, sk, st, cnt = _partition_inputs(8, C, nb, nb + C + 1, dev)
+    got = pt.partition_buckets(keys, ties, sk, st, n_buckets=nb, count=cnt,
+                               want_pos=False)
+    want = pref.partition_ref(keys, ties, sk, st, n_buckets=nb, count=cnt,
+                              want_pos=False)
+    torch.cuda.synchronize()
+    assert got[1] is None and want[1] is None
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[2].sum(1, dtype=torch.int64), cnt)
+
+
+@pytest.mark.parametrize("keys", ["equal", "few", "wide"])
+@pytest.mark.parametrize("counts", [None, "ragged"])
+def test_local_sort_fast_on_rfis_rows(dev, keys, counts):
+    """RFIS's first local sort at p = 2^18, n/p = 1: (2^18, 4) rows."""
+    k, v, cnt = _sort_inputs(1 << 18, 4, keys, counts, True, dev)
+    _same(bt.local_sort_fast(k, v, cnt), bref.sort_ref(k, v, cnt))
+
+
+@pytest.mark.parametrize("algorithm,name,p,n", [
+    ("rfis", "Uniform", 1 << 10, 1 << 12), ("rfis", "DeterDupl", 1 << 10,
+                                            1 << 12),
+    ("rfis", "Zero", 1 << 14, 1 << 14),
+    ("gatherm", "Uniform", 1 << 8, 1 << 5), ("gatherm", "Zero", 64, 3000),
+    ("allgatherm", "Uniform", 1 << 8, 1 << 5),
+    ("allgatherm", "RandDupl", 64, 1000),
+    ("ssort", "Uniform", 64, 1 << 18), ("ssort", "Zero", 64, 1 << 16),
+    ("ns-ssort", "Staggered", 64, 1 << 18), ("ns-ssort", "Zero", 64, 1 << 16),
+    ("ssort", "Uniform", 2048, 1 << 20),
+    ("bitonic", "Uniform", 64, 1 << 18), ("bitonic", "DeterDupl", 16, 50_000),
+    ("ntb-ams", "Uniform", 64, 1 << 18), ("ntb-ams", "Zero", 64, 1 << 16)])
+def test_other_algorithms_cuda_equal_cpu(dev, algorithm, name, p, n):
+    """Every algorithm ported after RAMS and RQuick, on the card against
+    its CPU run bit for bit; Zero overflows SSort, NS-SSort and NTB-AMS in
+    both."""
+    x = generate_instance(name, p, n).astype(np.uint32)
+    cfg = SortConfig(p=p, algorithm=algorithm)
+    go, gi = psort(x, cfg, return_info=True, device="cuda")
+    co, ci = psort(x, cfg, return_info=True, device="cpu")
+    assert gi["algorithm"] == algorithm
+    assert torch.equal(go.view(torch.int32).cpu(), co.view(torch.int32))
+    assert torch.equal(gi["perm"].cpu(), ci["perm"])
+    assert torch.equal(gi["counts"].cpu(), ci["counts"])
+    assert gi["overflow"] == ci["overflow"]

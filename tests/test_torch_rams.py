@@ -5,8 +5,10 @@ carry-across functions (``shard_from_numpy`` / ``shard_to_numpy``) and
 compare the shard after the shuffle and after one RAMS level.  End-to-end
 tests compare ``psort(backend="sim", algorithm="rams")`` with the
 reference's kernel-off run on the paper's 11 instances: sorted keys,
-per-PE counts, overflow and perm, all integers, so the tolerance is 0.
-Keys are compared in full, payloads only inside ``[0, count)``.
+per-PE counts, overflow and perm, all integers, so the tolerance is 0;
+and NTB-AMS (``algorithm="ntb-ams"``, no tie-breaking) on the core
+instances.  Keys are compared in full, payloads only inside
+``[0, count)``.
 """
 import functools
 
@@ -14,29 +16,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import repro.core  # noqa: F401  (turns on jax_enable_x64)
-from repro.core import SortConfig as JConfig
 from repro.core import comm as jc
 from repro.core import hypercube as jh
-from repro.core import psort as j_psort
 from repro.core import rams as jr
 from repro.core import types as jt
 from repro.data.distributions import INSTANCES, generate_instance
-from repro_torch import SortConfig, psort
 from repro_torch.core import hypercube as th
 from repro_torch.core import rams as tr
 from repro_torch.core import types as tt
+from torch_helpers import AXIS, assert_shard, compare_psort, kernels_off
 
-AXIS = "pe"
-
-
-@pytest.fixture(autouse=True)
-def kernels_off():
-    prev = jt.set_local_kernels(jt.LocalKernelPolicy())
-    yield
-    jt.set_local_kernels(prev)
+pytestmark = pytest.mark.usefixtures(kernels_off.__name__)
 
 
 def _initial_state(p, per, cap, name="Uniform", seed=0):
@@ -83,14 +75,6 @@ def _ref_level_fn(p, h, b, seed):
     return jax.jit(jc.sim_map(body, AXIS, p))
 
 
-def _assert_shard(port, keys, vals, count):
-    pk, pv, pc = tt.shard_to_numpy(port)
-    assert np.array_equal(pc, count)
-    assert np.array_equal(pk, keys)
-    for i, c in enumerate(count):
-        assert np.array_equal(pv["idx"][i, :c], vals[i, :c]), i
-
-
 def _ref_shuffle(state, p, seed, slot_cap, new_cap):
     return [np.asarray(a) for a in _ref_shuffle_fn(p, seed, slot_cap, new_cap)(
         *[jnp.asarray(a) for a in state])]
@@ -113,7 +97,7 @@ def test_shuffle_stage_matches_reference(p, per, slot_cap):
     slot_cap = slot_cap or jr._slot_cap(cap, p, 2.0)
     rk, rv, rc, ro = _ref_shuffle(state, p, 0xA35, slot_cap, 2 * cap)
     got, ovf = _port_shuffle(state, p, 0xA35, slot_cap, 2 * cap)
-    _assert_shard(got, rk, rv, rc)
+    assert_shard(got, rk, rv, rc)
     assert np.array_equal(ovf.numpy(), ro)
     if tight:
         assert ro.sum() > 0                      # the overflow path ran
@@ -134,38 +118,21 @@ def test_one_rams_level_matches_reference(name, p, h, b):
     sh = tt.shard_from_numpy(after[0], {"idx": after[1]}, after[2])
     got, ovf = tr._rams_level(sh, p, h, b, seed=seed, oversample=4,
                               tie_break=True, slot_factor=2.0)
-    _assert_shard(got, rk, rv, rc)
+    assert_shard(got, rk, rv, rc)
     assert np.array_equal(ovf.numpy(), ro)
-
-
-def _compare_psort(x, p, **kw):
-    want, wi = j_psort(x, config=JConfig(p=p, algorithm="rams",
-                                         backend="sim", **kw),
-                       return_info=True)
-    got, gi = psort(x, SortConfig(p=p, **kw), return_info=True, device="cpu")
-    want = np.asarray(want)
-    assert got.dtype == torch.uint32 and want.dtype == np.uint32
-    assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32), want)
-    assert np.array_equal(gi["counts"].numpy(), np.asarray(wi["counts"]))
-    assert gi["overflow"] == wi["overflow"]
-    assert np.array_equal(gi["perm"].numpy(),
-                          np.asarray(wi["perm"]).astype(np.int64))
-    assert gi["balance"] == float(wi["balance"])
-    assert gi["n"] == wi["n"] and gi["algorithm"] == wi["algorithm"]
-    return gi
 
 
 @pytest.mark.parametrize("name", sorted(INSTANCES))
 @pytest.mark.parametrize("p", [4, 8])
 def test_psort_matches_reference_on_every_instance(name, p):
     x = generate_instance(name, p, p * 100 - 3).astype(np.uint32)
-    _compare_psort(x, p)
+    compare_psort(x, p, "rams")
 
 
 @pytest.mark.parametrize("name", ["Uniform", "AllToOne"])
 def test_psort_matches_reference_at_p64(name):
     x = generate_instance(name, 64, 64 * 64 + 5).astype(np.uint32)
-    _compare_psort(x, 64)
+    compare_psort(x, 64, "rams")
 
 
 @pytest.mark.slow
@@ -173,5 +140,23 @@ def test_psort_matches_reference_where_level_one_overflows():
     """p = 64, n = 2^20 Uniform: the reference's second-level slots drop
     3442 keys; the port must drop the same ones."""
     x = generate_instance("Uniform", 64, 1 << 20).astype(np.uint32)
-    info = _compare_psort(x, 64)
+    info = compare_psort(x, 64, "rams")
     assert info["overflow"] == 3442
+
+
+@pytest.mark.parametrize("name", ["Uniform", "Zero", "g-Group",
+                                  "Staggered"])
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_ntb_ams_psort_matches_reference(name, p):
+    """NTB-AMS, RAMS without tie-breaking (``algorithm="ntb-ams"``); on
+    Zero every key lands in one bucket and the slots overflow, as in the
+    reference."""
+    x = generate_instance(name, p, 37 * p - 3).astype(np.uint32)
+    info = compare_psort(x, p, "ntb-ams")
+    if name == "Zero" and p > 2:
+        assert info["overflow"] > 0
+
+
+def test_ntb_ams_levels_match_reference():
+    x = generate_instance("DeterDupl", 8, 8 * 90).astype(np.uint32)
+    compare_psort(x, 8, "ntb-ams", levels=3)

@@ -30,51 +30,15 @@ from repro_torch import SortConfig, psort
 from repro_torch.core import hypercube as th
 from repro_torch.core import rquick as tq
 from repro_torch.core import types as tt
+from torch_helpers import (AXIS, PAD, assert_shard, compare_psort,
+                           kernels_off, port_shard, sorted_state)
 
-AXIS = "pe"
 SEED = 0x5EED                      # rquick's default seed
-PAD = 0xFFFFFFFF
-
-
-@pytest.fixture(autouse=True)
-def kernels_off():
-    prev = jt.set_local_kernels(jt.LocalKernelPolicy())
-    yield
-    jt.set_local_kernels(prev)
-
-
-def _sorted_state(p, cap, seed, hi=1000, pad_keys=False, counts=None):
-    """(keys u32, idx u32, counts) of p sorted padded shards: keys in
-    [0, hi), some equal to the pad word when ``pad_keys``; counts random
-    in [0, cap] with the edges 0, 1 and cap."""
-    g = np.random.default_rng(seed)
-    if counts is None:
-        counts = g.integers(0, cap + 1, size=p)
-        counts[:3] = [0, 1, cap][:p]
-    keys = g.integers(0, hi, size=(p, cap)).astype(np.uint32)
-    if pad_keys:
-        keys[g.random((p, cap)) < 0.2] = PAD
-    keys.sort(axis=1)
-    col = np.arange(cap)[None, :]
-    keys = np.where(col < counts[:, None], keys, np.uint32(PAD))
-    idx = g.integers(0, 2 ** 32, size=(p, cap)).astype(np.uint32)
-    return keys.astype(np.uint32), idx, np.asarray(counts, np.int32)
+pytestmark = pytest.mark.usefixtures(kernels_off.__name__)
 
 
 def _jshard(k, v, c):
     return jt.SortShard(k, {"idx": v}, c)
-
-
-def _assert_shard(port, keys, vals, count):
-    pk, pv, pc = tt.shard_to_numpy(port)
-    assert np.array_equal(pc, count)
-    assert np.array_equal(pk, keys)
-    for i, c in enumerate(count):
-        assert np.array_equal(pv["idx"][i, :c], vals[i, :c]), i
-
-
-def _port(state):
-    return tt.shard_from_numpy(state[0], {"idx": state[1]}, state[2])
 
 
 def _run(fn, *arrays):
@@ -103,14 +67,14 @@ def _ref_merge(p, cap, tie):
 @pytest.mark.parametrize("pad_keys", [False, True])
 def test_merge_shards_matches_reference(tie, ca, cb, cap, pad_keys):
     p = 8
-    a = _sorted_state(p, ca, 1, hi=6, pad_keys=pad_keys)
-    b = _sorted_state(p, cb, 2, hi=6, pad_keys=pad_keys)
+    a = sorted_state(p, ca, 1, hi=6, pad_keys=pad_keys)
+    b = sorted_state(p, cb, 2, hi=6, pad_keys=pad_keys)
     rk, rv, rc, ro = _run(_ref_merge(p, cap, tie), *a, *b)
     tie_a = {"a": True, "b": False,
              "pe": torch.arange(p) % 2 == 0}[tie]
-    got, ovf = tt.merge_shards(_port(a), _port(b), capacity=cap,
+    got, ovf = tt.merge_shards(port_shard(*a), port_shard(*b), capacity=cap,
                                tie_a_first=tie_a)
-    _assert_shard(got, rk, rv, rc)
+    assert_shard(got, rk, rv, rc)
     assert np.array_equal(ovf.numpy(), ro)
     if cap < ca + cb:
         assert ro.sum() > 0                       # the overflow path ran
@@ -133,15 +97,15 @@ def test_merge_shards_refuses_8_byte_words():
 @pytest.mark.parametrize("j", [0, 1, 3])
 def test_exchange_shard_and_butterfly_sum(j):
     p, cap = 16, 12
-    state = _sorted_state(p, cap, 3 + j)
+    state = sorted_state(p, cap, 3 + j)
 
     def body(k, v, c):
         sh = jh.exchange_shard(_jshard(k, v, c), AXIS, p, j)
         return (sh.keys, sh.vals["idx"], sh.count,
                 jh.butterfly_sum(c, AXIS, p, list(range(j + 1))))
     rk, rv, rc, rs = _run(jax.jit(jc.sim_map(body, AXIS, p)), *state)
-    got = th.exchange_shard(_port(state), p, j)
-    _assert_shard(got, rk, rv, rc)
+    got = th.exchange_shard(port_shard(*state), p, j)
+    assert_shard(got, rk, rv, rc)
     s = th.butterfly_sum(torch.from_numpy(state[2].astype(np.int64)), p,
                          list(range(j + 1)))
     assert np.array_equal(s.numpy(), rs)
@@ -174,9 +138,9 @@ def test_hypercube_shuffle_after_each_dimension(name):
     state = (keys, idx, counts)
     for t in range(p.bit_length() - 1):
         rk, rv, rc, ro = _run(_ref_shuffle(p, t), *state)
-        got, ovf = th.hypercube_shuffle(_port(state), p, SEED,
+        got, ovf = th.hypercube_shuffle(port_shard(*state), p, SEED,
                                         dims=list(range(t + 1)))
-        _assert_shard(got, rk, rv, rc)
+        assert_shard(got, rk, rv, rc)
         assert np.array_equal(ovf.numpy(), ro)
 
 
@@ -186,7 +150,7 @@ def test_split_point_matches_reference(tie_break, hi):
     """Splitters from the keys themselves (so equal keys meet the
     splitter), the lifted top key 2^32 among them."""
     p, cap = 16, 40
-    state = _sorted_state(p, cap, 7, hi=min(hi, 2 ** 32 - 1),
+    state = sorted_state(p, cap, 7, hi=min(hi, 2 ** 32 - 1),
                           pad_keys=hi == 2 ** 32)
     g = np.random.default_rng(8)
     pick = g.integers(0, cap, size=p)
@@ -198,7 +162,7 @@ def test_split_point_matches_reference(tie_break, hi):
     want = np.asarray(jax.jit(jc.sim_map(body, AXIS, p))(
         *[jnp.asarray(a) for a in state], jnp.asarray(s)))
     s_port = torch.from_numpy((s ^ np.uint64(1 << 63)).view(np.int64))
-    got = tq._split_point(_port(state), s_port, tie_break)
+    got = tq._split_point(port_shard(*state), s_port, tie_break)
     assert np.array_equal(got.numpy(), want)
 
 
@@ -221,34 +185,16 @@ def test_planes_of_lifted_words():
 # ---------------------------------------------------------------------------
 
 
-def _compare_psort(x, p, algorithm="rquick"):
-    want, wi = j_psort(x, config=JConfig(p=p, algorithm=algorithm,
-                                         backend="sim"), return_info=True)
-    got, gi = psort(x, SortConfig(p=p, algorithm=algorithm),
-                    return_info=True, device="cpu")
-    want = np.asarray(want)
-    assert got.dtype == torch.uint32 and want.dtype == np.uint32
-    assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32), want)
-    assert np.array_equal(gi["counts"].numpy(), np.asarray(wi["counts"]))
-    assert gi["overflow"] == wi["overflow"]
-    assert np.array_equal(gi["perm"].numpy(),
-                          np.asarray(wi["perm"]).astype(np.int64))
-    assert gi["balance"] == float(wi["balance"])
-    assert gi["n"] == wi["n"]
-    assert gi["algorithm"] == wi["algorithm"] == algorithm
-    return gi
-
-
 @pytest.mark.parametrize("name", sorted(INSTANCES))
 @pytest.mark.parametrize("p", [2, 4, 8])
 def test_rquick_psort_matches_reference_on_every_instance(name, p):
     x = generate_instance(name, p, p * 100 - 3).astype(np.uint32)
-    _compare_psort(x, p)
+    compare_psort(x, p, "rquick")
 
 
 def test_rquick_psort_matches_reference_at_p64():
     x = generate_instance("Uniform", 64, 64 * 64 + 5).astype(np.uint32)
-    info = _compare_psort(x, 64)
+    info = compare_psort(x, 64, "rquick")
     assert info["overflow"] == 0
 
 
@@ -259,7 +205,7 @@ def test_ntb_quick_matches_reference(name, overflows):
     on Zero the shards overflow, and the port drops exactly the keys the
     reference drops."""
     x = generate_instance(name, 8, 8 * 100 - 3).astype(np.uint32)
-    info = _compare_psort(x, 8, "ntb-quick")
+    info = compare_psort(x, 8, "ntb-quick")
     assert (info["overflow"] > 0) == overflows
 
 
@@ -278,5 +224,5 @@ def test_rquick_keywords():
 
 
 def test_unported_algorithms_still_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SortConfig(p=8, algorithm="ssort")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        SortConfig(p=8, algorithm="auto")

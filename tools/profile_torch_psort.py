@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 tools/profile_torch_psort.py [--p 256]
         [--log-n 26] [--instance Uniform] [--out profile_out]
-        [--algorithm rams|rquick] [--external] [--src src]
+        [--algorithm rams|rquick|rfis|ssort|...] [--external] [--src src]
 
 Runs one warm-up sort, then one sort under ``torch.profiler`` (CPU and
 CUDA activity) and prints one JSON line: the card (nvidia-smi name and
@@ -14,9 +14,13 @@ RQuick's ``iter0``, ``iter1``, …, or the external lane's ``ext:runs`` …
 ``ext:merge`` and ``ext:sort``: host span, the device's busy time inside
 it and, where the profiler records it, device span), the kernels by total
 device time, and the host operations by their own host time.
-``--algorithm rquick`` profiles RQuick's cell (default p = 2^18 with
-n = 2^26); ``--external`` the external lane's cell instead of RAMS: p =
-16, n = 2^28, budget 2^21, warmed up at n = 2^26.
+``--algorithm`` takes any algorithm of the port; RAMS defaults to p =
+256 and RQuick to p = 2^18, both with n = 2^26, and every other one needs
+``--p`` and ``--log-n`` (``chip_smoke.py`` phase 10 runs each at its
+size).  RFIS's scopes are ``gather``, ``rank`` and ``route``, SSort's
+``shuffle``, ``splitters`` and ``route``.  ``--external`` profiles the
+external lane's cell instead: p = 16, n = 2^28, budget 2^21, warmed up
+at n = 2^26.
 ``--src`` imports ``repro_torch`` from another tree (default: this
 repository's ``src``), so that two trees can be profiled in one call.
 The profiler's own table and a Chrome trace go under ``--out``.
@@ -35,7 +39,7 @@ from pathlib import Path
 
 PHASES = ("make_shard", "shuffle", "level0", "level1", "level2",
           "reassemble", "ext:runs", "ext:splitters", "ext:exchange",
-          "ext:merge", "ext:sort")
+          "ext:merge", "ext:sort", "gather", "rank", "route", "splitters")
 EXTERNAL_P, EXTERNAL_LOG_N, EXTERNAL_BUDGET = 16, 28, 1 << 21
 DEFAULT_P = {"rams": 256, "rquick": 1 << 18}
 
@@ -60,15 +64,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=None,
                     help="PEs (default 256 for RAMS, 2^18 for RQuick)")
-    ap.add_argument("--algorithm", default="rams",
-                    choices=sorted(DEFAULT_P))
-    ap.add_argument("--log-n", type=int, default=26)
+    ap.add_argument("--algorithm", default="rams")
+    ap.add_argument("--log-n", type=int, default=None,
+                    help="log2 of the key count (default 26 for RAMS "
+                         "and RQuick)")
     ap.add_argument("--instance", default="Uniform")
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--external", action="store_true")
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     args = ap.parse_args(argv)
+    if not args.external and args.algorithm not in DEFAULT_P and (
+            args.p is None or args.log_n is None):
+        ap.error(f"--algorithm {args.algorithm} needs --p and --log-n")
 
     import numpy as np
     import torch
@@ -90,7 +98,8 @@ def main(argv=None) -> int:
         cfg = SortConfig(p=p, external=ExternalPolicy(budget=EXTERNAL_BUDGET))
         warm = generate_instance("Uniform", p, n >> 2).astype(np.uint32)
     else:
-        p, n = args.p or DEFAULT_P[args.algorithm], 1 << args.log_n
+        p = args.p or DEFAULT_P[args.algorithm]
+        n = 1 << (26 if args.log_n is None else args.log_n)
         cfg = SortConfig(p=p, algorithm=args.algorithm)
         warm = None
     x = generate_instance(args.instance, p, n).astype(np.uint32)
