@@ -11,11 +11,11 @@ Phases, each fatal on failure (no phase catches its own error):
    ``ptxas -v`` reports them;
 3. every RAMS kernel at the shapes of the main path at p = 256, n = 2^26
    (sort and merge on (256, 2 196 992) with an int32 payload, partition on
-   (256, 1 048 576) with nb = 64): equal to its plain PyTorch version on
-   the card, timed with CUDA events (kernel, plain, library call) beside
-   its bound; the whole local sort on full rows and at the main path's
-   occupancy (about 2^18 valid keys per row, a tail of pad words), and on
-   all-equal keys;
+   (256, 1 048 576) with nb = 64, every classify variant): equal to its
+   plain PyTorch version on the card, timed with CUDA events (kernel,
+   plain, library call) beside its bound; the whole local sort on full
+   rows and at the main path's occupancy (about 2^18 valid keys per row, a
+   tail of pad words), and on all-equal keys;
 3b. the k-way classifier at the shapes of the external lane (C = 2^25
    with nb = 16 for pass C, C = 2^21 with nb = 8 for pass D) and with
    splitters out of lex order (C = 2^25, nb = 2, 128, 2048): bucket and
@@ -40,19 +40,21 @@ Phases, each fatal on failure (no phase catches its own error):
 8. RQuick at p = 2^18 emulated PEs, n = 2^26 uint32 keys (n/p = 2^8):
    its two kernels at the shapes of that path (``tile_sort`` on
    (2^18, 1024) rows with an int32 payload and 2^8 to 2^10 valid keys per
-   row; ``partition_classify`` with nb = 2 on the lifted key planes, both
-   ``inclusive`` values) against their plain versions, timed beside their
-   bounds; ``psort(algorithm="rquick")`` end to end on Uniform, Zero and
+   row; ``partition_classify`` with nb = 2 on the lifted key planes, every
+   variant of the inclusive pass and the strict pass's histogram) against
+   their plain versions, timed beside their bounds; ``psort(algorithm="rquick")`` end to end on Uniform, Zero and
    AllToOne after a warm-up, with the checks of phase 4; and the card
    against the CPU bit for bit for ``rquick`` and ``ntb-quick`` at p = 64,
    n = 2^20;
-9. printed last, after phase 10: one ``kernels`` JSON line (a row per
-   kernel, path and shape, NTB-AMS's at RAMS's), the card line, and the
+9. printed last, after phase 11: one ``kernels`` JSON line (a row per
+   kernel, classify variant, path and shape, NTB-AMS's at RAMS's, with
+   each variant's launches in that path's run), the card line, and the
    ``ok`` line;
 10. the other algorithms, each at its regime: every kernel of those
-   paths at the shapes each path gives it (``partition_classify`` alone,
-   no rank, with nb = p = 256 at SSort's (256, 2^20) and NS-SSort's
-   (256, 2^19), ~2^18 valid keys per row; ``tile_sort`` and one
+   paths at the shapes each path gives it (every ``partition_classify``
+   variant with nb = p = 256 at SSort's (256, 2^20) and NS-SSort's
+   (256, 2^19), ~2^18 valid keys per row, and the buckets-only variant at
+   SSort's shape on the (hi, lo) planes of int64 keys; ``tile_sort`` and one
    ``run_merge`` pass at (256, 2^19) with 2^18 valid keys per row, the
    first sort of every path and both of bitonic's, and at SSort's
    (256, p·slot_cap) after the shuffle and the route; ``tile_sort`` at
@@ -66,12 +68,19 @@ Phases, each fatal on failure (no phase catches its own error):
    the checks of phase 4 and each path's kernels launched; and the card
    against the CPU bit for bit for ``ssort``, ``ns-ssort``, ``bitonic``
    and ``ntb-ams`` at p = 64, n = 2^20, ``rfis`` at p = 2^10, n = 2^12,
-   ``gatherm`` and ``allgatherm`` at p = 2^8, n = 2^5.
+   ``gatherm`` and ``allgatherm`` at p = 2^8, n = 2^5;
+11. 8-byte keys: the card against the CPU bit for bit on int64, uint64
+   and float64 keys for the eight algorithms that take them (``rquick``,
+   ``ntb-quick``, ``rfis``, ``ssort``, ``ns-ssort``, ``bitonic``,
+   ``gatherm``, ``allgatherm``) at the check sizes of phases 8 and 10;
+   then each sorts int64 Uniform keys at its phase-8 or phase-10 cell with
+   the checks of phase 4 (RFIS at p = 2^16, n = 2^16 first; it keeps the
+   cut, and says so, when 8x that peak would pass 70 GB at p = 2^18).
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5),
 ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7), and ``rfis``,
 ``gatherm``, ``allgatherm``, ``ssort``, ``ns-ssort``, ``bitonic`` and
-``ntb-ams`` (10).
+``ntb-ams`` (10), and all but the AMS family on 8-byte keys (11).
 
 It imports torch, numpy and the port only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -100,18 +109,21 @@ INSTANCES_EXT = ("Uniform", "Zero")
 LOG_N_EXT_CHECK, BUDGET_EXT_CHECK = 20, 1 << 13
 P_RQUICK, LOG_N_RQUICK = 1 << 18, 26
 INSTANCES_RQUICK = ("Uniform", "Zero", "AllToOne")
-# the kernels each path launches
+# the kernels of the RAMS path, and the launches (the classify: of the
+# variant the path reads) each path must show
 RAMS_KERNELS = ("tile_sort", "run_merge", "partition_classify",
                 "partition_rank")
+RAMS_LAUNCHES = ("tile_sort", "run_merge", "partition_classify:rank",
+                 "partition_rank")
 EXTERNAL_KERNELS = ("kway_classify", "tile_sort", "run_merge")
-RQUICK_KERNELS = ("tile_sort", "partition_classify")
+RQUICK_KERNELS = ("tile_sort", "partition_classify:hist")
 # phase 10: each other path's p, log2 n, instances and kernels.  RFIS at
 # its band (n/p = 1) at the survey's 2^18 PEs; GatherM and AllGatherM at
 # n/p = 2^-3, cut to p = 2^12 because the sim layout carries p·p·capacity
 # slots; the four baselines at the RAMS phase's size
 P_RFIS, LOG_N_RFIS = 1 << 18, 18
 P_GATHER, LOG_N_GATHER = 1 << 12, 9
-SSORT_KERNELS = ("tile_sort", "run_merge", "partition_classify")
+SSORT_KERNELS = ("tile_sort", "run_merge", "partition_classify:bucket")
 OTHER_PATHS = (
     ("rfis", P_RFIS, LOG_N_RFIS, ("Uniform", "Zero"), ("tile_sort",)),
     ("gatherm", P_GATHER, LOG_N_GATHER, ("Uniform", "Zero"), ("tile_sort",)),
@@ -124,12 +136,31 @@ OTHER_PATHS = (
     ("bitonic", P_MAIN, LOG_N_MAIN, ("Uniform", "Staggered", "Zero"),
      ("tile_sort", "run_merge")),
     ("ntb-ams", P_MAIN, LOG_N_MAIN, ("Uniform", "Staggered", "Zero"),
-     RAMS_KERNELS),
+     RAMS_LAUNCHES),
 )
 # the card against the CPU, bit for bit: (algorithm, p, log2 n)
 OTHER_CHECKS = (("ssort", 64, 20), ("ns-ssort", 64, 20), ("bitonic", 64, 20),
                 ("ntb-ams", 64, 20), ("rfis", 1 << 10, 12),
                 ("gatherm", 1 << 8, 5), ("allgatherm", 1 << 8, 5))
+# phase 11: 8-byte keys.  Each algorithm that takes them at its phase-8 or
+# phase-10 cell, and the kernel launch each path must show (its local sorts
+# take the library's sort: the tile sort takes 4-byte words only)
+KEYS64_PATHS = (
+    ("rquick", P_RQUICK, LOG_N_RQUICK, "partition_classify:hist"),
+    ("ntb-quick", P_RQUICK, LOG_N_RQUICK, "partition_classify:hist"),
+    ("rfis", P_RFIS, LOG_N_RFIS, None),
+    ("gatherm", P_GATHER, LOG_N_GATHER, None),
+    ("allgatherm", P_GATHER, LOG_N_GATHER, None),
+    ("ssort", P_MAIN, LOG_N_MAIN, "partition_classify:bucket"),
+    ("ns-ssort", P_MAIN, LOG_N_MAIN, "partition_classify:bucket"),
+    ("bitonic", P_MAIN, LOG_N_MAIN, None),
+)
+KEYS64_CHECKS = (("rquick", 64, 20), ("ntb-quick", 64, 20)) + tuple(
+    c for c in OTHER_CHECKS if c[0] != "ntb-ams")
+# RFIS's cut if its projected peak at p = 2^18 passes this: the projection
+# is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
+# hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
+P_RFIS_CUT, LOG_N_RFIS_CUT, RFIS_PEAK_LIMIT = 1 << 16, 16, 70e9
 
 
 def emit(obj) -> None:
@@ -173,25 +204,83 @@ def max_abs_err(torch, pairs) -> int:
     return err
 
 
+def launch_key(row) -> str:
+    """The launch counter of a row's kernel: the classify's per variant."""
+    return row["name"] + (f":{row['variant']}" if row.get("variant") else "")
+
+
 def measure(torch, results, name, source, replaces, got, want, fn, plain,
-            nbytes, ops, library=None, shape=None, **extra):
+            nbytes, ops, library=None, shape=None, variant=None, **extra):
     """Hold one kernel against its plain version, time both (and the library
-    call, where there is one), emit the row and keep it in ``results``."""
+    call, where there is one), emit the row and keep it in ``results``
+    under its launch key."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name} returns {len(got)} outputs, its plain "
+                             f"version {len(want)}")
     err = max_abs_err(torch, zip(got, want))
     if err != 0:
         raise AssertionError(f"{name} differs from its plain version "
                              f"(max abs err {err})")
     b_ms, b_by = bound(nbytes, ops)
-    row = {"name": name, "shape": shape, "route": "cuda", "source": source,
-           "replaces": replaces, "max_abs_err": err,
+    row = {"name": name, "shape": shape, "variant": variant, "route": "cuda",
+           "source": source, "replaces": replaces, "max_abs_err": err,
            "ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None if library is None
            else cuda_ms(torch, library)}
     emit({"phase": "kernel", **extra, **row,
           "kernel_ms": row["ms"]})
-    results.setdefault(name, row)
+    results.setdefault(launch_key(row), row)
     return row
+
+
+SRC_P = "src/repro_torch/kernels/partition/csrc/partition.cu"
+REPLACES_P = "src/repro/kernels/partition/partition.py:72"
+
+
+def partition_rows(torch, keys, ties, s_keys, s_ties, count, nb,
+                   inclusive=True, wants=None, **extra):
+    """Every classify launch variant (or those in ``wants``) at one path's
+    shape, each against its plain version with ``max_abs_err`` 0, timed
+    beside the bound of the bytes that launch moves: 8 per valid key (key
+    and tie, read below the count only), 4 per bucket written, its
+    histogram (per tile for the rank, per row otherwise), each row's
+    splitters and count.  The bucket variant is also timed beside the
+    library's ``torch.searchsorted`` on the int64 composites (what the
+    plain version calls), which gives the bucket ids without the trash
+    bucket.  Returns the rows, keyed by launch key."""
+    from repro_torch.kernels import partition as pt
+    from repro_torch.kernels.partition import ref as pref
+    rows, C = keys.shape
+    valid = int(count.sum())
+    tiles = -(-C // pt.PTILE)
+    out_bytes = {"rank": 4 * rows * C + 4 * rows * tiles * (nb + 1),
+                 "bucket_hist": 4 * rows * C + 4 * rows * nb,
+                 "bucket": 4 * rows * C, "hist": 4 * rows * nb}
+    out = {}
+    for want in wants or pt.WANTS:
+        kw = dict(n_buckets=nb, inclusive=inclusive, want=want)
+        library = None
+        if want == "bucket":
+            elem = pref._composite(keys, ties)
+            spl = pref._composite(s_keys, s_ties).contiguous()
+
+            def library():
+                return torch.searchsorted(spl, elem, right=inclusive)
+        measure(torch, out, "partition_classify", SRC_P, REPLACES_P,
+                pt.classify(keys, ties, s_keys, s_ties, count, **kw),
+                pref.classify_ref(keys, ties, s_keys, s_ties, count,
+                                  tile=pt.PTILE, **kw),
+                lambda: pt.classify(keys, ties, s_keys, s_ties, count, **kw),
+                lambda: pref.classify_ref(keys, ties, s_keys, s_ties, count,
+                                          tile=pt.PTILE, **kw),
+                nbytes=8 * valid + out_bytes[want] + rows * 8 * nb,
+                ops=valid * max(1, (nb - 1).bit_length()), library=library,
+                shape=[rows, C], variant=want, nb=nb, inclusive=inclusive,
+                valid_keys=valid, **extra)
+        library = elem = spl = None
+        torch.cuda.empty_cache()
+    return out
 
 
 def ptxas_report(log: str) -> dict:
@@ -250,7 +339,6 @@ def kernel_phases(torch):
                 torch.gather(v.view(-1, width), 1, order).view(rows, -1))
 
     src_b = "src/repro_torch/kernels/bitonic/csrc/bitonic.cu"
-    src_p = "src/repro_torch/kernels/partition/csrc/partition.cu"
     t = bt.TILE
     pad_word = 2 ** 31 - 1
     kp, vp = padded(torch, keys, t, pad_word), padded(torch, vals, t, 0)
@@ -375,25 +463,13 @@ def kernel_phases(torch):
     n = rows * C
     tiles = -(-C // pt.PTILE)
     hist_bytes = rows * tiles * (nb + 1) * 4
-    # keys and ties are read only below the count, buckets written for all
-    # slots; plus the histogram and each row's splitters and count
-    valid = int(count.sum())
+    results.update(partition_rows(torch, keys, ties, s_keys, s_ties, count,
+                                  nb, path="rams"))
     cl = pt.classify(keys, ties, s_keys, s_ties, count, n_buckets=nb)
-    record("partition_classify", src_p,
-           "src/repro/kernels/partition/partition.py:72", cl,
-           pref.classify_ref(keys, ties, s_keys, s_ties, count, n_buckets=nb,
-                             tile=pt.PTILE),
-           lambda: pt.classify(keys, ties, s_keys, s_ties, count,
-                               n_buckets=nb),
-           lambda: pref.classify_ref(keys, ties, s_keys, s_ties, count,
-                                     n_buckets=nb, tile=pt.PTILE),
-           nbytes=8 * valid + 4 * n + hist_bytes + rows * (8 * nb),
-           ops=valid * (nb - 1).bit_length(), shape=[rows, C])
     bucket, th = cl
     del cl
     off = torch.cumsum(th, dim=1, dtype=torch.int32) - th
-    record("partition_rank", src_p,
-           "src/repro/kernels/partition/partition.py:72",
+    record("partition_rank", SRC_P, REPLACES_P,
            [pt.rank(bucket, off, n_buckets=nb)],
            [pref.rank_ref(bucket, off, n_buckets=nb, tile=pt.PTILE)],
            lambda: pt.rank(bucket, off, n_buckets=nb),
@@ -477,12 +553,9 @@ def rquick_kernel_phase(torch):
     (twice the input capacity 512) holding 2^8 to 2^10 valid keys, and
     one splitter per row over the lifted (hi, lo) planes, whose hi word is
     0 or 1 (the key 0xFFFFFFFF lifts to 2^32)."""
-    from repro_torch.core.median import lift
-    from repro_torch.core.rquick import _planes
+    from repro_torch.core.median import lift, planes
     from repro_torch.kernels import bitonic as bt
-    from repro_torch.kernels import partition as pt
     from repro_torch.kernels.bitonic import ref as bref
-    from repro_torch.kernels.partition import ref as pref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(2)
@@ -502,9 +575,7 @@ def rquick_kernel_phase(torch):
     rows_out = []
 
     def record(*args, **kw):
-        row = measure(torch, {}, *args, path="rquick", **kw)
-        if kw.get("inclusive", True):        # one row per kernel kept
-            rows_out.append(row)
+        rows_out.append(measure(torch, {}, *args, path="rquick", **kw))
 
     def lib_sort():
         """The library's stable row sort + payload gather: the same
@@ -527,30 +598,16 @@ def rquick_kernel_phase(torch):
     sorted_keys = got[0]
     del got, vals
     torch.cuda.empty_cache()
-    e_key, e_tie = _planes(lift(sorted_keys))
+    e_key, e_tie = planes(lift(sorted_keys))
     pick = (torch.arange(rows, device=dev) * 7919) % count
-    s_key, s_tie = _planes(lift(torch.gather(sorted_keys, 1,
-                                             pick[:, None])))
+    s_key, s_tie = planes(lift(torch.gather(sorted_keys, 1, pick[:, None])))
     del sorted_keys, pick
-    for inclusive in (True, False):
-        cl = pt.classify(e_key, e_tie, s_key, s_tie, count, n_buckets=2,
-                         inclusive=inclusive)
-        record("partition_classify",
-               "src/repro_torch/kernels/partition/csrc/partition.cu",
-               "src/repro/kernels/partition/partition.py:72", cl,
-               pref.classify_ref(e_key, e_tie, s_key, s_tie, count,
-                                 n_buckets=2, tile=pt.PTILE,
-                                 inclusive=inclusive),
-               lambda: pt.classify(e_key, e_tie, s_key, s_tie, count,
-                                   n_buckets=2, inclusive=inclusive),
-               lambda: pref.classify_ref(e_key, e_tie, s_key, s_tie, count,
-                                         n_buckets=2, tile=pt.PTILE,
-                                         inclusive=inclusive),
-               # as at the RAMS shape: reads below the count only
-               nbytes=8 * valid + 4 * rows * C + rows * (8 * 2 + 4 * 3),
-               ops=valid,
-               shape=[rows, C], nb=2, inclusive=inclusive)
-        del cl
+    # every variant of the inclusive pass (the path launches the histogram
+    # only), and the strict pass's histogram, which the path launches too
+    rows_out += partition_rows(torch, e_key, e_tie, s_key, s_tie, count, 2,
+                               path="rquick").values()
+    partition_rows(torch, e_key, e_tie, s_key, s_tie, count, 2,
+                   inclusive=False, wants=("hist",), path="rquick")
     del e_key, e_tie, s_key, s_tie, keys, count
     torch.cuda.empty_cache()
     return rows_out
@@ -696,8 +753,7 @@ def other_kernel_phase(torch):
     route, (256, p·slot_cap) with ~2^18; ``tile_sort`` at RFIS's (2^18, 4)
     and (2^18, 2048) rows and at GatherM's and AllGatherM's (2^12, 4),
     each with at most one valid key per row.  Returns [(row, paths)]."""
-    from repro_torch.kernels import partition as pt
-    from repro_torch.kernels.partition import ref as pref
+    from repro_torch.core.median import planes
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(3)
@@ -721,30 +777,31 @@ def other_kernel_phase(torch):
         s_keys = torch.sort(keys[0, pick])[0].expand(rows,
                                                      nb - 1).contiguous()
         s_ties = torch.zeros_like(s_keys)
-        valid = int(count.sum())
-        row = measure(
-            torch, {}, "partition_classify",
-            "src/repro_torch/kernels/partition/csrc/partition.cu",
-            "src/repro/kernels/partition/partition.py:72",
-            pt.classify(keys, ties, s_keys, s_ties, count, n_buckets=nb),
-            pref.classify_ref(keys, ties, s_keys, s_ties, count,
-                              n_buckets=nb, tile=pt.PTILE),
-            lambda: pt.classify(keys, ties, s_keys, s_ties, count,
-                                n_buckets=nb),
-            lambda: pref.classify_ref(keys, ties, s_keys, s_ties, count,
-                                      n_buckets=nb, tile=pt.PTILE),
-            # what the path needs: key + tie reads below the count, a
-            # bucket per slot, each row's splitters and count.  The
-            # per-tile histogram the kernel also writes is left out: the
-            # path reads none of it
-            nbytes=8 * valid + 4 * rows * C + rows * (8 * (nb - 1) + 8),
-            ops=valid * (nb - 1).bit_length(), shape=[rows, C], nb=nb,
-            valid_keys=valid,
-            histogram_bytes=rows * (-(-C // pt.PTILE)) * (nb + 1) * 4,
-            paths=[path])
-        rows_out.append((row, (path,)))
+        rows_out += [(row, (path,)) for row in partition_rows(
+            torch, keys, ties, s_keys, s_ties, count, nb,
+            path=path).values()]
         del keys, ties, s_keys, s_ties, pick
         torch.cuda.empty_cache()
+
+    # SSort on 8-byte keys: the (hi, lo) planes of sorted int64 words, so
+    # the ties are not zero, against u64 splitters drawn from the keys
+    words = torch.randint(-2 ** 63, 2 ** 63 - 1, (rows, 1 << 20),
+                          generator=g, device=dev, dtype=torch.int64)
+    col = torch.arange(1 << 20, device=dev)
+    words = torch.where(col[None, :] < near[:, None],
+                        torch.sort(words, dim=1)[0], 2 ** 63 - 1)
+    del col
+    pick = torch.randint(0, int(near.min()), (nb - 1,), generator=g,
+                         device=dev)
+    keys, ties = planes(words)
+    s_keys, s_ties = planes(torch.sort(words[0, pick])[0].expand(
+        rows, nb - 1))
+    del words, pick
+    rows_out += [(row, ("ssort-int64",)) for row in partition_rows(
+        torch, keys, ties, s_keys, s_ties, near, nb, wants=("bucket",),
+        path="ssort-int64").values()]
+    del keys, ties, s_keys, s_ties
+    torch.cuda.empty_cache()
 
     # the shuffle's and the route's output: p slots of samplesort's
     # slot_cap = ceil(2·mean + 6·sqrt(mean) + 6), mean = capacity / p
@@ -838,8 +895,11 @@ def check_other(torch, np, x_np, out, info, n, p):
 
 
 def check_sorted(torch, np, x_np, out, info, n):
-    """Phase-4 assertions on one psort result (all on the card)."""
+    """Phase-4 assertions on one psort result (all on the card): uint32
+    keys, or int64 keys (phase 11)."""
     dev = out.device
+    if out.dtype == torch.int64:
+        return check_sorted64(torch, np, x_np, out, info, n)
     o = out.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     ovf = info["overflow"]
     if o.numel() != n - ovf:
@@ -860,6 +920,114 @@ def check_sorted(torch, np, x_np, out, info, n):
     if ovf == 0 and not np.array_equal(
             np.sort(x_np), o.cpu().numpy().astype(np.uint32)):
         raise AssertionError("output differs from np.sort(input)")
+
+
+def check_sorted64(torch, np, x_np, out, info, n):
+    """The assertions of phase 4 on a psort result of int64 keys."""
+    ovf = info["overflow"]
+    if out.numel() != n - ovf:
+        raise AssertionError(f"{out.numel()} keys out, expected n - overflow "
+                             f"= {n - ovf}")
+    if out.numel() > 1 and not bool((out[1:] >= out[:-1]).all()):
+        raise AssertionError("output is not nondecreasing")
+    perm = info["perm"]
+    sp = torch.sort(perm)[0]
+    if sp.numel() > 1 and not bool((sp[1:] > sp[:-1]).all()):
+        raise AssertionError("perm has a repeated entry")
+    if sp.numel() and not (0 <= int(sp[0]) and int(sp[-1]) < n):
+        raise AssertionError("perm indexes outside the input")
+    if not torch.equal(torch.from_numpy(x_np).to(out.device)[perm], out):
+        raise AssertionError("input[perm] != output")
+    if ovf == 0 and not np.array_equal(np.sort(x_np), out.cpu().numpy()):
+        raise AssertionError("output differs from np.sort(input)")
+
+
+def keys64(np, generate_instance, name, p, n, dtype):
+    """The instance as 8-byte keys with its order and ties: the u32 word u
+    as the u64 ``u << 32 | u`` (int64 views those bits), or the float64
+    ``(u − 2^31) · 0.37``."""
+    u = generate_instance(name, p, n).astype(np.uint64)
+    if dtype == np.float64:
+        return (u.astype(np.float64) - 2.0 ** 31) * 0.37
+    return ((u << np.uint64(32)) | u).view(dtype)
+
+
+def keys64_phase(torch, np, psort, SortConfig, generate_instance,
+                 launch_counts, reset_launch_counts):
+    """Phase 11: 8-byte keys.  First the card against the CPU bit for bit
+    for int64, uint64 and float64 keys with each of the eight algorithms
+    that take them, at the check sizes (which also warms their int64
+    kernels); then each sorts int64 Uniform keys at its phase-8 or phase-10
+    cell with the checks of phase 4, and its path's classify launched.
+    RFIS first runs at p = 2^16, n = 2^16 and takes the cell only if 8x
+    that peak stays under 70 GB.  Returns each path's launches."""
+    for algorithm, p, log_n in KEYS64_CHECKS:
+        n = 1 << log_n
+        cfg = SortConfig(p=p, algorithm=algorithm)
+        for dtype in (np.int64, np.uint64, np.float64):
+            x = keys64(np, generate_instance, "Uniform", p, n, dtype)
+            go, gi = psort(x, cfg, return_info=True, device="cuda")
+            co, ci = psort(x, cfg, return_info=True, device="cpu")
+            same = (go.dtype == co.dtype
+                    and torch.equal(go.cpu().view(torch.int64),
+                                    co.view(torch.int64))
+                    and torch.equal(gi["perm"].cpu(), ci["perm"])
+                    and torch.equal(gi["counts"].cpu(), ci["counts"])
+                    and gi["overflow"] == ci["overflow"])
+            emit({"phase": "keys64_cuda_vs_cpu", "algorithm": algorithm,
+                  "dtype": np.dtype(dtype).name, "p": p, "n": n,
+                  "instance": "Uniform", "identical": same,
+                  "overflow_cuda": gi["overflow"],
+                  "overflow_cpu": ci["overflow"]})
+            if not same:
+                raise AssertionError(f"{algorithm} on {np.dtype(dtype).name} "
+                                     f"keys: cuda and cpu runs differ")
+            if dtype == np.int64:
+                check_other(torch, np, x, go, gi, n, p)
+
+    def one_sort(algorithm, p, log_n):
+        n = 1 << log_n
+        x = keys64(np, generate_instance, "Uniform", p, n, np.int64)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, info = psort(x, SortConfig(p=p, algorithm=algorithm),
+                          return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if out.dtype != torch.int64:
+            raise AssertionError(f"{algorithm} returned {out.dtype} keys")
+        check_other(torch, np, x, out, info, n, p)
+        row = {"phase": "keys64_psort", "algorithm": info["algorithm"],
+               "dtype": "int64", "instance": "Uniform", "p": p, "n": n,
+               "wall_s": wall, "keys_per_s": n / wall,
+               "max_memory_allocated": peak, "balance": info["balance"],
+               "overflow": info["overflow"], "launches": launches}
+        del out, info, x
+        torch.cuda.empty_cache()
+        return row
+
+    first = {}
+    for algorithm, p, log_n, kernel in KEYS64_PATHS:
+        if algorithm == "rfis":
+            small = one_sort(algorithm, P_RFIS_CUT, LOG_N_RFIS_CUT)
+            projected = 8 * small["max_memory_allocated"]
+            cut = projected > RFIS_PEAK_LIMIT
+            emit({**small, "phase": "keys64_rfis_reckoning",
+                  "projected_peak_at_p_2_18": projected, "cut": cut})
+            if cut:
+                p, log_n = P_RFIS_CUT, LOG_N_RFIS_CUT
+        row = one_sort(algorithm, p, log_n)
+        if kernel is not None and row["launches"][kernel] <= 0:
+            raise AssertionError(f"{kernel} never launched on the 8-byte "
+                                 f"{algorithm} path")
+        emit(row)
+        first[algorithm] = row["launches"]
+    return first
 
 
 def check_external(torch, np, x_np, out, info, n):
@@ -941,7 +1109,7 @@ def main() -> int:
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         check_sorted(torch, np, x, out, info, n)
-        missing = [k for k in RAMS_KERNELS if launches[k] <= 0]
+        missing = [k for k in RAMS_LAUNCHES if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{missing}")
@@ -1052,25 +1220,34 @@ def main() -> int:
                                        reset_launch_counts)
     emit({"phase": "other_done", "seconds": time.perf_counter() - t10})
 
+    # --- 11. 8-byte keys -----------------------------------------------------
+    t11 = time.perf_counter()
+    keys64_launches = keys64_phase(torch, np, psort, SortConfig,
+                                   generate_instance, launch_counts,
+                                   reset_launch_counts)
+    emit({"phase": "keys64_done", "seconds": time.perf_counter() - t11})
+
     # --- 9. summary (printed last) -----------------------------------------
-    # a row per kernel, path and shape: its time at that shape and its
-    # launches in that path's measured run (RAMS where a kernel runs there)
+    # a row per kernel (classify: per variant), path and shape: its time at
+    # that shape and its launches in that path's measured run
     rows = []
-    for name, row in kernels.items():
-        path = "rams" if name in RAMS_KERNELS else "external"
+    for key, row in kernels.items():
+        path = "rams" if row["name"] in RAMS_KERNELS else "external"
         rows.append((row, path, (main_launches if path == "rams"
-                                 else ext_launches)[name]))
+                                 else ext_launches)[key]))
     for row in rquick_rows:
-        rows.append((row, "rquick", rquick_launches[row["name"]]))
-    for name in RAMS_KERNELS:                  # NTB-AMS: RAMS's shapes
-        rows.append((kernels[name], "ntb-ams",
-                     other_launches["ntb-ams"][name]))
+        rows.append((row, "rquick", rquick_launches[launch_key(row)]))
+    for key, row in kernels.items():          # NTB-AMS: RAMS's shapes
+        if row["name"] in RAMS_KERNELS:
+            rows.append((row, "ntb-ams", other_launches["ntb-ams"][key]))
     for row, paths in other_rows:
         for path in paths:
-            rows.append((row, path, other_launches[path][row["name"]]))
+            launches = keys64_launches["ssort"] if path == "ssort-int64" \
+                else other_launches[path]
+            rows.append((row, path, launches[launch_key(row)]))
     emit({"kernels": [
-        {"name": row["name"], "path": path, "shape": row["shape"],
-         "route": row["route"],
+        {"name": row["name"], "variant": row["variant"], "path": path,
+         "shape": row["shape"], "route": row["route"],
          "source": row["source"], "replaces": row["replaces"],
          "launches": launches, "max_abs_err": row["max_abs_err"],
          "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -33,19 +33,21 @@ from .samplesort import samplesort
 from .types import (int_to_key, key_to_int, make_shard, pad_value,
                     resolve_device)
 
-# knobs of the reference's SortConfig that this port does not honour yet,
-# with the ROADMAP item (queue 1) that brings each
+# knobs of the reference's SortConfig that this port does not honour yet:
+# the values it accepts (the reference's defaults) and the ROADMAP item
+# (queue 1) that brings the others
 _UNPORTED = {
-    "mesh": "item 10 (torch.distributed backend)",
-    "axis": "item 10 (torch.distributed backend)",
-    "data_axis": "item 9 (batched keys and nested meshes)",
-    "mesh_shape": "item 9 (batched keys and nested meshes)",
-    "mesh_axes": "item 9 (batched keys and nested meshes)",
-    "cost_model": "item 8 (selection)",
-    "fault_policy": "item 13 (faults and elastic rescale)",
-    "overlap": "item 11 (exchange/merge overlap)",
+    "mesh": ((None,), "item 7 (torch.distributed backend)"),
+    "axis": (("sort",), "item 7 (torch.distributed backend)"),
+    "data_axis": (("data",), "item 5 (batched keys and nested meshes)"),
+    "mesh_shape": ((None,), "item 5 (batched keys and nested meshes)"),
+    "mesh_axes": ((("inter", "intra"),),
+                  "item 5 (batched keys and nested meshes)"),
+    "cost_model": ((None,), "item 3 (selection)"),
+    "fault_policy": ((None,), "item 8 (faults and elastic rescale)"),
+    "overlap": ((None, False), "item 4 (exchange/merge overlap)"),
 }
-_ALGORITHMS = {"auto": "item 8 (selection)"}
+_ALGORITHMS = {"auto": "item 3 (selection)"}
 # the ported algorithms: each one's function and the keywords it takes
 _RAMS_KW = ("seed", "levels", "level_bits", "oversample", "tie_break",
             "shuffle", "slot_factor")
@@ -88,17 +90,20 @@ class SortConfig:
     - ``"rfis"``: ``capacity`` (of the output shards);
     - ``"ssort"``, ``"ns-ssort"`` (no random shuffle): ``seed``,
       ``robust``, ``sample_factor``, ``slot_factor``, ``oracle_splitters``
-      (a tuple of p − 1 nondecreasing u64 words, one zero-extended u32 key
-      each);
+      (a tuple of p − 1 nondecreasing u64 words: a zero-extended u32 key
+      each, or the unsigned word of an 8-byte key);
     - ``"bitonic"``: none;
     - ``"gatherm"`` (everything to PE 0), ``"allgatherm"`` (everything to
       every PE): ``dims``.
 
     ``external`` (an :class:`ExternalPolicy`, or None) and
-    ``algorithm="external"`` select the out-of-core lane.  Asking for a
-    knob of the reference that is not ported (``algorithm="auto"``
-    among them) raises ``NotImplementedError`` naming the ROADMAP item
-    that brings it."""
+    ``algorithm="external"`` select the out-of-core lane.  The
+    reference's other knobs are taken at their default values (``mesh``,
+    ``mesh_shape``, ``cost_model`` and ``fault_policy`` None, ``axis``
+    "sort", ``data_axis`` "data", ``mesh_axes`` ("inter", "intra") as a
+    tuple or a list, ``overlap`` False); any other value of one, and
+    ``algorithm="auto"``, raises ``NotImplementedError`` naming the
+    ROADMAP item that brings it."""
 
     p: Optional[int] = None
     backend: str = "sim"
@@ -115,14 +120,18 @@ class SortConfig:
             if name not in _UNPORTED:
                 raise TypeError(f"SortConfig got an unexpected keyword "
                                 f"{name!r}")
-            if value not in (None, False):
+            accepted, item = _UNPORTED[name]
+            if isinstance(value, list):
+                value = tuple(value)
+            if not any(value is a or (type(value) is type(a) and value == a)
+                       for a in accepted):
                 raise NotImplementedError(
                     f"SortConfig({name}=...) is not ported yet: ROADMAP "
-                    f"queue 1 {_UNPORTED[name]}")
+                    f"queue 1 {item}")
         if backend != "sim":
             raise NotImplementedError(
                 f"backend={backend!r} is not ported yet: ROADMAP queue 1 "
-                f"{_UNPORTED['mesh']}")
+                f"{_UNPORTED['mesh'][1]}")
         if external is not None and not isinstance(external,
                                                    ExternalPolicy):
             raise TypeError(f"external must be an ExternalPolicy, got "
@@ -140,7 +149,7 @@ class SortConfig:
         if kw.get("overlap"):
             raise NotImplementedError(
                 f"overlap is not ported yet: ROADMAP queue 1 "
-                f"{_UNPORTED['overlap']}")
+                f"{_UNPORTED['overlap'][1]}")
         kw.pop("overlap", None)
         known = _PORTED.get(algorithm, _PORTED["rams"])[1]
         unknown = set(kw) - set(known)
@@ -185,8 +194,11 @@ def _sort_body(keys2d, row_counts, p, capacity, out_capacity, algorithm,
 
 def psort(keys, config: Optional[SortConfig] = None, *,
           return_info: bool = False, device=None):
-    """Sort 1-D keys (int32, uint32 or float32; numpy or torch) with
-    ``config.algorithm`` (see :class:`SortConfig`) over p emulated PEs.
+    """Sort 1-D keys (int32, uint32, float32, int64, uint64 or float64;
+    numpy or torch) with ``config.algorithm`` (see :class:`SortConfig`)
+    over p emulated PEs.  8-byte keys sort with every algorithm but
+    ``"rams"`` and ``"ntb-ams"``, which raise the reference's ``ValueError``
+    (their sample composite holds a 4-byte key beside its tag).
 
     Returns the sorted tensor on ``device`` in the keys' dtype and, with
     ``return_info``, a dict with ``counts`` (p,), ``overflow``,
@@ -200,10 +212,10 @@ def psort(keys, config: Optional[SortConfig] = None, *,
 
     With an :class:`ExternalPolicy` (``config.external`` or the
     ``REPRO_EXTERNAL_BUDGET`` environment variable) the out-of-core lane
-    runs when ``algorithm="external"`` or n/p exceeds the budget; it also
-    takes 8-byte keys (int64, uint64, float64), and its info adds the
-    reference's ``mesh_shape``, ``d`` and ``external`` ({budget, runs,
-    merge}) and the host-clock ``pass_seconds`` of passes A–D."""
+    runs when ``algorithm="external"`` or n/p exceeds the budget, on every
+    key dtype; its info adds the reference's ``mesh_shape``, ``d`` and
+    ``external`` ({budget, runs, merge}) and the host-clock
+    ``pass_seconds`` of passes A–D."""
     cfg = config if config is not None else SortConfig()
     if cfg.p is None:
         raise ValueError("backend='sim' needs an explicit p")
@@ -216,8 +228,8 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     if x.dim() != 1:
         if x.dim() == 2:
             raise NotImplementedError(
-                "2-D (batched) keys are not ported yet: ROADMAP queue 1 "
-                "item 9")
+                f"2-D (batched) keys are not ported yet: ROADMAP queue 1 "
+                f"{_UNPORTED['data_axis'][1]}")
         raise ValueError(f"keys must be 1-D; got shape {tuple(x.shape)}")
     external = _resolve_external(cfg.external)
     if external is None and cfg.algorithm == "external":
@@ -227,14 +239,14 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     per = -(-max(n, 1) // p)                              # ceil(n/p)
     if external is not None and (cfg.algorithm == "external"
                                  or per > external.budget):
-        if x.dtype not in _EXTERNAL_DTYPES:
+        if x.dtype not in _KEY_DTYPES:
             raise ValueError(f"the external lane sorts int32, uint32, "
                              f"float32, int64, uint64 or float64 keys; got "
                              f"{x.dtype}")
         return _psort_external(x, n, p, external, return_info, dev)
-    if x.dtype not in (torch.int32, torch.uint32, torch.float32):
-        raise ValueError(f"{cfg.algorithm} sorts 4-byte keys (int32, uint32, "
-                         f"float32); got {x.dtype}")
+    if x.dtype not in _KEY_DTYPES:
+        raise ValueError(f"psort sorts int32, uint32, float32, int64, uint64 "
+                         f"or float64 keys; got {x.dtype}")
     algo_kw = dict(cfg.algo_kw)
     if cfg.levels is not None:
         algo_kw.setdefault("levels", cfg.levels)
@@ -275,8 +287,8 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     return result, info
 
 
-_EXTERNAL_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
-                    torch.uint64, torch.float64)
+_KEY_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
+               torch.uint64, torch.float64)
 
 
 def _resolve_external(external) -> Optional[ExternalPolicy]:

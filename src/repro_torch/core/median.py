@@ -28,18 +28,42 @@ _M32 = 0xFFFFFFFF
 
 
 def lift(keys: torch.Tensor) -> torch.Tensor:
-    """The port's int32 words (4-byte keys) → lifted int64 words: the
-    reference's unsigned key is ``s + 2^31``, lifted ``+ 1``, flipped
-    ``− 2^63``."""
+    """The port's words → lifted int64 words, the reference's ``u + 1`` in
+    uint64 held sign-flipped.  An int32 word (4-byte key) is the unsigned
+    key ``s + 2^31``, lifted ``+ 1``, flipped ``− 2^63``, and never wraps.
+    An int64 word (8-byte key) is already the flipped u64, so its lift is
+    ``s + 1``, and the largest key (INT64_MAX, the u64 2^64 − 1) wraps to
+    :data:`LO`, the −inf filler, as the reference's uint64 does; the wrap
+    is written out, with no signed overflow."""
+    if keys.dtype == torch.int64:
+        top = keys == HI
+        return torch.where(top, LO, keys + ~top)
     return keys.to(torch.int64) + ((1 << 31) + 1 + LO)
 
 
-def unlift(w: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`lift`, wrapping like the reference's ``(w − 1)``
-    cast to uint32 (a filler maps to the word of 0xFFFFFFFF or
-    0xFFFFFFFE)."""
+def unlift(w: torch.Tensor, dtype: torch.dtype = torch.int32
+           ) -> torch.Tensor:
+    """Inverse of :func:`lift` for words of ``dtype``, wrapping like the
+    reference's ``(w − 1)`` cast to the key's unsigned type: to uint32 a
+    filler maps to the word of 0xFFFFFFFF or 0xFFFFFFFE; to uint64 ``LO``
+    wraps to INT64_MAX, with no signed overflow."""
+    if dtype == torch.int64:
+        bottom = w == LO
+        return torch.where(bottom, HI, w - (~bottom).to(torch.int64))
     u = ((w ^ LO) - 1) & _M32                      # the reference's uint32
     return (u - (1 << 31)).to(torch.int32)
+
+
+def planes(words: torch.Tensor):
+    """Sign-flipped u64 words (int64: lifted words, or 8-byte keys) → the
+    partition kernel's planes: the u64's (hi, lo) u32 words as a
+    sign-flipped int32 key plane (``hi − 2^31``) and an int32 tie plane
+    holding ``lo``'s bits, which compare as the u64 does."""
+    u = words ^ LO                                 # the u64's bits
+    hi, lo = (u >> 32) & _M32, u & _M32
+    key = (hi - (1 << 31)).to(torch.int32)
+    tie = (lo - ((lo >> 31) << 32)).to(torch.int32)
+    return key.contiguous(), tie.contiguous()
 
 
 def _coin(seed: int, *fold) -> int:

@@ -105,9 +105,10 @@ def rams(shard: SortShard, p: int, *, seed: int = 0xA35,
          level_bits: Optional[Sequence[int]] = None, oversample: int = 4,
          tie_break: bool = True, shuffle: bool = True,
          slot_factor: float = 2.0) -> RAMSResult:
-    """Sort the p-PE shard.  Requires int32 internal words (4-byte keys)."""
+    """Sort the p-PE shard.  Requires int32 internal words (4-byte keys):
+    8-byte keys raise the reference's error."""
     if shard.keys.dtype != torch.int32:
-        raise ValueError("rams requires 4-byte keys (psort's transform)")
+        raise ValueError("rams requires uint32 keys (use psort's transform)")
     d = p.bit_length() - 1
     if p.bit_count() != 1 or shard.capacity >= (1 << _POS_BITS):
         raise ValueError(f"rams needs a power-of-two p and capacity < "

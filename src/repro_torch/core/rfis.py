@@ -15,7 +15,10 @@ origin row R, local index j): the local sort is stable, the local index is
 the position after it, and every gather step puts the lower origin block
 first on ties.  So the rank is one ``searchsorted`` per PE on the int64
 composite ``key << (rb + L) | R << L | j`` (L bits hold a local index),
-with each row element's threshold mapped to the same composite.
+with each row element's threshold mapped to the same composite.  An 8-byte
+key leaves no room beside it, so it enters the composite as its dense rank
+among the column's distinct keys (``_dense_keys``), which keeps the order
+and the ties of the keys.
 
 The gathers, the rank and the delivery run under ``torch.profiler``
 scopes ``gather``, ``rank`` and ``route``.
@@ -65,6 +68,35 @@ def _with_origin(shard: SortShard, p: int) -> SortShard:
     return shard.replace(vals=vals)
 
 
+def _dense_keys(col: SortShard, query: torch.Tensor):
+    """8-byte keys → dense ranks that order and tie as the keys do, for
+    the column's valid keys and for the ``query`` keys of the row: each
+    column key takes the count of distinct column keys below it (a cumsum
+    of key changes along the sorted column), and a query key the same count
+    among the keys below it — the dense rank of its first column key ≥ it
+    (one ``searchsorted``, clamped to the count, so a valid key equal to
+    the pad word is found by the count).  Returns (column ranks, query
+    ranks, whether each query key occurs in the column)."""
+    keys = torch.where(col.valid_mask(), col.keys, col.pad)
+    count = col.count[:, None]
+    at = torch.minimum(torch.searchsorted(keys, query), count)
+    width = keys.shape[1]
+    found = (at < count) & (torch.gather(keys, 1, at.clamp(max=width - 1))
+                            == query)
+    step = torch.zeros_like(keys, dtype=torch.bool)
+    torch.ne(keys[:, 1:], keys[:, :-1], out=step[:, 1:])
+    del keys
+    dense = torch.cumsum(step, dim=1)
+    del step
+    # past the count: the number of distinct valid keys
+    last = torch.gather(dense, 1, (count - 1).clamp(min=0))
+    distinct = torch.where(count > 0, last + 1, 0)
+    dense = torch.where(col.valid_mask(), dense, distinct)
+    q_dense = torch.where(at < width, torch.gather(
+        dense, 1, at.clamp(max=width - 1)), distinct)
+    return dense, q_dense, found
+
+
 def rfis_rank(shard: SortShard, p: int) -> RFISRanks:
     """Global ranks of all elements of my row (steps 1–4).  The returned
     row data keeps ``_orig`` and ``_lidx``, as the reference's does."""
@@ -73,9 +105,14 @@ def rfis_rank(shard: SortShard, p: int) -> RFISRanks:
     lbits = max(1, (cap - 1).bit_length())          # j < 2^lbits
     me = comm.axis_index(p, shard.keys.device)
     my_row, my_col = (me >> cb)[:, None], (me & ((1 << cb) - 1))[:, None]
-    if 32 + rb + lbits > 63:
+    shift = rb + lbits
+    # a 4-byte key takes 32 bits; a dense rank is at most the column's
+    # 2^rb · capacity ≤ 2^shift slots, and a query may carry one more
+    key_bits = 32 if shard.keys.dtype == torch.int32 else shift + 1
+    if key_bits + shift > 63:
         raise ValueError(f"rfis ranks on int64 composites: capacity {cap} "
-                         f"at p = {p} needs 32 + {rb} + {lbits} > 63 bits")
+                         f"at p = {p} needs {key_bits} + {rb} + {lbits} > "
+                         f"63 bits")
     with record_function("gather"):
         shard = _with_origin(local_sort(shard), p)
         row = allgather_merge(shard, p, dims=range(cb))
@@ -85,7 +122,9 @@ def rfis_rank(shard: SortShard, p: int) -> RFISRanks:
             dims=range(cb, cb + rb))
         del shard
     with record_function("rank"):
-        shift = rb + lbits
+        col_key, row_key, found = col.keys, row.keys, None
+        if row.keys.dtype == torch.int64:
+            col_key, row_key, found = _dense_keys(col, row.keys)
 
         def composite(key, r, j):
             return (key.to(torch.int64) << shift) | (r << lbits) | j
@@ -93,23 +132,26 @@ def rfis_rank(shard: SortShard, p: int) -> RFISRanks:
         # column element b = (x, R_b, j); invalid slots above every query
         col_comp = torch.where(
             col.valid_mask(),
-            composite(col.keys, col.vals["_orig"].to(torch.int64) >> cb,
+            composite(col_key, col.vals["_orig"].to(torch.int64) >> cb,
                       col.vals["_lidx"].to(torch.int64)), _MAX)
         total = butterfly_sum(col.count, p, dims=range(cb))
-        del col
+        del col, col_key
         # row element a = (y, my_row, C_a, i) counts the b below (y, thr):
         # C_a > my_col: R_b ≤ my_row; C_a < my_col: R_b < my_row;
         # C_a == my_col: R_b < my_row, or R_b == my_row and j < i.  In
         # the last row (my_row + 1) << lbits carries into the key: every b
-        # with x ≤ y.
+        # with x ≤ y.  A dense rank of a key that is not in the column
+        # counts the keys below it only (threshold 0).
         ca = row.vals["_orig"].to(torch.int64) & ((1 << cb) - 1)
         i_idx = row.vals["_lidx"].to(torch.int64)
         thr = torch.where(ca > my_col, (my_row + 1) << lbits,
                           torch.where(ca < my_col, my_row << lbits,
                                       (my_row << lbits) | i_idx))
         del ca, i_idx
-        query = (row.keys.to(torch.int64) << shift) + thr
-        del thr
+        if found is not None:
+            thr = torch.where(found, thr, 0)
+        query = (row_key.to(torch.int64) << shift) + thr
+        del thr, row_key, found
         partial = torch.searchsorted(col_comp, query)
         del col_comp, query
         partial = torch.where(row.valid_mask(), partial, 0)

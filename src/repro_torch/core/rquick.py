@@ -20,27 +20,15 @@ from torch.profiler import record_function
 
 from . import comm
 from .hypercube import butterfly_sum, exchange_shard, hypercube_shuffle
-from .median import LO, butterfly_median_window, lift, splitter_from_window
+from .median import (butterfly_median_window, lift, planes,
+                     splitter_from_window)
 from .types import SortShard, compact, local_sort, merge_shards, resize
 from repro_torch.kernels.partition import partition_buckets
-
-_M32 = 0xFFFFFFFF
 
 
 class RQuickResult(NamedTuple):
     shard: SortShard
     overflow: torch.Tensor         # (p,) int64, elements dropped
-
-
-def _planes(lifted: torch.Tensor):
-    """Lifted int64 words → the partition kernel's planes: the reference's
-    (hi, lo) u32 words of the lifted u64 as a sign-flipped int32 key plane
-    (``hi − 2^31``) and an int32 tie plane holding ``lo``'s bits."""
-    u = lifted ^ LO                                # the u64's bits
-    hi, lo = (u >> 32) & _M32, u & _M32
-    key = (hi - (1 << 31)).to(torch.int32)
-    tie = (lo - ((lo >> 31) << 32)).to(torch.int32)
-    return key.contiguous(), tie.contiguous()
 
 
 def _split_point(shard: SortShard, splitter_lifted: torch.Tensor,
@@ -53,14 +41,14 @@ def _split_point(shard: SortShard, splitter_lifted: torch.Tensor,
     of the partition kernel's inclusive pass (nb = 2, one splitter per PE)
     holds the elements < s, of its strict pass those ≤ s; the histogram
     counts valid elements only."""
-    e_key, e_tie = _planes(lift(shard.keys))
-    s_key, s_tie = _planes(splitter_lifted[:, None])
+    e_key, e_tie = planes(lift(shard.keys))
+    s_key, s_tie = planes(splitter_lifted[:, None])
     count = shard.count.contiguous()
 
     def n_below(inclusive):
         _, _, h = partition_buckets(e_key, e_tie, s_key, s_tie, n_buckets=2,
                                     count=count, inclusive=inclusive,
-                                    want_pos=False)
+                                    want_pos=False, want_bucket=False)
         return h[:, 0].to(torch.int64)
 
     n_less = n_below(True)

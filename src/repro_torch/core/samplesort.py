@@ -6,10 +6,12 @@ all-to-all; ``robust=False`` (NS-SSort) does not, and skewed or
 duplicate-heavy inputs overflow its slots, as in the reference.
 ``oracle_splitters`` skips the sampling.
 
-Samples and splitters are the reference's u64 words (zero-extended u32
-keys, all-ones for an invalid sample) held sign-flipped in int64.  Every
-PE all-gathers the same samples, so the port sorts them once for all rows.
-The classify is the partition kernel with nb = p and no rank.  The
+Samples and splitters are the reference's u64 words (a zero-extended u32
+key or an 8-byte key, all-ones for an invalid sample) held sign-flipped in
+int64.  Every PE all-gathers the same samples, so the port sorts them once
+for all rows.  The classify is the partition kernel with nb = p and no
+rank: 4-byte keys classify as (word, tie 0), 8-byte keys as the (hi, lo)
+planes of their word, as the reference's (hi, lo) u32 planes.  The
 shuffle, the splitter pick and classify, and the route run under
 ``torch.profiler`` scopes ``shuffle``, ``splitters`` and ``route``.
 """
@@ -24,7 +26,7 @@ from torch.profiler import record_function
 
 from . import comm, prng
 from .hypercube import _alltoall_route, alltoall_shuffle
-from .median import LO
+from .median import LO, planes
 from .rams import quantile_splitters
 from .types import SortShard, local_sort, resize
 from repro_torch.kernels.partition import partition_buckets
@@ -54,11 +56,15 @@ def _destinations(shard: SortShard, splitters: torch.Tensor) -> torch.Tensor:
     """Every element's destination PE, #{splitters ≤ key}, and p for the
     slots past the count: the partition kernel's classify with nb = p
     (``splitters`` (p, p − 1), one row per PE) and no rank."""
-    s_key, s_tie = _splitter_planes(splitters)
+    if shard.keys.dtype == torch.int64:
+        e_key, e_tie = planes(shard.keys)
+        s_key, s_tie = planes(splitters)
+    else:
+        e_key, e_tie = shard.keys, torch.zeros_like(shard.keys)
+        s_key, s_tie = _splitter_planes(splitters)
     dest, _, _ = partition_buckets(
-        shard.keys, torch.zeros_like(shard.keys), s_key, s_tie,
-        n_buckets=splitters.shape[1] + 1, count=shard.count.contiguous(),
-        want_pos=False)
+        e_key, e_tie, s_key, s_tie, n_buckets=splitters.shape[1] + 1,
+        count=shard.count.contiguous(), want_pos=False, want_hist=False)
     return dest.to(torch.int64)
 
 
@@ -68,10 +74,7 @@ def samplesort(shard: SortShard, p: int, *, seed: int = 0x550,
                oracle_splitters: Optional[Sequence[int]] = None
                ) -> SSortResult:
     """Sort the p-PE shard; ``oracle_splitters`` are p − 1 nondecreasing
-    u64 words (a zero-extended u32 key each)."""
-    if shard.keys.dtype != torch.int32:
-        raise ValueError("samplesort requires 4-byte keys (psort's "
-                         "transform)")
+    u64 words (a zero-extended u32 key each, or an 8-byte key's word)."""
     cap = shard.capacity
     mean = max(1.0, cap / p)
     slot_cap = int(math.ceil(slot_factor * mean + 6 * math.sqrt(mean) + 6))
@@ -115,6 +118,8 @@ def _splitters(shard: SortShard, p: int, seed: int, sample_factor: int,
     s_per = max(1, sample_factor * max(1, int(math.log2(max(p, 2)))))
     key = prng.fold_in(prng.PRNGKey(seed, dev), comm.axis_index(p, dev))
     pos = prng.randint(key, s_per, 0, torch.clamp(shard.count, min=1))
-    samp = torch.gather(shard.keys, 1, pos).to(torch.int64) + ((1 << 31) + LO)
+    samp = torch.gather(shard.keys, 1, pos)
+    if samp.dtype == torch.int32:                  # zero-extended to u64
+        samp = samp.to(torch.int64) + ((1 << 31) + LO)
     samp = torch.where(pos < shard.count[:, None], samp, _INVALID)
     return quantile_splitters(torch.sort(samp.reshape(1, -1))[0], p)

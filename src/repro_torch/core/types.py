@@ -185,6 +185,56 @@ def compact(shard: SortShard, keep_mask: torch.Tensor) -> SortShard:
     return SortShard(out_k, vals, n_keep[:, 0].clone())
 
 
+def _count_before(keys, count, query, or_equal):
+    """Per row, #{valid keys < query} (≤ where ``or_equal``, a bool or a
+    (p, 1) bool tensor) for sorted padded rows ``keys``: one
+    ``searchsorted`` clamped to ``count``, so a valid key equal to the pad
+    word is told from the pads by the count, not by its value.  With a
+    tensor, ``x ≤ q`` is searched as ``x < q + 1`` below the pad word, and
+    at it every valid key counts; nothing overflows."""
+    if isinstance(or_equal, bool):
+        n = torch.searchsorted(keys, query, right=or_equal)
+    else:
+        top = query == pad_value(keys.dtype)
+        n = torch.searchsorted(keys, query + (or_equal & ~top))
+        n = torch.where(or_equal & top, keys.shape[1], n)
+    return torch.minimum(n, count[:, None])
+
+
+def _merge_positions(a: SortShard, b: SortShard, tie_a_first):
+    """Each element's place in the merge of ``merge_shards``: its own index
+    plus a count in the other shard.  4-byte words search one int64
+    composite ``key << 2 | tie rank``; 8-byte words leave no room for the
+    rank, so they search the keys themselves, clamped to the counts, with
+    ``<`` or ``≤`` as the tie rank says (:func:`_count_before`), and the
+    pads go after every valid element, a's first."""
+    dev = a.keys.device
+    ia = torch.arange(a.capacity, device=dev)
+    ib = torch.arange(b.capacity, device=dev)
+    per_pe = isinstance(tie_a_first, torch.Tensor)
+    first = tie_a_first.to(dev).reshape(-1, 1) if per_pe \
+        else bool(tie_a_first)                   # a host bool: no copy
+    valid_a, valid_b = a.valid_mask(), b.valid_mask()
+    if a.keys.dtype == torch.int32:
+        rank_a, rank_b = (torch.where(first, 0, 1), torch.where(first, 1, 0)) \
+            if per_pe else ((0, 1) if first else (1, 0))
+
+        def composite(sh, valid, rank):
+            key = torch.where(valid, sh.keys, sh.pad).to(torch.int64)
+            return (key << 2) | torch.where(valid, rank, 2)
+
+        ca, cb = composite(a, valid_a, rank_a), composite(b, valid_b, rank_b)
+        return (torch.searchsorted(cb, ca).add_(ia),
+                torch.searchsorted(ca, cb, right=True).add_(ib))
+    ka = torch.where(valid_a, a.keys, a.pad)
+    kb = torch.where(valid_b, b.keys, b.pad)
+    b_first = ~first if per_pe else not first
+    return (torch.where(valid_a, ia + _count_before(kb, b.count, ka, b_first),
+                        ia + b.count[:, None]),
+            torch.where(valid_b, ib + _count_before(ka, a.count, kb, first),
+                        ib + a.capacity))
+
+
 def merge_shards(a: SortShard, b: SortShard, capacity: Optional[int] = None,
                  tie_a_first=True):
     """Merge two sorted padded shards into one of ``capacity`` per PE.
@@ -197,30 +247,12 @@ def merge_shards(a: SortShard, b: SortShard, capacity: Optional[int] = None,
     word stays before every pad.  Both inputs are sorted in that order
     (valid prefix ascending, pad words after it), so each element's place
     is its own index plus a count in the other shard: a[i] goes to ``i +
-    #{b < a[i]}`` and b[j] to ``j + #{a ≤ b[j]}`` on the composite ``key <<
-    2 | rank`` (one ``searchsorted`` each).  4-byte keys (int32 words)."""
-    if a.keys.dtype != torch.int32 or b.keys.dtype != torch.int32:
-        raise TypeError("merge_shards merges int32 words (4-byte keys)")
+    #{b before a[i]}`` and b[j] to ``j + #{a before b[j]}``, one
+    ``searchsorted`` each (:func:`_merge_positions`), for keys of either
+    width."""
     cap = capacity or max(a.capacity, b.capacity)
     dev = a.keys.device
-    if isinstance(tie_a_first, torch.Tensor):    # one order per PE
-        first = tie_a_first.to(dev)
-        first = first[:, None] if first.dim() else first
-        rank_a, rank_b = torch.where(first, 0, 1), torch.where(first, 1, 0)
-    else:                                        # a host bool: no copy
-        rank_a, rank_b = (0, 1) if tie_a_first else (1, 0)
-
-    def composite(sh, rank):
-        valid = sh.valid_mask()
-        key = torch.where(valid, sh.keys, sh.pad).to(torch.int64)
-        return (key << 2) | torch.where(valid, rank, 2)
-
-    ca, cb = composite(a, rank_a), composite(b, rank_b)
-    pos_a = torch.searchsorted(cb, ca)
-    pos_a += torch.arange(a.capacity, device=dev)
-    pos_b = torch.searchsorted(ca, cb, right=True)
-    pos_b += torch.arange(b.capacity, device=dev)
-    del ca, cb
+    pos_a, pos_b = _merge_positions(a, b, tie_a_first)
     p, width = a.keys.shape[0], a.capacity + b.capacity
 
     def merged(va, vb):
@@ -244,12 +276,15 @@ def merge_shards(a: SortShard, b: SortShard, capacity: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 
-def shard_from_numpy(keys_u32: np.ndarray, vals: Dict[str, np.ndarray],
+def shard_from_numpy(keys_u: np.ndarray, vals: Dict[str, np.ndarray],
                      count: np.ndarray, device=None) -> SortShard:
     """A port shard from a reference ``SortShard`` batched over PEs, given
-    as numpy arrays: (p, C) uint32 keys, {name: (p, C) uint32} payloads and
-    (p,) counts."""
-    ku = torch.from_numpy(np.array(keys_u32, np.uint32))       # a copy
+    as numpy arrays: (p, C) uint32 keys (uint64 for 8-byte keys),
+    {name: (p, C) uint32} payloads and (p,) counts."""
+    keys_u = np.asarray(keys_u)
+    wide = keys_u.dtype == np.uint64
+    ku = torch.from_numpy(np.array(keys_u, np.uint64 if wide
+                                   else np.uint32))              # a copy
     keys = key_to_int(ku).to(device)
     tv = {k: torch.from_numpy(np.array(v, np.uint32).view(np.int32)).to(
         device) for k, v in vals.items()}
@@ -258,10 +293,13 @@ def shard_from_numpy(keys_u32: np.ndarray, vals: Dict[str, np.ndarray],
 
 
 def shard_to_numpy(shard: SortShard):
-    """Inverse of :func:`shard_from_numpy`: (keys u32, {name: u32}, count
-    int32) numpy arrays in the reference's layout."""
-    keys = int_to_key(shard.keys, torch.uint32).view(torch.int32).cpu()
-    keys = keys.numpy().view(np.uint32)
+    """Inverse of :func:`shard_from_numpy`: (keys u32 or u64, {name: u32},
+    count int32) numpy arrays in the reference's layout."""
+    wide = shard.keys.dtype == torch.int64
+    signed, unsigned = (torch.int64, torch.uint64) if wide \
+        else (torch.int32, torch.uint32)
+    keys = int_to_key(shard.keys, unsigned).view(signed).cpu()
+    keys = keys.numpy().view(np.uint64 if wide else np.uint32)
     vals = {k: v.cpu().numpy().view(np.uint32)
             for k, v in shard.vals.items()}
     return keys, vals, shard.count.cpu().numpy().astype(np.int32)

@@ -41,28 +41,41 @@ def _stable_rank(group):
 
 
 def partition_ref(keys, ties, s_keys, s_ties, *, n_buckets: int, count,
-                  inclusive: bool = True, want_pos: bool = True):
+                  inclusive: bool = True, want_pos: bool = True,
+                  want_bucket: bool = True, want_hist: bool = True):
     """Classify + rank + histogram.  Returns (bucket (rows, C) int32 in
-    [0, nb], pos (rows, C) int32 stable rank inside the bucket or None,
-    hist (rows, nb) int32 with ``hist.sum(1) == count``)."""
+    [0, nb], pos (rows, C) int32 stable rank inside the bucket, hist
+    (rows, nb) int32 with ``hist.sum(1) == count``); ``pos`` is None
+    without ``want_pos``, and without it ``bucket`` or ``hist`` is None
+    where its ``want_`` flag is false."""
     bucket = _bucket(keys, ties, s_keys, s_ties, n_buckets, count, inclusive)
     nbt = n_buckets + 1
-    hist = torch.zeros((keys.shape[0], nbt), dtype=torch.int64,
-                       device=keys.device)
-    hist.scatter_add_(1, bucket.to(torch.int64), torch.ones_like(
-        bucket, dtype=torch.int64))
-    hist = hist[:, :n_buckets].to(torch.int32)
+    hist = None
+    if want_pos or want_hist:
+        hist = torch.zeros((keys.shape[0], nbt), dtype=torch.int64,
+                           device=keys.device)
+        hist.scatter_add_(1, bucket.to(torch.int64), torch.ones_like(
+            bucket, dtype=torch.int64))
+        hist = hist[:, :n_buckets].to(torch.int32)
     if not want_pos:
-        return bucket, None, hist
+        return bucket if want_bucket else None, None, hist
     rank, _ = _stable_rank(bucket.to(torch.int64))
     return bucket, rank.to(torch.int32), hist
 
 
 def classify_ref(keys, ties, s_keys, s_ties, count, *, n_buckets: int,
-                 tile: int, inclusive: bool = True):
-    """The classify launch: (bucket (rows, C) int32, tile_hist
-    (rows, tiles, nb+1) int32) for tiles of ``tile`` elements."""
+                 tile: int, inclusive: bool = True, want: str = "rank"):
+    """The classify launch of variant ``want`` (see ``ops.WANTS``):
+    "rank" gives (bucket (rows, C), tile_hist (rows, tiles, nb+1)) for
+    tiles of ``tile`` elements, "bucket_hist" (bucket, hist (rows, nb)),
+    "bucket" (bucket,) and "hist" (hist,), all int32."""
     bucket = _bucket(keys, ties, s_keys, s_ties, n_buckets, count, inclusive)
+    if want != "rank":
+        _, _, hist = partition_ref(keys, ties, s_keys, s_ties,
+                                   n_buckets=n_buckets, count=count,
+                                   inclusive=inclusive, want_pos=False)
+        return {"bucket_hist": (bucket, hist), "bucket": (bucket,),
+                "hist": (hist,)}[want]
     rows, C = keys.shape
     tiles = -(-C // tile)
     nbt = n_buckets + 1

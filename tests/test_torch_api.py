@@ -84,16 +84,46 @@ def test_psort_without_a_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"overlap": True}, "item 11"), ({"mesh_shape": (2, 2)}, "item 9"),
-    ({"fault_policy": object()}, "item 13"),
-    ({"external": ExternalPolicy(budget=4), "overlap": True}, "item 11"),
-    ({"cost_model": object()}, "item 8"), ({"algorithm": "auto"}, "item 8"),
-    ({"data_axis": "batch"}, "item 9"), ({"backend": "shard_map"},
-                                         "item 10"),
-    ({"algo_kw": {"overlap": True}}, "item 11")])
+    ({"overlap": True}, "item 4 "), ({"mesh_shape": (2, 2)}, "item 5 "),
+    ({"fault_policy": object()}, "item 8 "),
+    ({"external": ExternalPolicy(budget=4), "overlap": True}, "item 4 "),
+    ({"cost_model": object()}, "item 3 "), ({"algorithm": "auto"}, "item 3 "),
+    ({"data_axis": "batch"}, "item 5 "), ({"backend": "shard_map"},
+                                          "item 7 "),
+    ({"algo_kw": {"overlap": True}}, "item 4 ")])
 def test_unported_knobs_raise_not_implemented(kw, match):
+    """Each names its item of the re-anchored ROADMAP queue 1."""
     with pytest.raises(NotImplementedError, match=match):
         SortConfig(p=4, **kw)
+
+
+@pytest.mark.parametrize("knob,default,other,item", [
+    ("axis", "sort", "rows", "item 7 "),
+    ("data_axis", "data", "batch", "item 5 "),
+    ("mesh_axes", ("inter", "intra"), ("intra", "inter"), "item 5 "),
+    ("mesh_axes", ["inter", "intra"], ["inter"], "item 5 "),
+    ("mesh", None, object(), "item 7 ")])
+def test_reference_defaults_of_unported_knobs_are_accepted(knob, default,
+                                                           other, item):
+    """The reference's own defaults (``repro/core/api.py``) build a config
+    that sorts as the plain one does; any other value still raises."""
+    cfg = SortConfig(p=4, algorithm="rquick", **{knob: default})
+    assert cfg == SortConfig(p=4, algorithm="rquick")
+    x = np.arange(64, dtype=np.uint32)[::-1].copy()
+    assert np.array_equal(
+        psort(x, cfg, device="cpu").view(torch.int32).numpy(),
+        np.arange(64, dtype=np.int32))
+    with pytest.raises(NotImplementedError, match=item):
+        SortConfig(p=4, **{knob: other})
+
+
+def test_all_reference_defaults_at_once():
+    cfg = SortConfig(p=4, axis="sort", data_axis="data",
+                     mesh_axes=("inter", "intra"), mesh=None,
+                     mesh_shape=None, cost_model=None, fault_policy=None,
+                     overlap=False)
+    _same_as_reference(np.arange(40, dtype=np.uint32)[::-1].copy(), 4)
+    assert cfg == SortConfig(p=4)
 
 
 @pytest.mark.parametrize("algorithm,kw", [
@@ -138,10 +168,16 @@ def test_bad_configs_are_refused():
         SortConfig(p=4, algo_kw={"typo": 1})
     with pytest.raises(ValueError, match="power of two"):
         psort(np.arange(6, dtype=np.uint32), SortConfig(p=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5 "):
         psort(np.zeros((2, 4), np.uint32), SortConfig(p=2), device="cpu")
-    with pytest.raises(ValueError, match="4-byte"):
-        psort(np.zeros(4, np.int64), SortConfig(p=2), device="cpu")
+    # 8-byte keys: RQuick sorts them, RAMS raises the reference's error
+    x = np.array([3, -1, 2 ** 40, 0], np.int64)
+    assert psort(x, SortConfig(p=2, algorithm="rquick"),
+                 device="cpu").tolist() == sorted(x.tolist())
+    with pytest.raises(ValueError, match="rams requires uint32 keys"):
+        psort(x, SortConfig(p=2), device="cpu")
+    with pytest.raises(ValueError, match="int64"):
+        psort(np.zeros(4, np.int16), SortConfig(p=2), device="cpu")
     assert SortConfig(p=4) == SortConfig(p=4, overlap=False, mesh_shape=None)
     assert SortConfig(p=4).replace(p=8).p == 8
 

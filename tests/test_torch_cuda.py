@@ -142,11 +142,12 @@ def test_local_sort_fast_on_more_than_65535_rows(dev, rows, C, keys, counts):
     _same(got, bref.sort_ref(k, v, cnt))
 
 
-def _partition_inputs(rows, C, nb, seed, device):
+def _partition_inputs(rows, C, nb, seed, device, hi=50, sort=True):
     g = np.random.default_rng(seed)
-    keys = np.sort(g.integers(-50, 50, size=(rows, C)), axis=1)
+    keys = g.integers(-hi, hi, size=(rows, C))
+    keys = np.sort(keys, axis=1) if sort else keys
     ties = g.integers(0, 2 ** 32, size=(rows, C), dtype=np.uint64)
-    sk = np.sort(g.integers(-50, 50, size=(rows, nb - 1)), axis=1)
+    sk = np.sort(g.integers(-hi, hi, size=(rows, nb - 1)), axis=1)
     st = g.integers(0, 2 ** 32, size=(rows, nb - 1), dtype=np.uint64)
     comp = (sk.astype(np.int64) << 32) | st.astype(np.int64)
     comp = np.sort(comp, axis=1)             # nondecreasing (key, tie)
@@ -329,6 +330,91 @@ def test_other_algorithms_cuda_equal_cpu(dev, algorithm, name, p, n):
     co, ci = psort(x, cfg, return_info=True, device="cpu")
     assert gi["algorithm"] == algorithm
     assert torch.equal(go.view(torch.int32).cpu(), co.view(torch.int32))
+    assert torch.equal(gi["perm"].cpu(), ci["perm"])
+    assert torch.equal(gi["counts"].cpu(), ci["counts"])
+    assert gi["overflow"] == ci["overflow"]
+
+
+# the classify variants without the rank, by partition_buckets' flags
+_NO_RANK = {"bucket_hist": (True, True), "bucket": (True, False),
+            "hist": (False, True)}
+
+
+@pytest.mark.parametrize("want", pt.WANTS)
+@pytest.mark.parametrize("nb", [1, 2, 64, 256, 2048])
+@pytest.mark.parametrize("inclusive", [True, False])
+@pytest.mark.parametrize("C,sort", [(1, True), (1003, True), (4096, True),
+                                    (4096, False), (70_001, True)])
+def test_partition_launch_variants_match_plain(dev, want, nb, inclusive, C,
+                                               sort):
+    """Every classify launch against its plain version: ragged counts (0
+    to C, so whole tiles past the count), C not a multiple of 4 (no
+    16-byte access) or of the tile, rows not sorted (no warp of one
+    bucket), keys and ties over their whole range (the all-ones word
+    meets the tree's +inf pads), and partition_buckets with each set of
+    flags."""
+    keys, ties, sk, st, cnt = _partition_inputs(5, C, nb, nb + C, dev,
+                                                hi=2 ** 31, sort=sort)
+    keys[:, -1], ties[:, -1] = 2 ** 31 - 1, -1       # the all-ones word
+    before = dict(pt.LAUNCHES)
+    got = pt.classify(keys, ties, sk, st, cnt, n_buckets=nb,
+                      inclusive=inclusive, want=want)
+    plain = pref.classify_ref(keys, ties, sk, st, cnt, n_buckets=nb,
+                              tile=pt.PTILE, inclusive=inclusive, want=want)
+    torch.cuda.synchronize()
+    for key in ("partition_classify", f"partition_classify:{want}"):
+        assert pt.LAUNCHES[key] == before[key] + 1
+    assert len(got) == len(plain)
+    for a, b in zip(got, plain):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    if want in _NO_RANK:
+        wb, wh = _NO_RANK[want]
+        b, q, h = pt.partition_buckets(keys, ties, sk, st, n_buckets=nb,
+                                       count=cnt, inclusive=inclusive,
+                                       want_pos=False, want_bucket=wb,
+                                       want_hist=wh)
+        rb, _, rh = pref.partition_ref(keys, ties, sk, st, n_buckets=nb,
+                                       count=cnt, inclusive=inclusive,
+                                       want_pos=False)
+        assert q is None and (b is None) == (not wb) and (h is None) == (
+            not wh)
+        assert b is None or torch.equal(b, rb)
+        assert h is None or (torch.equal(h, rh) and torch.equal(
+            h.sum(1, dtype=torch.int64), cnt))
+
+
+@pytest.mark.parametrize("want", pt.WANTS)
+@pytest.mark.parametrize("rows,C,nb", [(70_001, 1024, 2), (1 << 18, 1024, 2),
+                                       (65_537, 3000, 16)])
+def test_partition_launch_variants_on_more_than_65535_rows(dev, want, rows,
+                                                           C, nb):
+    keys, ties, sk, st, cnt = _partition_inputs(rows, C, nb, rows + nb, dev)
+    got = pt.classify(keys, ties, sk, st, cnt, n_buckets=nb, want=want)
+    plain = pref.classify_ref(keys, ties, sk, st, cnt, n_buckets=nb,
+                              tile=pt.PTILE, want=want)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algorithm", ["rquick", "ntb-quick", "rfis", "ssort",
+                                       "ns-ssort", "bitonic", "gatherm",
+                                       "allgatherm"])
+@pytest.mark.parametrize("dtype", [np.int64, np.uint64, np.float64])
+def test_keys64_psort_cuda_equals_cpu(dev, algorithm, dtype):
+    """8-byte keys on the card equal the CPU run bit for bit, the largest
+    key among them (RQuick returns it out of order on both, as the
+    reference does)."""
+    p = 16
+    u = generate_instance("RandDupl", p, p * 300).astype(np.uint64)
+    x = ((u << np.uint64(32)) | u).view(np.int64).astype(dtype) \
+        if dtype != np.uint64 else (u << np.uint64(32)) | u
+    x[7] = np.iinfo(dtype).max if dtype != np.float64 else np.inf
+    cfg = SortConfig(p=p, algorithm=algorithm)
+    go, gi = psort(x, cfg, return_info=True, device="cuda")
+    co, ci = psort(x, cfg, return_info=True, device="cpu")
+    assert go.dtype == co.dtype
+    assert torch.equal(go.cpu().view(torch.int64), co.view(torch.int64))
     assert torch.equal(gi["perm"].cpu(), ci["perm"])
     assert torch.equal(gi["counts"].cpu(), ci["counts"])
     assert gi["overflow"] == ci["overflow"]

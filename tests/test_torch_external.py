@@ -171,11 +171,11 @@ def test_external_config_is_validated():
         psort(np.arange(8, dtype=np.int32), SortConfig(
             p=2, algorithm="external"), device="cpu")
     pol = ExternalPolicy(budget=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 4 "):
         SortConfig(p=2, external=pol, overlap=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 8 "):
         SortConfig(p=2, external=pol, fault_policy=object())
-    with pytest.raises(ValueError, match="4-byte"):        # in core
+    with pytest.raises(ValueError, match="rams requires uint32"):  # in core
         psort(np.zeros(4, np.int64), SortConfig(p=2, external=pol),
               device="cpu")
     assert SortConfig(p=2, external=pol).replace(p=4).external == pol

@@ -262,6 +262,91 @@ def test_plain_classify_then_rank_equals_the_fused_partition(nb):
     assert torch.equal(th.sum(1, dtype=torch.int32)[:, :nb], rh)
 
 
+# the classify launches without the rank, by partition_buckets' flags
+_NO_RANK = {"bucket_hist": (True, True), "bucket": (True, False),
+            "hist": (False, True)}
+
+
+def _no_rank_outputs(args, count, nb, want, inclusive=True):
+    """One variant's outputs through the wrapper and through the launch:
+    (bucket or None, hist or None) twice."""
+    wb, wh = _NO_RANK[want]
+    b, q, h = pt.partition_buckets(*args, n_buckets=nb, count=count,
+                                   inclusive=inclusive, want_pos=False,
+                                   want_bucket=wb, want_hist=wh)
+    assert q is None
+    launch = pt.classify(*args, count, n_buckets=nb, inclusive=inclusive,
+                         want=want)
+    assert len(launch) == wb + wh
+    lb = launch[0] if wb else None
+    lh = launch[-1] if wh else None
+    return (b, h), (lb, lh)
+
+
+@pytest.mark.parametrize("want", list(_NO_RANK))
+@pytest.mark.parametrize("nb", [2, 16, 256])
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_plain_partition_variants_match_reference(want, nb, inclusive):
+    """SSort's (buckets only), RQuick's (histogram only) and the buckets
+    with the histogram, each as what its launch's plain version returns,
+    against the reference's ``partition_ref`` with ``want_pos=False``;
+    ties over their whole range, counts 0, 1, C/2 and C."""
+    C = 300
+    rows = [_partition_case(nb, C, nb * 37 + r, 2 ** 32) for r in range(4)]
+    counts = [_count(c, C) for c in COUNT_CASES]
+    keys, ties, s_keys, s_ties = [np.stack([r[i] for r in rows])
+                                  for i in range(4)]
+    args = (_port(keys), torch.from_numpy(ties.view(np.int32)),
+            _port(s_keys), torch.from_numpy(s_ties.view(np.int32)))
+    wb, wh = _NO_RANK[want]
+    for b, h in _no_rank_outputs(args, torch.as_tensor(counts), nb, want,
+                                 inclusive):
+        assert (b is None) == (not wb) and (h is None) == (not wh)
+        for r in range(4):
+            rb, rq, rh = j_partition_ref(
+                jnp.asarray(keys[r]), jnp.asarray(ties[r]),
+                jnp.asarray(s_keys[r]), jnp.asarray(s_ties[r]),
+                n_buckets=nb, count=counts[r], inclusive=inclusive,
+                want_pos=False)
+            assert rq is None
+            assert b is None or np.array_equal(b[r].numpy(), np.asarray(rb))
+            assert h is None or np.array_equal(h[r].numpy(), np.asarray(rh))
+
+
+@pytest.mark.parametrize("want", list(_NO_RANK))
+@pytest.mark.parametrize("nb", [2, 64])
+@pytest.mark.parametrize("count", ["one", "half"])
+def test_plain_partition_variants_match_pallas_partition_tile(want, nb,
+                                                              count):
+    C = 1000                                     # several Pallas tiles
+    keys, ties, s_keys, s_ties = _partition_case(nb, C, nb + 9, 2 ** 32)
+    cnt = _count(count, C)
+    jb, jq, jh = j_partition(jnp.asarray(keys), jnp.asarray(ties),
+                             jnp.asarray(s_keys), jnp.asarray(s_ties),
+                             n_buckets=nb, count=cnt, want_pos=False,
+                             use_kernel=True, interpret=True)
+    assert jq is None
+    args = (_port(keys[None]), torch.from_numpy(ties[None].view(np.int32)),
+            _port(s_keys[None]), torch.from_numpy(s_ties[None].view(
+                np.int32)))
+    for b, h in _no_rank_outputs(args, torch.tensor([cnt]), nb, want):
+        assert b is None or np.array_equal(b[0].numpy(), np.asarray(jb))
+        assert h is None or np.array_equal(h[0].numpy(), np.asarray(jh))
+
+
+def test_plain_classify_refuses_an_unknown_variant():
+    k = torch.zeros((1, 4), dtype=torch.int32)
+    count = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="want"):
+        pt.classify(k, k, k[:, :1], k[:, :1], count, n_buckets=2,
+                    want="pos")
+    m = k.to("meta")                     # past the CPU's plain version
+    with pytest.raises(ValueError, match="no output"):
+        pt.partition_buckets(m, m, m[:, :1], m[:, :1], n_buckets=2,
+                             count=count.to("meta"), want_pos=False,
+                             want_bucket=False, want_hist=False)
+
+
 def _kway_port(keys, ties, sk, st, nb):
     return kw.kway_classify(_port(keys), torch.from_numpy(ties.view(np.int32)),
                             _port(sk), torch.from_numpy(st.view(np.int32)),

@@ -28,6 +28,7 @@ from repro.core import types as jt
 from repro.data.distributions import INSTANCES, generate_instance
 from repro_torch import SortConfig, psort
 from repro_torch.core import hypercube as th
+from repro_torch.core.median import planes
 from repro_torch.core import rquick as tq
 from repro_torch.core import types as tt
 from torch_helpers import (AXIS, PAD, assert_shard, compare_psort,
@@ -83,10 +84,18 @@ def test_merge_shards_matches_reference(tie, ca, cb, cap, pad_keys):
 
 
 def test_merge_shards_refuses_8_byte_words():
-    sh = tt.SortShard(torch.zeros((2, 4), dtype=torch.int64), {},
-                      torch.zeros(2, dtype=torch.int64))
-    with pytest.raises(TypeError, match="int32"):
-        tt.merge_shards(sh, sh)
+    """It refused them until 8-byte keys were ported; now int64 words merge
+    as the reference's u64 keys do, pad-word keys and both tie orders
+    included (``test_torch_keys64.py`` holds the whole grid)."""
+    p, cap = 8, 24
+    a = sorted_state(p, 16, 1, hi=6, pad_keys=True, dtype=np.uint64)
+    b = sorted_state(p, 16, 2, hi=6, pad_keys=True, dtype=np.uint64)
+    rk, rv, rc, ro = _run(_ref_merge(p, cap, "b"), *a, *b)
+    got, ovf = tt.merge_shards(port_shard(*a), port_shard(*b), capacity=cap,
+                               tie_a_first=False)
+    assert got.keys.dtype == torch.int64
+    assert_shard(got, rk, rv, rc)
+    assert np.array_equal(ovf.numpy(), ro)
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +180,7 @@ def test_planes_of_lifted_words():
     the lo word's bits: lifted 1, 2^31, 2^32 and the ±inf fillers."""
     lifted = np.array([0, 1, 2 ** 31, 2 ** 32 - 1, 2 ** 32, 2 ** 64 - 1],
                       np.uint64)
-    key, tie = tq._planes(torch.from_numpy(
+    key, tie = planes(torch.from_numpy(
         (lifted ^ np.uint64(1 << 63)).view(np.int64)))
     hi = (lifted >> np.uint64(32)).astype(np.uint32)
     lo = lifted.astype(np.uint32)
@@ -224,5 +233,5 @@ def test_rquick_keywords():
 
 
 def test_unported_algorithms_still_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         SortConfig(p=8, algorithm="auto")

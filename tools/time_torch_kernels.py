@@ -10,11 +10,18 @@ repository's), then times each launch with CUDA events (median of
 with an int32 payload, ``partition_classify`` and ``partition_rank`` on
 (256, 2^20) with nb = 64 (RAMS at p = 256, n = 2^26), and, where the tree
 accepts 2^18 rows, ``tile_sort`` and ``partition_classify`` with nb = 2 on
-(2^18, 1024) (RQuick at p = 2^18, n = 2^26).  The inputs come from fixed
-seeds on the card, the same for every tree, so two trees are compared by
-running this for each in turns in one call (parent, this, this, parent).
-Prints one JSON line with the card, the label and the times in ms (null
-where the tree refuses the shape).  It needs a CUDA device.
+(2^18, 1024) (RQuick at p = 2^18, n = 2^26).  ``partition_classify`` is
+the call both trees take, the launch that feeds the rank; the
+``partition_<path>`` entries time what each path calls,
+``partition_buckets`` with its own flags (RQuick: the histogram; SSort and
+NS-SSort, nb = 256 with ~2^18 valid keys per row on (256, 2^20) and
+(256, 2^19): the buckets; RAMS: everything), so a tree whose wrapper has
+fewer launch variants pays for the outputs it computes anyway.  The
+inputs come from fixed seeds on the card, the same for every tree, so two
+trees are compared by running this for each in turns in one call (parent,
+this, this, parent).  Prints one JSON line with the card, the label and
+the times in ms (null where the tree refuses the shape).  It needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -70,6 +77,22 @@ def main(argv=None) -> int:
         return statistics.median(times)
 
     out = {}
+
+    def variants(name, *args, **kw):
+        """Every classify variant of a tree that has them (``want``)."""
+        for want in getattr(pt, "WANTS", ()):
+            out[f"partition_classify_{name}_{want}"] = ms(
+                lambda: pt.classify(*args, want=want, **kw))
+
+    def path_call(flags, *args, **kw):
+        """``partition_buckets`` with the path's flags, or without them
+        where the tree has no such flags (it then computes every output
+        but the ranks)."""
+        try:
+            return pt.partition_buckets(*args, want_pos=False, **flags, **kw)
+        except TypeError:
+            return pt.partition_buckets(*args, want_pos=False, **kw)
+
     rows, C = 256, 2_196_992
     keys, vals = ints((rows, C)), ints((rows, C))
     out["tile_sort"] = ms(lambda: bt.sort_tiles(keys, vals))
@@ -87,8 +110,30 @@ def main(argv=None) -> int:
     bucket, th = pt.classify(keys, ties, s_keys, s_ties, count, n_buckets=nb)
     off = torch.cumsum(th, dim=1, dtype=torch.int32) - th
     out["partition_rank"] = ms(lambda: pt.rank(bucket, off, n_buckets=nb))
+    out["partition_rams"] = ms(lambda: pt.partition_buckets(
+        keys, ties, s_keys, s_ties, n_buckets=nb, count=count))
+    variants("rams", keys, ties, s_keys, s_ties, count, n_buckets=nb)
     del keys, ties, s_keys, s_ties, count, bucket, th, off
     torch.cuda.empty_cache()
+
+    rows, nb = 256, 256
+    for name, C in (("ssort", 1 << 20), ("ns_ssort", 1 << 19)):
+        keys = torch.sort(ints((rows, C)), dim=1)[0]
+        count = (1 << 18) - 2000 + (torch.arange(rows, device=dev) * 997) \
+            % 4000
+        ties = torch.zeros_like(keys)
+        s_keys = torch.sort(keys[0, torch.randint(
+            0, int(count.min()), (nb - 1,), generator=g, device=dev)])[0]
+        s_keys = s_keys.expand(rows, nb - 1).contiguous()
+        s_ties = torch.zeros_like(s_keys)
+        out[f"partition_classify_{name}"] = ms(lambda: pt.classify(
+            keys, ties, s_keys, s_ties, count, n_buckets=nb))
+        out[f"partition_{name}"] = ms(lambda: path_call(
+            {"want_hist": False}, keys, ties, s_keys, s_ties, n_buckets=nb,
+            count=count))
+        variants(name, keys, ties, s_keys, s_ties, count, n_buckets=nb)
+        del keys, ties, s_keys, s_ties, count
+        torch.cuda.empty_cache()
 
     rows, C = 1 << 18, 1024
     keys, vals = ints((rows, C)), ints((rows, C))
@@ -97,11 +142,17 @@ def main(argv=None) -> int:
     for name, fn in (
             ("tile_sort_rquick", lambda: bt.sort_tiles(keys, vals, count)),
             ("partition_classify_rquick", lambda: pt.classify(
-                keys, vals, s_keys, s_ties, count, n_buckets=2))):
+                keys, vals, s_keys, s_ties, count, n_buckets=2)),
+            ("partition_rquick", lambda: path_call(
+                {"want_bucket": False}, keys, vals, s_keys, s_ties,
+                n_buckets=2, count=count))):
         try:
             out[name] = ms(fn)
         except ValueError:                 # a tree capped at 65 535 rows
             out[name] = None
+    # the variants on sorted rows, as the RQuick path classifies them
+    variants("rquick", torch.sort(keys, dim=1)[0], vals, s_keys, s_ties,
+             count, n_buckets=2)
     print(json.dumps({"card": card, "label": args.label,
                       "tree": str(Path(args.src).resolve()), "ms": out}),
           flush=True)

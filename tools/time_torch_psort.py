@@ -2,8 +2,8 @@
 """Wall time of ``repro_torch.psort`` on the GPU, for one tree of the port.
 
     python3 tools/time_torch_psort.py [--src src] [--label name]
-        [--p 256] [--reps 3] [--external-p 0]
-        [--external-instances Uniform,Zero]
+        [--p 256] [--algorithm rams] [--instances Uniform,Zero,AllToOne]
+        [--reps 3] [--external-p 0] [--external-instances Uniform,Zero]
 
 Imports ``repro_torch`` from ``--src`` (default: this repository's
 ``src``), so that two trees -- for example a ``git archive`` of the parent
@@ -12,8 +12,8 @@ After one warm-up sort it times ``--reps`` sorts of each instance with the
 host clock around work that ends in ``torch.cuda.synchronize()``, and
 prints one JSON line per sort: wall seconds, kernel launches and, for the
 external lane, the host-clock seconds of passes A-D.  The cells are those
-of ``chip_smoke.py``: RAMS at (``--p``, 2^26) on Uniform, Zero and
-AllToOne (``--p 0`` skips it), and the external lane at (``--external-p``,
+of ``chip_smoke.py``: RAMS (or ``--algorithm``) at (``--p``, 2^26) on
+``--instances`` (``--p 0`` skips it), and the external lane at (``--external-p``,
 2^28) with budget 2^21 (``--external-p 0``, the default, skips it).  The
 first line is the card's name and power limit (nvidia-smi).  It needs a
 CUDA device and fails without one.
@@ -39,6 +39,8 @@ def main(argv=None) -> int:
                                          / "src"))
     ap.add_argument("--label", default=None)
     ap.add_argument("--p", type=int, default=256)
+    ap.add_argument("--algorithm", default="rams")
+    ap.add_argument("--instances", default=INSTANCES)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--external-p", type=int, default=0)
     ap.add_argument("--external-instances", default="Uniform,Zero")
@@ -90,7 +92,8 @@ def main(argv=None) -> int:
                 del info
 
     if args.p:
-        run("rams", SortConfig(p=args.p), args.p, LOG_N, INSTANCES,
+        run(args.algorithm, SortConfig(p=args.p, algorithm=args.algorithm),
+            args.p, LOG_N, args.instances,
             generate_instance("Uniform", args.p, 1 << LOG_N).astype(
                 np.uint32))
     if args.external_p:
