@@ -17,9 +17,17 @@ Phases, each fatal on failure (no phase catches its own error):
    rows and at the main path's occupancy (about 2^18 valid keys per row, a
    tail of pad words), and on all-equal keys;
 3b. the k-way classifier at the shapes of the external lane (C = 2^25
-   with nb = 16 for pass C, C = 2^21 with nb = 8 for pass D) and with
-   splitters out of lex order (C = 2^25, nb = 2, 128, 2048): bucket and
-   histogram equal to the plain version's, timed beside its bound;
+   with nb = 16 for pass C, C = 2^21 with nb = 8 for pass D), with
+   sorted splitter keys and ties in no order (C = 2^25, nb = 2, 128,
+   2048), with splitters in random order (nb = 2048, which every block
+   sorts) and with more splitters than one shared-memory tree holds
+   (nb = 2^16): bucket and
+   histogram equal to the plain version's; its device time per launch
+   (``torch.profiler`` over back-to-back calls, which also counts the
+   device operations of a call), the host-clock time per call and CUDA
+   events around one call, beside its bound (bytes 12·C + 4·nb +
+   8·(nb − 1), compares C·⌈log2 nb⌉), the plain version and the library's
+   ``torch.searchsorted`` of the int64 composites over sorted splitters;
 4. ``psort`` end to end on the card with RAMS at p = 256, n = 2^26 uint32
    keys, on Uniform, Zero and AllToOne: wall time after a warm-up run, peak
    device memory, balance, overflow and kernel launches, with the output
@@ -46,10 +54,10 @@ Phases, each fatal on failure (no phase catches its own error):
    AllToOne after a warm-up, with the checks of phase 4; and the card
    against the CPU bit for bit for ``rquick`` and ``ntb-quick`` at p = 64,
    n = 2^20;
-9. printed last, after phase 11: one ``kernels`` JSON line (a row per
-   kernel, classify variant, path and shape, NTB-AMS's at RAMS's, with
-   each variant's launches in that path's run), the card line, and the
-   ``ok`` line;
+9. printed last, after phase 12: one ``kernels`` JSON line (a row per
+   kernel, classify variant, path and shape, NTB-AMS's at RAMS's and
+   every row of phase 3b, with each variant's launches in that path's
+   run), the card line, and the ``ok`` line;
 10. the other algorithms, each at its regime: every kernel of those
    paths at the shapes each path gives it (every ``partition_classify``
    variant with nb = p = 256 at SSort's (256, 2^20) and NS-SSort's
@@ -75,7 +83,13 @@ Phases, each fatal on failure (no phase catches its own error):
    ``gatherm``, ``allgatherm``) at the check sizes of phases 8 and 10;
    then each sorts int64 Uniform keys at its phase-8 or phase-10 cell with
    the checks of phase 4 (RFIS at p = 2^16, n = 2^16 first; it keeps the
-   cut, and says so, when 8x that peak would pass 70 GB at p = 2^18).
+   cut, and says so, when 8x that peak would pass 70 GB at p = 2^18);
+12. collective traces (``trace_collectives``): on the card equal to the
+   CPU's, event for event, for every algorithm at the card-vs-CPU check
+   sizes and the external lane at phase 7's; then one ``table1`` JSON line,
+   the paper's Table I taken on the card: launches, point-to-point
+   launches, fused launches and wire bytes per PE (and the lane's
+   host-device bytes) at each path's cell.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5),
 ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7), and ``rfis``,
@@ -157,6 +171,14 @@ KEYS64_PATHS = (
 )
 KEYS64_CHECKS = (("rquick", 64, 20), ("ntb-quick", 64, 20)) + tuple(
     c for c in OTHER_CHECKS if c[0] != "ntb-ams")
+# phase 12: the collective traces, card against CPU at the check sizes,
+# and Table I at each path's cell
+TRACE_CHECKS = ((("rams", P_CHECK, LOG_N_CHECK), ("rquick", 64, 20),
+                 ("ntb-quick", 64, 20)) + OTHER_CHECKS)
+TRACE_CELLS = ((("rams", P_MAIN, LOG_N_MAIN),
+                ("rquick", P_RQUICK, LOG_N_RQUICK),
+                ("ntb-quick", P_RQUICK, LOG_N_RQUICK))
+               + tuple(path[:3] for path in OTHER_PATHS))
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -210,10 +232,12 @@ def launch_key(row) -> str:
 
 
 def measure(torch, results, name, source, replaces, got, want, fn, plain,
-            nbytes, ops, library=None, shape=None, variant=None, **extra):
+            nbytes, ops, library=None, shape=None, variant=None, ms=None,
+            **extra):
     """Hold one kernel against its plain version, time both (and the library
-    call, where there is one), emit the row and keep it in ``results``
-    under its launch key."""
+    call, where there is one; the kernel with CUDA events around one call
+    unless the caller measured ``ms``), emit the row and keep it in
+    ``results`` under its launch key."""
     if len(got) != len(want):
         raise AssertionError(f"{name} returns {len(got)} outputs, its plain "
                              f"version {len(want)}")
@@ -224,7 +248,8 @@ def measure(torch, results, name, source, replaces, got, want, fn, plain,
     b_ms, b_by = bound(nbytes, ops)
     row = {"name": name, "shape": shape, "variant": variant, "route": "cuda",
            "source": source, "replaces": replaces, "max_abs_err": err,
-           "ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, plain),
+           "ms": cuda_ms(torch, fn) if ms is None else ms,
+           "plain_ms": cuda_ms(torch, plain),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None if library is None
            else cuda_ms(torch, library)}
@@ -494,23 +519,64 @@ def kernel_phases(torch):
     return results
 
 
+def device_ms(torch, fn, kernel: str, reps: int):
+    """Device time per launch of ``kernel`` over ``reps`` back-to-back
+    calls of ``fn`` under ``torch.profiler`` (the kernel's own intervals,
+    so the host's time between launches does not count), and the number
+    of device operations (kernels, copies, memsets) per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in ops if kernel in e.name]
+    if len(mine) != reps:
+        raise AssertionError(f"the profiler saw {len(mine)} launches of "
+                             f"{kernel} in {reps} calls")
+    total_us = sum(e.time_range.end - e.time_range.start for e in mine)
+    return total_us / reps / 1e3, len(ops) / reps
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    """Host-clock milliseconds per call over ``reps`` back-to-back calls,
+    ended by one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def kway_phase(torch):
     """Phase 3b: the k-way classifier against its plain version at the
-    shapes of the external lane, and with splitters out of lex order."""
+    shapes of the external lane, with splitters out of lex order, and with
+    more splitters than one shared-memory tree holds.  Returns the rows."""
     from repro_torch.kernels import kway as kw
     from repro_torch.kernels.kway import ref as kref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     src = "src/repro_torch/kernels/kway/csrc/kway.cu"
-    results = {}
-    # (what, C, nb, splitters in lex order); the first is the main row
-    shapes = [("pass C", P_EXT * BUDGET_EXT, P_EXT, True),
-              ("pass D", BUDGET_EXT, 8, True),
-              ("unordered ties", P_EXT * BUDGET_EXT, 2, False),
-              ("unordered ties", P_EXT * BUDGET_EXT, 128, False),
-              ("unordered ties", P_EXT * BUDGET_EXT, 2048, False)]
-    for what, C, nb, ordered in shapes:
+    rows = []
+    # (what, C, nb, splitters: "lex" order, sorted keys with "ties" in no
+    # order, or "shuffled" (a sort in every block), calls timed back to
+    # back).  Random distinct keys rarely tie, so "ties" splitters are in
+    # lex order but for the rare pick of equal keys
+    shapes = [("pass C", P_EXT * BUDGET_EXT, P_EXT, "lex", 20),
+              ("pass D", BUDGET_EXT, 8, "lex", 200),
+              ("unordered ties", P_EXT * BUDGET_EXT, 2, "ties", 20),
+              ("unordered ties", P_EXT * BUDGET_EXT, 128, "ties", 20),
+              ("unordered ties", P_EXT * BUDGET_EXT, 2048, "ties", 20),
+              ("shuffled", P_EXT * BUDGET_EXT, 2048, "shuffled", 20),
+              ("past one tree", P_EXT * BUDGET_EXT, 1 << 16, "ties", 5)]
+    for what, C, nb, order, reps in shapes:
         # the runs of one pass: sorted segments of BUDGET_EXT keys
         keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (C,), generator=g,
                              device=dev, dtype=torch.int32)
@@ -521,7 +587,10 @@ def kway_phase(torch):
         pick = torch.randint(0, C, (nb - 1,), generator=g, device=dev)
         s_keys = torch.sort(keys[pick])[0]
         s_ties = ties[pick]
-        if ordered:
+        if order == "shuffled":
+            perm = torch.randperm(nb - 1, generator=g, device=dev)
+            s_keys, s_ties = s_keys[perm], s_ties[perm]
+        if order == "lex":
             comp = torch.sort((s_keys.to(torch.int64) << 32)
                               | (s_ties.to(torch.int64) & 0xFFFFFFFF))[0]
             s_keys = (comp >> 32).to(torch.int32)
@@ -532,19 +601,30 @@ def kway_phase(torch):
         if int(got[1].sum()) != C:
             raise AssertionError(f"kway histogram sums to "
                                  f"{int(got[1].sum())}, not C = {C}")
-        measure(torch, results, "kway_classify", src,
-                "src/repro/kernels/kway/kway.py:59", got,
-                kref.kway_classify_ref(keys, ties, s_keys, s_ties,
-                                       n_buckets=nb),
-                lambda: kw.kway_classify(keys, ties, s_keys, s_ties,
-                                         n_buckets=nb),
-                lambda: kref.kway_classify_ref(keys, ties, s_keys, s_ties,
-                                               n_buckets=nb),
-                nbytes=12 * C + 4 * nb + 8 * (nb - 1), ops=C * (nb - 1),
-                shape=[C], nb=nb, what=what)
-        del keys, ties, got
+        elem = kref._composite(keys, ties)
+        spl = torch.sort(kref._composite(s_keys, s_ties))[0]
+
+        def run():
+            return kw.kway_classify(keys, ties, s_keys, s_ties, n_buckets=nb)
+
+        dev_ms, ops = device_ms(torch, run, "kway_classify_kernel", reps)
+        row = measure(
+            torch, {}, "kway_classify", src,
+            "src/repro/kernels/kway/kway.py:59", got,
+            kref.kway_classify_ref(keys, ties, s_keys, s_ties, n_buckets=nb),
+            run,
+            lambda: kref.kway_classify_ref(keys, ties, s_keys, s_ties,
+                                           n_buckets=nb),
+            nbytes=12 * C + 4 * nb + 8 * (nb - 1),
+            ops=C * max(1, (nb - 1).bit_length()),
+            library=lambda: torch.searchsorted(spl, elem, right=True),
+            shape=[C], ms=dev_ms, nb=nb, what=what,
+            event_ms=cuda_ms(torch, run), wall_ms=wall_ms(torch, run, reps),
+            device_ops_per_call=ops)
+        rows.append({**row, "what": what})
+        del keys, ties, got, elem, spl
         torch.cuda.empty_cache()
-    return results
+    return rows
 
 
 def rquick_kernel_phase(torch):
@@ -1030,6 +1110,50 @@ def keys64_phase(torch, np, psort, SortConfig, generate_instance,
     return first
 
 
+def trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives):
+    """Phase 12: every algorithm's collective trace on the card equals its
+    trace on the CPU, event for event, at the card-vs-CPU check sizes (the
+    external lane at phase 7's); then the paper's Table I on the card:
+    launches, point-to-point launches and wire bytes per PE (and the
+    lane's host-device bytes) at each path's cell, one JSON line."""
+    def events(t):
+        return [(e.primitive, e.bytes, e.group_size, e.axis, e.tag)
+                for e in t.events]
+
+    ext_check = SortConfig(p=P_EXT, external=ExternalPolicy(
+        budget=BUDGET_EXT_CHECK))
+    checks = [(a, p, log_n, SortConfig(p=p, algorithm=a))
+              for a, p, log_n in TRACE_CHECKS]
+    checks.append(("external", P_EXT, LOG_N_EXT_CHECK, ext_check))
+    for algorithm, p, log_n, cfg in checks:
+        got = trace_collectives(1 << log_n, cfg, device="cuda")
+        want = trace_collectives(1 << log_n, cfg, device="cpu")
+        same = (events(got) == events(want)
+                and got.summary(p) == want.summary(p)
+                and got.io_bytes() == want.io_bytes())
+        emit({"phase": "trace_cuda_vs_cpu", "algorithm": algorithm, "p": p,
+              "n": 1 << log_n, "events": len(got.events),
+              "identical": same})
+        if not same:
+            raise AssertionError(f"{algorithm}: the trace on the card "
+                                 f"differs from the CPU's")
+    cells = [(a, p, log_n, SortConfig(p=p, algorithm=a))
+             for a, p, log_n in TRACE_CELLS]
+    cells.append(("external", P_EXT, LOG_N_EXT, SortConfig(
+        p=P_EXT, external=ExternalPolicy(budget=BUDGET_EXT))))
+    table = []
+    for algorithm, p, log_n, cfg in cells:
+        t = trace_collectives(1 << log_n, cfg, device="cuda")
+        table.append({"algorithm": algorithm, "p": p, "n": 1 << log_n,
+                      "launches": t.launches,
+                      "p2p_launches": t.p2p_launches,
+                      "fused_launches": t.fused_launches,
+                      "wire_bytes": t.wire_bytes(),
+                      "io_bytes": t.io_bytes(),
+                      "counts": t.counts()})
+    emit({"table1": table})
+
+
 def check_external(torch, np, x_np, out, info, n):
     """Phase-6 assertions on one external psort result (all on the card):
     the lane ran, nothing overflowed, the output is the sorted input and
@@ -1060,7 +1184,8 @@ def main() -> int:
     if not (src / "repro_torch" / "__init__.py").is_file():
         return fail(f"the port is not beside this script ({src}/repro_torch)")
     sys.path.insert(0, str(src))
-    from repro_torch import ExternalPolicy, SortConfig, psort
+    from repro_torch import (ExternalPolicy, SortConfig, psort,
+                             trace_collectives)
     from repro_torch.data import generate_instance
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 
@@ -1087,7 +1212,7 @@ def main() -> int:
 
     # --- 3. kernels against their plain versions -----------------------------
     kernels = kernel_phases(torch)
-    kernels.update(kway_phase(torch))
+    kway_rows = kway_phase(torch)
 
     # --- 4. psort end to end at p = 256, n = 2^26 ----------------------------
     n = 1 << LOG_N_MAIN
@@ -1227,14 +1352,19 @@ def main() -> int:
                                    reset_launch_counts)
     emit({"phase": "keys64_done", "seconds": time.perf_counter() - t11})
 
+    # --- 12. collective traces ----------------------------------------------
+    t12 = time.perf_counter()
+    trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives)
+    emit({"phase": "trace_done", "seconds": time.perf_counter() - t12})
+
     # --- 9. summary (printed last) -----------------------------------------
     # a row per kernel (classify: per variant), path and shape: its time at
     # that shape and its launches in that path's measured run
     rows = []
     for key, row in kernels.items():
-        path = "rams" if row["name"] in RAMS_KERNELS else "external"
-        rows.append((row, path, (main_launches if path == "rams"
-                                 else ext_launches)[key]))
+        rows.append((row, "rams", main_launches[key]))
+    for row in kway_rows:
+        rows.append((row, "external", ext_launches["kway_classify"]))
     for row in rquick_rows:
         rows.append((row, "rquick", rquick_launches[launch_key(row)]))
     for key, row in kernels.items():          # NTB-AMS: RAMS's shapes
@@ -1247,6 +1377,7 @@ def main() -> int:
             rows.append((row, path, launches[launch_key(row)]))
     emit({"kernels": [
         {"name": row["name"], "variant": row["variant"], "path": path,
+         "what": row.get("what"),
          "shape": row["shape"], "route": row["route"],
          "source": row["source"], "replaces": row["replaces"],
          "launches": launches, "max_abs_err": row["max_abs_err"],

@@ -3,4 +3,5 @@ sorting library (``repro``), for one NVIDIA Hopper GPU.
 
 It imports torch and numpy only: never jax, never ``repro``.  The JAX
 package is the reference every part of the port is held against."""
-from .core import ExternalPolicy, SortConfig, psort  # noqa: F401
+from .core import (ExternalPolicy, SortConfig, psort,  # noqa: F401
+                   trace_collectives)

@@ -1,6 +1,6 @@
 """Public API: ``psort`` on the sim backend with every algorithm of the
-reference but ``"auto"``, and the external lane (counterpart of
-``repro/core/api.py``).
+reference but ``"auto"``, the external lane, and ``trace_collectives``
+(counterpart of ``repro/core/api.py``).
 
 The sim backend runs p PEs on one device; here every PE is a row of a
 (p, C) tensor and the per-PE body of the reference (``_sort_body``) runs
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from . import comm
 from .bitonic import bitonic
 from .external import (ExternalPolicy, _get_keys, _psort_external_once,
                        _put_keys)
@@ -247,12 +248,20 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     if x.dtype not in _KEY_DTYPES:
         raise ValueError(f"psort sorts int32, uint32, float32, int64, uint64 "
                          f"or float64 keys; got {x.dtype}")
-    algo_kw = dict(cfg.algo_kw)
-    if cfg.levels is not None:
-        algo_kw.setdefault("levels", cfg.levels)
     orig_dtype = x.dtype
     s = key_to_int(x.to(dev))
     del x
+    return _psort_incore(s, orig_dtype, n, p, cfg, return_info, dev)
+
+
+def _psort_incore(s, orig_dtype, n, p, cfg, return_info, dev):
+    """The in-core sort of the port's words ``s`` (1-D, on ``dev``): the
+    body over all p rows, then the reference's reassembly into
+    ``orig_dtype``."""
+    per = -(-max(n, 1) // p)
+    algo_kw = dict(cfg.algo_kw)
+    if cfg.levels is not None:
+        algo_kw.setdefault("levels", cfg.levels)
 
     capacity = max(4, int(math.ceil(per * cfg.capacity_factor)))
     flat = torch.full((p * per,), pad_value(s.dtype), dtype=s.dtype,
@@ -289,6 +298,49 @@ def psort(keys, config: Optional[SortConfig] = None, *,
 
 _KEY_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
                torch.uint64, torch.float64)
+
+
+def trace_collectives(n: int, config: Optional[SortConfig] = None, *,
+                      d: int = 1, device=None) -> comm.CommTrace:
+    """The collectives one ``psort`` call launches, per PE, as the
+    reference's ``trace_collectives`` counts them: the measured form of
+    the paper's Table I and the feature vector a cost model is fitted
+    from.
+
+    The reference evaluates the body on shapes alone; the port runs it, on
+    ``device`` (the card unless the caller passes ``"cpu"``), over n
+    uint32 keys drawn from ``np.random.default_rng(0xE87)``, inside a
+    ``comm.counting`` scope, and returns that scope's ``CommTrace``: the
+    same events, the same ``summary(p)`` and the same ``by_tag()``.
+    ``config.external`` traces the external lane once on that input, its
+    ``ext:h2d``/``ext:d2h`` copies included.  ``d > 1`` raises
+    ``NotImplementedError`` (ROADMAP queue 1, item 5), as ``SortConfig``
+    does for the knobs not ported yet."""
+    cfg = config if config is not None else SortConfig()
+    if d != 1:
+        raise NotImplementedError(
+            f"trace_collectives(d={d}) is not ported yet: ROADMAP queue 1 "
+            f"{_UNPORTED['data_axis'][1]}")
+    p = cfg.p
+    if p is None:
+        raise ValueError("trace_collectives needs p")
+    if p < 1 or p & (p - 1):
+        raise ValueError(f"p={p} must be a power of two (hypercube layout)")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0xE87)
+    u = rng.integers(0, 2 ** 32, size=max(n, 1), dtype=np.int64).astype(
+        np.uint32)
+    with comm.counting() as trace:
+        if cfg.external is not None:
+            _psort_external_once(u, n, p=p, policy=cfg.external, device=dev)
+        else:
+            if cfg.algorithm == "external":
+                raise ValueError("algorithm='external' needs external="
+                                 "ExternalPolicy(...)")
+            x = torch.from_numpy(u[:n])
+            _psort_incore(key_to_int(x.to(dev)), x.dtype, n, p, cfg, False,
+                          dev)
+    return trace
 
 
 def _resolve_external(external) -> Optional[ExternalPolicy]:

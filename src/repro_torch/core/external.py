@@ -35,8 +35,13 @@ Each pass runs under a ``record_function`` scope (``ext:runs``,
 ``ext:splitters``, ``ext:exchange``, ``ext:merge``), and every device
 sort of a chunk under ``ext:sort``.  The ``io(direction,
 nbytes)`` callback of ``form_runs``/``merge_runs`` is called around every
-host↔device copy; the trace that records it in the reference
-(``CountingCollectives``) is not ported yet.
+host↔device copy.  Under a ``comm.counting`` scope the lane records the
+reference's trace: its collectives under the reference's tags
+(``ext:splitters``, ``ext:pass{r}``, ``ext:merge``) and its
+``ext:h2d``/``ext:d2h`` copies at the reference's sizes (runs padded to
+the budget in pass A, to a power of two in pass D), tagged ``ext:runs``
+and ``ext:merge``.  Pass A forms the runs of all PEs together, so its
+copies are recorded after it, PE by PE in the reference's order.
 """
 from __future__ import annotations
 
@@ -240,6 +245,28 @@ def _no_io(direction, nbytes):
     return None
 
 
+def _pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _record_runs_io(io, counts, budget: int, itemsize: int,
+                    double_buffer: bool) -> None:
+    """The reference's pass-A copies, PE by PE (its ``form_runs``): every
+    run goes in padded to the budget, (key, idx), and comes back as its
+    (key, tie, idx); with double buffering run r + 1 goes in before run r
+    comes back."""
+    for n in counts:
+        sizes = [min(budget, int(n) - r * budget)
+                 for r in range(max(1, -(-int(n) // budget)))]
+        io("ext:h2d", budget * (itemsize + 4))
+        for r, size in enumerate(sizes):
+            if double_buffer and r + 1 < len(sizes):
+                io("ext:h2d", budget * (itemsize + 4))
+            io("ext:d2h", size * (itemsize + 8))
+            if not double_buffer and r + 1 < len(sizes):
+                io("ext:h2d", budget * (itemsize + 4))
+
+
 # ---------------------------------------------------------------------------
 # host-side mirrors (numpy — sketch provisioning and the loser-tree ref)
 # ---------------------------------------------------------------------------
@@ -351,9 +378,11 @@ def merge_runs(runs, *, budget: int, merge: str = "classifier",
     sk, st = _put_keys(s_keys, dev), _put_bits(s_ties, dev)
 
     # cut every run at the splitters: device classify, host boundaries
+    # (the io sizes are the reference's: its runs and chunks go in padded
+    # to a power of two)
     bounds = []
     for k, t, _ in runs:
-        note("ext:h2d", k.nbytes + t.nbytes)
+        note("ext:h2d", _pow2(k.shape[0]) * (k.itemsize + t.itemsize))
         bucket = _classify_planes(_put_keys(k, dev), _put_bits(t, dev), sk,
                                   st, m).cpu().numpy()
         note("ext:d2h", bucket.nbytes)
@@ -365,6 +394,12 @@ def merge_runs(runs, *, budget: int, merge: str = "classifier",
     # stream the non-empty interval chunks through the device sort
     chunks = [j for j in range(m)
               if any(b[j + 1] > b[j] for b in bounds)]
+    width = _pow2(max([sum(int(b[j + 1] - b[j]) for b in bounds)
+                       for j in range(m)] + [1]))
+
+    def chunk_io(direction, nbytes):
+        note(direction, width * (runs[0][0].itemsize + 4)
+             if direction == "ext:h2d" else nbytes)
 
     def chunk(r):
         j = chunks[r]
@@ -375,7 +410,7 @@ def merge_runs(runs, *, budget: int, merge: str = "classifier",
         return kc[None], ic[None], np.array([kc.shape[0]])
 
     out = [(k[0], t[0], i[0]) for k, t, i, _ in _sorted_chunks(
-        chunk, len(chunks), device=dev, double_buffer=False, io=note)]
+        chunk, len(chunks), device=dev, double_buffer=False, io=chunk_io)]
     return tuple(np.concatenate([o[n] for o in out]) for n in range(3))
 
 
@@ -492,6 +527,9 @@ def _psort_external_once(u, n: int, *, p: int, policy: ExternalPolicy,
         slabs = list(_sorted_chunks(slab, R, device=dev,
                                     double_buffer=policy.double_buffer,
                                     io=_no_io))
+    io = comm.io_recorder("ext:runs")
+    if io is not None:
+        _record_runs_io(io, counts, B, u.itemsize, policy.double_buffer)
     clock["A"] = time.perf_counter() - t0
 
     # --- pass B: splitter fit on the run sketches -------------------------
@@ -507,7 +545,7 @@ def _psort_external_once(u, n: int, *, p: int, policy: ExternalPolicy,
             sk[pe, r * s:r * s + len(qk)] = qk
             st[pe, r * s:r * s + len(qk)] = qt
             gs[pe, r], sklen[pe, r] = g, len(qk)
-    with record_function("ext:splitters"):
+    with record_function("ext:splitters"), comm.tagged("ext:splitters"):
         s_keys, s_ties = _fit_splitters(sk, st, p=p, device=dev)
     clock["B"] = time.perf_counter() - t0
 
@@ -526,7 +564,7 @@ def _psort_external_once(u, n: int, *, p: int, policy: ExternalPolicy,
                           int(gs[pe, r]), s_keys, s_ties, p).max())
             for pe in range(p))
         slot_cap = max(4, int(math.ceil(policy.slot_factor * cap_rd)))
-        with record_function("ext:exchange"):
+        with record_function("ext:exchange"), comm.tagged(f"ext:pass{r}"):
             ko, to, io_, co, oo = _exchange_pass(
                 k, i, c, s_keys, s_ties, p=p, slot_cap=slot_cap, device=dev)
         del k, i
@@ -541,12 +579,14 @@ def _psort_external_once(u, n: int, *, p: int, policy: ExternalPolicy,
     # --- pass D: merge barrier + per-PE k-way merge -----------------------
     t0 = time.perf_counter()
     with record_function("ext:merge"):
-        _merge_barrier(recv_counts, p=p, device=dev)
+        with comm.tagged("ext:merge"):
+            _merge_barrier(recv_counts, p=p, device=dev)
+        io = comm.io_recorder("ext:merge")
         merged = []
         for pe in range(p):
             merged.append(merge_runs(received[pe], budget=B,
                                      merge=policy.merge, sketch_per_run=s,
-                                     device=dev))
+                                     io=io, device=dev))
             received[pe] = None
     out_counts = np.array([len(m[0]) for m in merged], np.int32)
     out_cap = max(4, int(out_counts.max(initial=1)))

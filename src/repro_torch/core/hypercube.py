@@ -3,10 +3,16 @@
 groups, the all-gather-merge, butterfly sums and prefix sums, the one-shot
 and the hypercube random shuffles, the barrier path of the slotted
 all-to-all route and the route by explicit target PE.
+
+Each exchange records the reference's ``ppermute`` (``hc_exchange``) into
+an open ``comm.counting`` scope, one event per tensor, at the reference's
+bytes: a shard's count is the reference's int32 (4 bytes), and where the
+port carries fewer payloads than the reference (``ref_vals``) the events
+are those of the reference's payloads.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,23 +26,45 @@ def subcube_groups(p: int, dims: int):
     return [[h * size + l for l in range(size)] for h in range(p // size)]
 
 
-def hc_exchange(x: torch.Tensor, p: int, j: int) -> torch.Tensor:
-    """Every PE receives its partner ``i ^ 2^j``'s value: a swap of the
-    halves of every 2^(j+1) block of rows, with no index table."""
+_COUNT_BYTES = 4                   # the reference's int32 shard count
+
+
+def _swap(x: torch.Tensor, p: int, j: int) -> torch.Tensor:
     rest = tuple(x.shape[1:])
     return x.reshape((p >> (j + 1), 2, 1 << j) + rest).flip(1).reshape(
         x.shape)
 
 
-def exchange_shard(shard: SortShard, p: int, j: int) -> SortShard:
-    return SortShard(keys=hc_exchange(shard.keys, p, j),
-                     vals={k: hc_exchange(v, p, j)
-                           for k, v in shard.vals.items()},
-                     count=hc_exchange(shard.count, p, j))
+def hc_exchange(x: torch.Tensor, p: int, j: int,
+                itemsize: Optional[int] = None) -> torch.Tensor:
+    """Every PE receives its partner ``i ^ 2^j``'s value: a swap of the
+    halves of every 2^(j+1) block of rows, with no index table.  Recorded
+    as one ``ppermute`` (elements of ``itemsize`` bytes in the
+    reference)."""
+    comm.note("ppermute", x, itemsize)
+    return _swap(x, p, j)
+
+
+def exchange_shard(shard: SortShard, p: int, j: int,
+                   ref_vals: Optional[Dict[str, int]] = None) -> SortShard:
+    """The partner's shard; ``ref_vals`` (payload name → bytes an
+    element, in order) are the reference's payloads where the port's shard
+    carries fewer, recorded in place of the shard's own."""
+    keys = hc_exchange(shard.keys, p, j)
+    if ref_vals is None:
+        vals = {k: hc_exchange(v, p, j) for k, v in shard.vals.items()}
+    else:
+        for itemsize in ref_vals.values():
+            comm.record("ppermute", shard.capacity * itemsize)
+        vals = {k: _swap(v, p, j) for k, v in shard.vals.items()}
+    return SortShard(keys=keys, vals=vals,
+                     count=hc_exchange(shard.count, p, j, _COUNT_BYTES))
 
 
 def allgather_merge(shard: SortShard, p: int,
-                    dims: Optional[Sequence[int]] = None) -> SortShard:
+                    dims: Optional[Sequence[int]] = None,
+                    ref_vals: Optional[Dict[str, int]] = None
+                    ) -> SortShard:
     """Recursive-doubling all-gather-merge over the hypercube ``dims``
     (low to high): after step t every PE holds the merged elements of its
     2^(t+1)-subcube, its capacity doubled at each step.
@@ -44,11 +72,11 @@ def allgather_merge(shard: SortShard, p: int,
     Equal keys keep the order of their origin PEs: the two blocks of a
     step cover disjoint, ordered ranges of origin PEs, so the block of the
     lower half goes first on ties (the upper PE's partner holds the lower
-    block)."""
+    block).  ``ref_vals``: see :func:`exchange_shard`."""
     dims = list(dims) if dims is not None else list(range(p.bit_length() - 1))
     me = comm.axis_index(p, shard.keys.device)
     for t in dims:
-        partner = exchange_shard(shard, p, t)
+        partner = exchange_shard(shard, p, t, ref_vals)
         tie_a = ((me >> t) & 1) == 0
         shard, _ = merge_shards(shard, partner,
                                 capacity=shard.capacity + partner.capacity,
@@ -57,10 +85,12 @@ def allgather_merge(shard: SortShard, p: int,
     return shard
 
 
-def butterfly_sum(x: torch.Tensor, p: int, dims: Sequence[int]):
-    """All-reduce(+) over the subcube spanned by ``dims``."""
+def butterfly_sum(x: torch.Tensor, p: int, dims: Sequence[int],
+                  itemsize: Optional[int] = None):
+    """All-reduce(+) over the subcube spanned by ``dims`` (elements of
+    ``itemsize`` bytes in the reference)."""
     for t in dims:
-        x = x + hc_exchange(x, p, t)
+        x = x + hc_exchange(x, p, t, itemsize)
     return x
 
 
@@ -170,7 +200,7 @@ def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
     vals = {k: scatter(v, 0) for k, v in shard.vals.items()}
     del flat
     counts = comm.all_to_all(torch.clamp(sent, max=slot_cap).reshape(P, p, 1),
-                             groups).reshape(P, p)
+                             groups, itemsize=_COUNT_BYTES).reshape(P, p)
     slot_idx = torch.arange(slot_cap, device=dev)
     valid = (slot_idx[None, None, :] < counts[:, :, None]).reshape(P, -1)
     full = torch.full((P,), p * slot_cap, dtype=torch.int64, device=dev)
@@ -179,13 +209,15 @@ def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
 
 
 def route_by_target(shard: SortShard, p: int, dims: Sequence[int],
-                    capacity: Optional[int] = None
+                    capacity: Optional[int] = None,
+                    ref_vals: Optional[Dict[str, int]] = None
                     ) -> Tuple[SortShard, torch.Tensor]:
     """Route each element to the PE in its ``_tgt`` payload by per-dim
     exchanges, high dim to low: in step j an element moves iff its target
     differs from the current PE in bit j; what stays and what arrives
     merge.  Returns the routed shard (sorted, capacity ``capacity``) and
-    the per-PE overflow of the resize and every merge."""
+    the per-PE overflow of the resize and every merge.  ``ref_vals``: see
+    :func:`exchange_shard`."""
     me = comm.axis_index(p, shard.keys.device)[:, None]
     cap = capacity or shard.capacity
     shard, overflow = resize(shard, cap)
@@ -193,7 +225,7 @@ def route_by_target(shard: SortShard, p: int, dims: Sequence[int],
         move = ((shard.vals["_tgt"].to(torch.int64) ^ me) >> j) & 1 == 1
         sent, kept = compact(shard, move), compact(shard, ~move)
         del shard, move
-        shard, ovf = merge_shards(kept, exchange_shard(sent, p, j),
+        shard, ovf = merge_shards(kept, exchange_shard(sent, p, j, ref_vals),
                                   capacity=cap)
         del sent, kept
         overflow = overflow + ovf

@@ -8,10 +8,11 @@ kernel), prefix-sum the bucket histograms over the subcube, map each
 element to a target PE inside its group, and exchange through one slotted
 all-to-all.  Only the barrier exchange (``overlap=False``) is ported.
 
-Each phase runs under a ``torch.profiler.record_function`` scope
-(``shuffle``, ``level0``, ``level1``, …), the counterpart of the
-reference's ``comm.tagged`` scopes, so a profiler trace attributes time
-per phase; outside a profiler the scopes cost microseconds.
+Each phase runs under a ``torch.profiler.record_function`` scope and the
+reference's ``comm.tagged`` scope of the same name (``shuffle``,
+``level0``, ``level1``, …), so a profiler trace attributes time and a
+collective trace launches and bytes per phase; outside a profiler and a
+``comm.counting`` scope they cost microseconds.
 
 Composites are the sign-flipped int64 form of the reference's u64
 ``key << 32 | tag``: ``int64(key_int32) << 32 | tag``, with the invalid
@@ -123,7 +124,7 @@ def rams(shard: SortShard, p: int, *, seed: int = 0xA35,
     cap = shard.capacity
     overflow = torch.zeros_like(shard.count)
 
-    with record_function("shuffle"):
+    with record_function("shuffle"), comm.tagged("shuffle"):
         if shuffle:
             shard, ovf = alltoall_shuffle(
                 shard, p, seed, slot_cap=_slot_cap(cap, p, slot_factor))
@@ -136,7 +137,7 @@ def rams(shard: SortShard, p: int, *, seed: int = 0xA35,
 
     h = d
     for lvl, b in enumerate(bits):
-        with record_function(f"level{lvl}"):
+        with record_function(f"level{lvl}"), comm.tagged(f"level{lvl}"):
             shard, ovf = _rams_level(shard, p, h, b,
                                      seed=seed + 7919 * (lvl + 1),
                                      oversample=oversample,

@@ -21,7 +21,10 @@ among the column's distinct keys (``_dense_keys``), which keeps the order
 and the ties of the keys.
 
 The gathers, the rank and the delivery run under ``torch.profiler``
-scopes ``gather``, ``rank`` and ``route``.
+scopes ``gather``, ``rank`` and ``route``.  The column's gather and the
+route carry fewer payloads than the reference's; they record the
+reference's exchanges into an open ``comm.counting`` scope
+(``ref_vals``).
 """
 from __future__ import annotations
 
@@ -53,6 +56,12 @@ def grid_shape(p: int):
     d = p.bit_length() - 1
     cb = d // 2               # column bits (low): row size 2^cb
     return d - cb, cb         # (rb, cb): column size 2^rb
+
+
+def _itemsizes(vals) -> dict:
+    """Payload name → bytes an element, in order (the reference's
+    payloads are uint32, the port's int32)."""
+    return {k: v.element_size() for k, v in vals.items()}
 
 
 def _with_origin(shard: SortShard, p: int) -> SortShard:
@@ -119,7 +128,7 @@ def rfis_rank(shard: SortShard, p: int) -> RFISRanks:
         # the column's payloads other than the origin are never read
         col = allgather_merge(shard.replace(vals={
             k: shard.vals[k] for k in ("_orig", "_lidx")}), p,
-            dims=range(cb, cb + rb))
+            dims=range(cb, cb + rb), ref_vals=_itemsizes(shard.vals))
         del shard
     with record_function("rank"):
         col_key, row_key, found = col.keys, row.keys, None
@@ -134,7 +143,7 @@ def rfis_rank(shard: SortShard, p: int) -> RFISRanks:
             col.valid_mask(),
             composite(col_key, col.vals["_orig"].to(torch.int64) >> cb,
                       col.vals["_lidx"].to(torch.int64)), _MAX)
-        total = butterfly_sum(col.count, p, dims=range(cb))
+        col_count = col.count
         del col, col_key
         # row element a = (y, my_row, C_a, i) counts the b below (y, thr):
         # C_a > my_col: R_b ≤ my_row; C_a < my_col: R_b < my_row;
@@ -156,6 +165,7 @@ def rfis_rank(shard: SortShard, p: int) -> RFISRanks:
         del col_comp, query
         partial = torch.where(row.valid_mask(), partial, 0)
         ranks = butterfly_sum(partial, p, dims=range(cb))
+        total = butterfly_sum(col_count, p, dims=range(cb))
     return RFISRanks(row_data=row, ranks=ranks, total=total)
 
 
@@ -177,6 +187,7 @@ def rfis(shard: SortShard, p: int, *,
     target = ranks // out_per
     del ranks
     keep = row.valid_mask() & ((target & ((1 << cb) - 1)) == my_col)
+    ref_vals = {**_itemsizes(row.vals), "_tgt": 4}
     vals = {k: v for k, v in row.vals.items() if not k.startswith("_")}
     vals["_tgt"] = target.to(torch.int32)          # < p
     del target
@@ -186,7 +197,7 @@ def rfis(shard: SortShard, p: int, *,
         # the whole column's volume bounds any intermediate load
         routed, overflow = route_by_target(
             kept, p, dims=range(cb, cb + rb),
-            capacity=max(out_cap, kept.capacity))
+            capacity=max(out_cap, kept.capacity), ref_vals=ref_vals)
         del kept
         routed = local_sort(routed.replace(vals={
             k: v for k, v in routed.vals.items() if not k.startswith("_")}))

@@ -94,7 +94,8 @@ def rquick(shard: SortShard, p: int, *, seed: int = 0x5EED,
                                         seed=seed * 1000003 + it)
             s, w_empty = splitter_from_window(w, seed=seed * 1000003 + it)
             del w
-            sub_count = butterfly_sum(shard.count, p, sub_dims)
+            sub_count = butterfly_sum(shard.count, p, sub_dims,
+                                      itemsize=4)   # the reference's int32
             is_empty = (sub_count == 0) | w_empty
             idx = _split_point(shard, s, tie_break)[:, None]
             # the lower PE sends R (its suffix), the upper PE L (its prefix)

@@ -9,7 +9,8 @@ duplicate-heavy inputs overflow its slots, as in the reference.
 Samples and splitters are the reference's u64 words (a zero-extended u32
 key or an 8-byte key, all-ones for an invalid sample) held sign-flipped in
 int64.  Every PE all-gathers the same samples, so the port sorts them once
-for all rows.  The classify is the partition kernel with nb = p and no
+for all rows, and records the reference's ``all_gather`` into an open
+``comm.counting`` scope.  The classify is the partition kernel with nb = p and no
 rank: 4-byte keys classify as (word, tie 0), 8-byte keys as the (hi, lo)
 planes of their word, as the reference's (hi, lo) u32 planes.  The
 shuffle, the splitter pick and classify, and the route run under
@@ -122,4 +123,5 @@ def _splitters(shard: SortShard, p: int, seed: int, sample_factor: int,
     if samp.dtype == torch.int32:                  # zero-extended to u64
         samp = samp.to(torch.int64) + ((1 << 31) + LO)
     samp = torch.where(pos < shard.count[:, None], samp, _INVALID)
+    comm.note("all_gather", samp)
     return quantile_splitters(torch.sort(samp.reshape(1, -1))[0], p)

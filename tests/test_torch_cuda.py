@@ -243,8 +243,9 @@ def test_psort_cuda_equals_cpu(dev, name, p, per):
     (50_000, 20_000, False), (5000, 1, True), (0, 4, True)])
 def test_kway_matches_plain(dev, C, nb, ordered):
     """Ragged C (no multiple of the block), splitters in and out of lex
-    order, more than one staged chunk (nb > 1024) and a histogram too
-    large for shared memory (nb > 8192)."""
+    order, more splitters than one shared-memory tree holds (nb = 20 000:
+    the chunked search) and a histogram counted in device memory
+    (nb > 2048)."""
     g = np.random.default_rng(C + nb)
     keys = np.sort(g.integers(-2 ** 31, 2 ** 31, size=C)).astype(np.int32)
     ties = g.integers(-2 ** 31, 2 ** 31, size=C).astype(np.int32)
@@ -418,3 +419,70 @@ def test_keys64_psort_cuda_equals_cpu(dev, algorithm, dtype):
     assert torch.equal(gi["perm"].cpu(), ci["perm"])
     assert torch.equal(gi["counts"].cpu(), ci["counts"])
     assert gi["overflow"] == ci["overflow"]
+
+
+def _kway_inputs(C, nb, case, seed):
+    """Sorted (key, tie) runs of 2^13 keys and nb − 1 splitters for one
+    case: "unordered" (sorted keys, ties in no order), "shuffled" (the
+    same in random order), "equal" (every key and splitter key one value,
+    so the ties decide), "elements" (the splitters are elements, tie
+    included, so equality decides)."""
+    g = np.random.default_rng(seed)
+    hi = 1 if case == "equal" else 2 ** 31
+    keys = g.integers(-hi, hi, size=C).astype(np.int32)
+    keys = np.concatenate([np.sort(keys[i:i + 8192])
+                           for i in range(0, C, 8192)]) if C else keys
+    ties = g.integers(-2 ** 31, 2 ** 31, size=C).astype(np.int32)
+    S = nb - 1
+    if case == "elements" and C:
+        pick = g.integers(0, C, size=S)
+        sk, st = keys[pick], ties[pick]
+    else:
+        sk = np.sort(g.integers(-hi, hi, size=S)).astype(np.int32)
+        st = g.integers(-2 ** 31, 2 ** 31, size=S).astype(np.int32)
+    if case == "shuffled":
+        perm = g.permutation(S)
+        sk, st = sk[perm], st[perm]
+    return keys, ties, sk, st
+
+
+@pytest.mark.parametrize("nb", [1, 2, 8, 16, 2048, 1 << 16])
+@pytest.mark.parametrize("C", [0, 5, 2048, 2048 * 7 + 3, 1 << 20])
+@pytest.mark.parametrize("case", ["unordered", "shuffled", "equal",
+                                  "elements"])
+def test_kway_search_tree_matches_plain(dev, nb, C, case):
+    """The search over splitters sorted inside the launch, bit for bit
+    against the plain version: empty, ragged and tile-multiple C, one
+    bucket, splitters past one shared-memory tree (nb = 2^16), splitters
+    in order and in none, all-equal keys and splitters that are
+    elements."""
+    if C == 1 << 20 and nb == 1 << 16:
+        C = 50_001                    # the chunked search costs C · 16
+    keys, ties, sk, st = (torch.from_numpy(a).to(dev)
+                          for a in _kway_inputs(C, nb, case, C + nb))
+    b, h = kw.kway_classify(keys, ties, sk, st, n_buckets=nb)
+    rb, rh = kref.kway_classify_ref(keys, ties, sk, st, n_buckets=nb)
+    torch.cuda.synchronize()
+    assert torch.equal(b, rb) and torch.equal(h, rh)
+    assert int(rh.sum()) == int((rb < nb).sum())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("nb", [8, 2048])
+def test_kway_on_views_at_an_offset(dev, offset, nb):
+    """Views that start off a 16-byte boundary, keys and ties apart, take
+    4-byte accesses and give the same buckets; repeated calls on one
+    stream leave the kernel's histogram accumulator zero."""
+    C = 100_003
+    keys, ties, sk, st = (torch.from_numpy(a).to(dev) for a in
+                          _kway_inputs(C + 8, nb, "unordered", offset + nb))
+    k, t = keys[offset:offset + C], ties[8 - offset:8 - offset + C]
+    rb, rh = kref.kway_classify_ref(k, t, sk, st, n_buckets=nb)
+    for _ in range(3):
+        b, h = kw.kway_classify(k, t, sk, st, n_buckets=nb)
+        torch.cuda.synchronize()
+        assert torch.equal(b, rb) and torch.equal(h, rh)
+    b, h = kw.kway_classify(keys, ties, sk, st, n_buckets=nb)   # aligned
+    rb, rh = kref.kway_classify_ref(keys, ties, sk, st, n_buckets=nb)
+    torch.cuda.synchronize()
+    assert torch.equal(b, rb) and torch.equal(h, rh)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's local-sort and partition kernels of one tree.
+"""Time the port's local-sort, partition and k-way kernels of one tree.
 
     python3 tools/time_torch_kernels.py [--src src] [--label name]
 
@@ -10,7 +10,13 @@ repository's), then times each launch with CUDA events (median of
 with an int32 payload, ``partition_classify`` and ``partition_rank`` on
 (256, 2^20) with nb = 64 (RAMS at p = 256, n = 2^26), and, where the tree
 accepts 2^18 rows, ``tile_sort`` and ``partition_classify`` with nb = 2 on
-(2^18, 1024) (RQuick at p = 2^18, n = 2^26).  ``partition_classify`` is
+(2^18, 1024) (RQuick at p = 2^18, n = 2^26), and ``kway_classify`` at
+the external lane's pass C (C = 2^25, nb = 16) and pass D (C = 2^21,
+nb = 8) and at nb = 2048, on sorted runs of 2^21 keys with splitters of
+unordered ties (``kway_<row>`` with CUDA events around one call,
+``kway_<row>_device`` the kernel's device time per launch under
+``torch.profiler`` over back-to-back calls, ``kway_<row>_wall`` the host
+clock per call over those calls).  ``partition_classify`` is
 the call both trees take, the launch that feeds the rank; the
 ``partition_<path>`` entries time what each path calls,
 ``partition_buckets`` with its own flags (RQuick: the histogram; SSort and
@@ -30,6 +36,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPS = 20
@@ -49,8 +56,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels import kway as kw
     from repro_torch.kernels import partition as pt
-    _build.build_all(["bitonic", "partition"])
+    _build.build_all(["bitonic", "partition", "kway"])
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
@@ -76,6 +84,20 @@ def main(argv=None) -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def device_ms(fn, kernel, reps):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        return sum(us) / reps / 1e3
+
     out = {}
 
     def variants(name, *args, **kw):
@@ -99,6 +121,28 @@ def main(argv=None) -> int:
     runs = bt.sort_tiles(keys, vals)
     out["run_merge"] = ms(lambda: bt.merge_runs(*runs, bt.TILE))
     del keys, vals, runs
+    for name, C, nb, reps in (("pass_c", 1 << 25, 16, 20),
+                              ("pass_d", 1 << 21, 8, 200),
+                              ("nb2048", 1 << 25, 2048, 20)):
+        keys = torch.sort(ints((C >> 21, 1 << 21)), dim=1)[0].reshape(-1)
+        ties = ints((C,))
+        s_keys = torch.sort(keys[torch.randint(0, C, (nb - 1,), generator=g,
+                                               device=dev)])[0]
+        s_ties = ints((nb - 1,))
+
+        def call():
+            return kw.kway_classify(keys, ties, s_keys, s_ties, n_buckets=nb)
+        out[f"kway_{name}"] = ms(call)
+        out[f"kway_{name}_device"] = device_ms(call, "kway_classify", reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        out[f"kway_{name}_wall"] = (time.perf_counter() - t0) / reps * 1e3
+        del keys, ties, s_keys, s_ties
+    torch.cuda.empty_cache()
+
     rows, C, nb = 256, 1 << 20, 64
     keys = torch.sort(ints((rows, C)), dim=1)[0]
     ties = ints((rows, C))
