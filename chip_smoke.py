@@ -54,10 +54,11 @@ Phases, each fatal on failure (no phase catches its own error):
    AllToOne after a warm-up, with the checks of phase 4; and the card
    against the CPU bit for bit for ``rquick`` and ``ntb-quick`` at p = 64,
    n = 2^20;
-9. printed last, after phase 12: one ``kernels`` JSON line (a row per
-   kernel, classify variant, path and shape, NTB-AMS's at RAMS's and
-   every row of phase 3b, with each variant's launches in that path's
-   run), the card line, and the ``ok`` line;
+9. printed last, after phase 14: one ``kernels`` JSON line (a row per
+   kernel, classify variant, path and shape, NTB-AMS's at RAMS's, every
+   row of phase 3b, and the streamed paths of phase 14 at their barrier
+   paths' shapes, with each variant's launches in that path's run), the
+   card line, and the ``ok`` line;
 10. the other algorithms, each at its regime: every kernel of those
    paths at the shapes each path gives it (every ``partition_classify``
    variant with nb = p = 256 at SSort's (256, 2^20) and NS-SSort's
@@ -89,12 +90,29 @@ Phases, each fatal on failure (no phase catches its own error):
    sizes and the external lane at phase 7's; then one ``table1`` JSON line,
    the paper's Table I taken on the card: launches, point-to-point
    launches, fused launches and wire bytes per PE (and the lane's
-   host-device bytes) at each path's cell.
+   host-device bytes) at each path's cell;
+13. selection: the committed profile (``repro_torch/profiles/h100-sim.json``,
+   the port's ``DEFAULT_MODEL``), which must name an H100, its constants
+   and its regime tables at p = 2^8, 2^12 and 2^18; a fresh profile from
+   phase 1 of ``tools/calibrate_torch.py`` at p = 2^6 and 2^8 beside it
+   (every constant finite and positive, ``overlap`` in [0, 1]); then
+   ``psort(algorithm="auto")`` at the cells of RAMS, RQuick, RFIS and
+   GatherM above on Uniform keys, bit for bit equal to the algorithm it
+   picked, with both wall times (a pick whose reckoned peak passes 60 GB
+   is printed with that size and not run);
+14. the streamed exchange (``overlap=True``) against the barrier path, bit
+   for bit, with both wall times, peaks and launches: RAMS and SSort at
+   p = 256, n = 2^26 on Uniform and Zero (first the local sort's kernels
+   at the shapes of the blocks they sort there), and the external lane at
+   p = 16, n = 2^20, budget 2^13 (also against the CPU); the card against
+   the CPU for ``rams`` and ``ssort`` at p = 64, n = 2^20; and phase 12's
+   trace check with ``overlap=True``, its ``ovl:`` chunk events included.
 
-Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5),
-``rquick`` and ``ntb-quick`` (8), the external lane (6, 7), and ``rfis``,
-``gatherm``, ``allgatherm``, ``ssort``, ``ns-ssort``, ``bitonic`` and
-``ntb-ams`` (10), and all but the AMS family on 8-byte keys (11).
+Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
+14), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
+``rfis``, ``gatherm``, ``allgatherm``, ``ssort``, ``ns-ssort``,
+``bitonic`` and ``ntb-ams`` (10; ``ssort`` also 14), all but the AMS
+family on 8-byte keys (11), and ``"auto"`` (13).
 
 It imports torch, numpy and the port only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -179,6 +197,19 @@ TRACE_CELLS = ((("rams", P_MAIN, LOG_N_MAIN),
                 ("rquick", P_RQUICK, LOG_N_RQUICK),
                 ("ntb-quick", P_RQUICK, LOG_N_RQUICK))
                + tuple(path[:3] for path in OTHER_PATHS))
+# phase 13: the regime cells at which "auto" runs against the algorithm it
+# picks, and the reckoned peak past which a choice is printed, not run
+AUTO_CELLS = (("rams", P_MAIN, LOG_N_MAIN), ("rquick", P_RQUICK, LOG_N_RQUICK),
+              ("rfis", P_RFIS, LOG_N_RFIS), ("gatherm", P_GATHER,
+                                             LOG_N_GATHER))
+REGIME_PS = (1 << 8, 1 << 12, 1 << 18)
+FRESH_PS = (1 << 6, 1 << 8)
+AUTO_PEAK_LIMIT = 60e9
+# phase 14: the streamed exchange (overlap=True) against the barrier path
+OVERLAP_PATHS = (("rams", RAMS_LAUNCHES), ("ssort", SSORT_KERNELS))
+OVERLAP_INSTANCES = ("Uniform", "Zero")
+OVERLAP_CHECKS = (("rams", P_CHECK, LOG_N_CHECK),
+                  ("ssort", P_CHECK, LOG_N_CHECK))
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -1110,19 +1141,21 @@ def keys64_phase(torch, np, psort, SortConfig, generate_instance,
     return first
 
 
-def trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives):
+def trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives,
+                overlap=False):
     """Phase 12: every algorithm's collective trace on the card equals its
     trace on the CPU, event for event, at the card-vs-CPU check sizes (the
     external lane at phase 7's); then the paper's Table I on the card:
     launches, point-to-point launches and wire bytes per PE (and the
-    lane's host-device bytes) at each path's cell, one JSON line."""
+    lane's host-device bytes) at each path's cell, one JSON line.  With
+    ``overlap`` (phase 14) the check only, of the streamed exchanges."""
     def events(t):
         return [(e.primitive, e.bytes, e.group_size, e.axis, e.tag)
                 for e in t.events]
 
-    ext_check = SortConfig(p=P_EXT, external=ExternalPolicy(
+    ext_check = SortConfig(p=P_EXT, overlap=overlap, external=ExternalPolicy(
         budget=BUDGET_EXT_CHECK))
-    checks = [(a, p, log_n, SortConfig(p=p, algorithm=a))
+    checks = [(a, p, log_n, SortConfig(p=p, algorithm=a, overlap=overlap))
               for a, p, log_n in TRACE_CHECKS]
     checks.append(("external", P_EXT, LOG_N_EXT_CHECK, ext_check))
     for algorithm, p, log_n, cfg in checks:
@@ -1132,11 +1165,15 @@ def trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives):
                 and got.summary(p) == want.summary(p)
                 and got.io_bytes() == want.io_bytes())
         emit({"phase": "trace_cuda_vs_cpu", "algorithm": algorithm, "p": p,
-              "n": 1 << log_n, "events": len(got.events),
+              "n": 1 << log_n, "overlap": overlap,
+              "events": len(got.events), "ovl_events": sum(
+                  1 for e in got.events if (e.tag or "").startswith("ovl:")),
               "identical": same})
         if not same:
             raise AssertionError(f"{algorithm}: the trace on the card "
                                  f"differs from the CPU's")
+    if overlap:
+        return
     cells = [(a, p, log_n, SortConfig(p=p, algorithm=a))
              for a, p, log_n in TRACE_CELLS]
     cells.append(("external", P_EXT, LOG_N_EXT, SortConfig(
@@ -1152,6 +1189,209 @@ def trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives):
                       "io_bytes": t.io_bytes(),
                       "counts": t.counts()})
     emit({"table1": table})
+
+
+def calibrate_tool():
+    """``tools/calibrate_torch.py`` of this checkout, as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / "calibrate_torch.py"
+    spec = importlib.util.spec_from_file_location("calibrate_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_result(torch, a, b) -> bool:
+    """Two psort results (output, info) equal bit for bit: keys, perm,
+    counts and overflow."""
+    (ao, ai), (bo, bi) = a, b
+    return (torch.equal(ao.view(torch.int32).cpu(), bo.view(torch.int32).cpu())
+            and torch.equal(ai["perm"].cpu(), bi["perm"].cpu())
+            and torch.equal(ai["counts"].cpu(), bi["counts"].cpu())
+            and ai["overflow"] == bi["overflow"])
+
+
+def timed_psort(torch, psort, x, cfg, reset_launch_counts, launch_counts,
+                **kw):
+    """One psort after a reset of the launch counts: (out, info, wall s,
+    launches, peak bytes)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, info = psort(x, cfg, return_info=True, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, info, wall, launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def selection_phase(torch, np, psort, SortConfig, generate_instance,
+                    launch_counts, reset_launch_counts):
+    """Phase 13: the committed profile (the port's DEFAULT_MODEL) and its
+    regime tables; a fresh profile from the tool's phase 1 beside it; then
+    ``psort(algorithm="auto")`` at each regime cell, bit for bit equal to
+    the algorithm it picked (a pick whose reckoned peak passes 60 GB is
+    printed with that size and not run)."""
+    from repro_torch.core import selection
+    t0 = time.perf_counter()
+    model = selection.DEFAULT_MODEL
+    consts = ("alpha", "alpha_c", "alpha_hop", "beta", "local_rate",
+              "partition_rate", "io_beta", "overlap")
+    emit({"phase": "profile", "name": model.name,
+          "card": model.meta.get("card"),
+          **{k: getattr(model, k) for k in consts}})
+    if "H100" not in str(model.meta.get("card")):
+        raise AssertionError(f"the committed profile was not measured on an "
+                             f"H100: {model.meta.get('card')!r}")
+    for p in REGIME_PS:
+        emit({"phase": "regime_table", "p": p, "rows": [
+            [e, a] for e, _, a in selection.regime_table(p, range(-8, 24))]})
+    tool = calibrate_tool()
+    fresh = tool.measure_profile(FRESH_PS, "fresh", "cuda")
+    emit({"phase": "profile_fresh", "p": list(FRESH_PS),
+          "card": fresh.meta["card"],
+          **{k: getattr(fresh, k) for k in consts},
+          "committed": {k: getattr(model, k) for k in consts}})
+    for k in consts:
+        v = getattr(fresh, k)
+        if not math.isfinite(v) or (k != "overlap" and v <= 0):
+            raise AssertionError(f"fresh profile: {k} = {v}")
+    if not 0.0 <= fresh.overlap <= 1.0:
+        raise AssertionError(f"fresh profile: overlap {fresh.overlap}")
+    for cell, p, log_n in AUTO_CELLS:
+        n = 1 << log_n
+        chosen = selection.select_algorithm(n, p)
+        need = tool.reckon_bytes(chosen, n, p)
+        row = {"phase": "auto", "cell": cell, "p": p, "n": n,
+               "chosen": chosen, "reckoned_bytes": need}
+        if need > AUTO_PEAK_LIMIT:
+            emit({**row, "run": False})
+            continue
+        x = generate_instance("Uniform", p, n).astype(np.uint32)
+        auto = timed_psort(torch, psort, x, SortConfig(p=p), reset_launch_counts,
+                           launch_counts)
+        named = timed_psort(torch, psort, x, SortConfig(p=p, algorithm=chosen),
+                            reset_launch_counts, launch_counts)
+        same = same_result(torch, auto[:2], named[:2])
+        emit({**row, "run": True, "algorithm": auto[1]["algorithm"],
+              "wall_s": auto[2], "named_wall_s": named[2],
+              "max_memory_allocated": auto[4], "identical": same})
+        if not same or auto[1]["algorithm"] != chosen:
+            raise AssertionError(f"auto at {cell}'s cell differs from "
+                                 f"{chosen}")
+        del auto, named, x
+        torch.cuda.empty_cache()
+    emit({"phase": "selection_done", "seconds": time.perf_counter() - t0})
+
+
+def overlap_phase(torch, np, psort, SortConfig, ExternalPolicy,
+                  generate_instance, launch_counts, reset_launch_counts,
+                  trace_collectives):
+    """Phase 14: ``overlap=True`` against the barrier path, bit for bit,
+    with both wall times and launches: RAMS and SSort at p = 256,
+    n = 2^26 (Uniform, Zero), the external lane at p = 16, n = 2^20,
+    budget 2^13; the card against the CPU with ``overlap=True``; and
+    phase 12's trace check with ``overlap=True``.  Returns the launches of
+    each streamed path's first measured sort, and the local sort's kernel
+    rows at the shapes of the blocks it sorts."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    spread = torch.arange(P_MAIN, device=dev) * 997
+    # the blocks each streamed exchange sorts as they arrive, at
+    # p = 256, n = 2^26: the shuffle's (and SSort's route's) 256 blocks of
+    # slot_cap 4374 with ~1024 keys, RAMS level 0's of 8582 with ~1024,
+    # level 1's 16 blocks of 132 614 with ~16 384 (one merge pass)
+    chunk_rows = []
+    for C, valid, merge, paths in (
+            (4374, 1024, False, ("rams-overlap", "ssort-overlap")),
+            (8582, 1024, False, ("rams-overlap",)),
+            (132614, 1 << 14, True, ("rams-overlap",))):
+        count = valid - 32 + spread % 64
+        chunk_rows += sort_kernel_rows(torch, g, P_MAIN, C, count, paths,
+                                       merge)
+    first = {}
+    n = 1 << LOG_N_MAIN
+    for algorithm, kernels in OVERLAP_PATHS:
+        cfg = SortConfig(p=P_MAIN, algorithm=algorithm)
+        for i, name in enumerate(OVERLAP_INSTANCES):
+            x = generate_instance(name, P_MAIN, n).astype(np.uint32)
+            if i == 0:                               # warm-up
+                psort(x, cfg.replace(overlap=True))
+                torch.cuda.synchronize()
+            bar = timed_psort(torch, psort, x, cfg, reset_launch_counts,
+                              launch_counts)
+            ovl = timed_psort(torch, psort, x, cfg.replace(overlap=True),
+                              reset_launch_counts, launch_counts)
+            same = same_result(torch, bar[:2], ovl[:2])
+            check_sorted(torch, np, x, ovl[0], ovl[1], n)
+            missing = [k for k in kernels if ovl[3][k] <= 0]
+            first.setdefault(algorithm, ovl[3])
+            emit({"phase": "overlap_psort", "algorithm": algorithm,
+                  "instance": name, "p": P_MAIN, "n": n, "identical": same,
+                  "barrier_wall_s": bar[2], "overlap_wall_s": ovl[2],
+                  "ratio": ovl[2] / bar[2],
+                  "barrier_max_memory_allocated": bar[4],
+                  "overlap_max_memory_allocated": ovl[4],
+                  "overflow": ovl[1]["overflow"],
+                  "barrier_launches": bar[3], "overlap_launches": ovl[3]})
+            if not same:
+                raise AssertionError(f"{algorithm} {name}: overlap=True "
+                                     f"differs from the barrier path")
+            if missing:
+                raise AssertionError(f"kernels never launched on the "
+                                     f"streamed {algorithm} path: {missing}")
+            del bar, ovl, x
+            torch.cuda.empty_cache()
+
+    n = 1 << LOG_N_EXT_CHECK
+    x = generate_instance("Uniform", P_EXT, n).astype(np.uint32)
+    cfg = SortConfig(p=P_EXT, algorithm="external", external=ExternalPolicy(
+        budget=BUDGET_EXT_CHECK))
+    psort(x, cfg.replace(overlap=True))                # warm-up
+    bar = timed_psort(torch, psort, x, cfg, reset_launch_counts,
+                      launch_counts)
+    ovl = timed_psort(torch, psort, x, cfg.replace(overlap=True),
+                      reset_launch_counts, launch_counts)
+    cpu = psort(x, cfg.replace(overlap=True), return_info=True, device="cpu")
+    same = same_result(torch, bar[:2], ovl[:2])
+    same_cpu = same_result(torch, ovl[:2], cpu)
+    first["external"] = ovl[3]
+    emit({"phase": "overlap_external", "p": P_EXT, "n": n,
+          "budget": BUDGET_EXT_CHECK, "identical": same,
+          "identical_cpu": same_cpu, "barrier_wall_s": bar[2],
+          "overlap_wall_s": ovl[2], "ratio": ovl[2] / bar[2],
+          "barrier_launches": bar[3], "overlap_launches": ovl[3]})
+    if not (same and same_cpu):
+        raise AssertionError("the streamed external lane differs")
+    # at this budget (one tile) a run needs no merge pass: the lane's
+    # classify and tile sorts are its kernels
+    missing = [k for k in ("kway_classify", "tile_sort") if ovl[3][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the streamed "
+                             f"lane: {missing}")
+
+    for algorithm, p, log_n in OVERLAP_CHECKS:
+        n = 1 << log_n
+        x = generate_instance("Uniform", p, n).astype(np.uint32)
+        cfg = SortConfig(p=p, algorithm=algorithm, overlap=True)
+        go = psort(x, cfg, return_info=True, device="cuda")
+        co = psort(x, cfg, return_info=True, device="cpu")
+        same = same_result(torch, go, co)
+        emit({"phase": "overlap_cuda_vs_cpu", "algorithm": algorithm,
+              "p": p, "n": n, "identical": same,
+              "overflow": go[1]["overflow"]})
+        if not same:
+            raise AssertionError(f"{algorithm}: streamed cuda and cpu runs "
+                                 f"differ")
+        check_sorted(torch, np, x, go[0], go[1], n)
+    trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives,
+                overlap=True)
+    emit({"phase": "overlap_done", "seconds": time.perf_counter() - t0})
+    return first, chunk_rows
 
 
 def check_external(torch, np, x_np, out, info, n):
@@ -1216,7 +1456,7 @@ def main() -> int:
 
     # --- 4. psort end to end at p = 256, n = 2^26 ----------------------------
     n = 1 << LOG_N_MAIN
-    cfg = SortConfig(p=P_MAIN)
+    cfg = SortConfig(p=P_MAIN, algorithm="rams")
     main_launches = None
     for i, name in enumerate(INSTANCES_MAIN):
         x = generate_instance(name, P_MAIN, n).astype(np.uint32)
@@ -1250,7 +1490,7 @@ def main() -> int:
     # --- 5. card vs CPU at p = 64, n = 2^20 ----------------------------------
     n = 1 << LOG_N_CHECK
     x = generate_instance("Uniform", P_CHECK, n).astype(np.uint32)
-    cfg = SortConfig(p=P_CHECK)
+    cfg = SortConfig(p=P_CHECK, algorithm="rams")
     go, gi = psort(x, cfg, return_info=True, device="cuda")
     co, ci = psort(x, cfg, return_info=True, device="cpu")
     same = (torch.equal(go.view(torch.int32).cpu(), co.view(torch.int32))
@@ -1357,6 +1597,15 @@ def main() -> int:
     trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives)
     emit({"phase": "trace_done", "seconds": time.perf_counter() - t12})
 
+    # --- 13. selection ---------------------------------------------------------
+    selection_phase(torch, np, psort, SortConfig, generate_instance,
+                    launch_counts, reset_launch_counts)
+
+    # --- 14. the streamed exchange ---------------------------------------------
+    overlap_launches, chunk_rows = overlap_phase(
+        torch, np, psort, SortConfig, ExternalPolicy, generate_instance,
+        launch_counts, reset_launch_counts, trace_collectives)
+
     # --- 9. summary (printed last) -----------------------------------------
     # a row per kernel (classify: per variant), path and shape: its time at
     # that shape and its launches in that path's measured run
@@ -1375,6 +1624,21 @@ def main() -> int:
             launches = keys64_launches["ssort"] if path == "ssort-int64" \
                 else other_launches[path]
             rows.append((row, path, launches[launch_key(row)]))
+    # the streamed paths of phase 14: the same kernels at the shapes of
+    # their barrier paths, with the streamed sort's launches
+    for key, row in kernels.items():
+        rows.append((row, "rams-overlap", overlap_launches["rams"][key]))
+    for row, paths in other_rows:
+        if "ssort" in paths:
+            rows.append((row, "ssort-overlap",
+                         overlap_launches["ssort"][launch_key(row)]))
+    for row in kway_rows:
+        rows.append((row, "external-overlap",
+                     overlap_launches["external"]["kway_classify"]))
+    for row, paths in chunk_rows:
+        for path in paths:
+            rows.append((row, path, overlap_launches[path.split("-")[0]][
+                launch_key(row)]))
     emit({"kernels": [
         {"name": row["name"], "variant": row["variant"], "path": path,
          "what": row.get("what"),

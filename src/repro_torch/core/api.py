@@ -1,5 +1,6 @@
 """Public API: ``psort`` on the sim backend with every algorithm of the
-reference but ``"auto"``, the external lane, and ``trace_collectives``
+reference, ``"auto"`` selection from a :class:`CostModel`, the external
+lane, the streamed exchange (``overlap=True``) and ``trace_collectives``
 (counterpart of ``repro/core/api.py``).
 
 The sim backend runs p PEs on one device; here every PE is a row of a
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from . import comm
+from . import comm, selection
 from .bitonic import bitonic
 from .external import (ExternalPolicy, _get_keys, _psort_external_once,
                        _put_keys)
@@ -44,18 +45,15 @@ _UNPORTED = {
     "mesh_shape": ((None,), "item 5 (batched keys and nested meshes)"),
     "mesh_axes": ((("inter", "intra"),),
                   "item 5 (batched keys and nested meshes)"),
-    "cost_model": ((None,), "item 3 (selection)"),
     "fault_policy": ((None,), "item 8 (faults and elastic rescale)"),
-    "overlap": ((None, False), "item 4 (exchange/merge overlap)"),
 }
-_ALGORITHMS = {"auto": "item 3 (selection)"}
 # the ported algorithms: each one's function and the keywords it takes
 _RAMS_KW = ("seed", "levels", "level_bits", "oversample", "tie_break",
-            "shuffle", "slot_factor")
+            "shuffle", "slot_factor", "overlap")
 _RQUICK_KW = ("seed", "window_k", "robust", "shuffle", "tie_break",
               "capacity", "dims")
 _SSORT_KW = ("seed", "robust", "sample_factor", "slot_factor",
-             "oracle_splitters")
+             "oracle_splitters", "overlap")
 _PORTED = {
     "rams": (rams, _RAMS_KW),
     "ntb-ams": (functools.partial(rams, tie_break=False), _RAMS_KW),
@@ -70,6 +68,8 @@ _PORTED = {
 }
 # their output lives on PE 0 (gatherm) or on every PE (allgatherm)
 _CONCENTRATED = ("gatherm", "allgatherm")
+# the algorithms with a slotted all_to_all, which overlap=True streams
+_OVERLAP_ALGOS = ("rams", "ntb-ams", "ssort", "ns-ssort")
 
 
 @dataclasses.dataclass(frozen=True, init=False)
@@ -78,13 +78,19 @@ class SortConfig:
 
     ``p`` (PE count, a power of two), ``backend`` ("sim"), ``algorithm``,
     ``capacity_factor`` (slack of the per-PE buffers), ``levels`` (RAMS
-    and NTB-AMS level count; any other algorithm refuses it) and
-    ``algo_kw`` (the algorithm's keywords, as a sorted tuple of pairs,
-    lists made tuples).  The algorithms and their keywords:
+    and NTB-AMS level count, also taken with ``"auto"``; any other
+    algorithm refuses it) and ``algo_kw`` (the algorithm's keywords, as a
+    sorted tuple of pairs, lists made tuples).  The algorithms and their
+    keywords:
 
+    - ``"auto"`` (the default): the reference's ``select_algorithm`` over
+      ``cost_model`` (a :class:`selection.CostModel`; None is the card's
+      profile, ``selection.DEFAULT_MODEL``) picks ``gatherm``, ``rfis``,
+      ``rquick`` or ``rams``, and ``"external"`` where n/p passes the
+      ``external`` budget;
     - ``"rams"``, ``"ntb-ams"`` (RAMS without tie-breaking): ``seed``,
       ``levels``, ``level_bits``, ``oversample``, ``tie_break``,
-      ``shuffle``, ``slot_factor``;
+      ``shuffle``, ``slot_factor``, ``overlap``;
     - ``"rquick"``, ``"ntb-quick"`` (no shuffle, no tie-breaking):
       ``seed``, ``window_k``, ``robust``, ``shuffle``, ``tie_break``,
       ``capacity``, ``dims``;
@@ -92,31 +98,34 @@ class SortConfig:
     - ``"ssort"``, ``"ns-ssort"`` (no random shuffle): ``seed``,
       ``robust``, ``sample_factor``, ``slot_factor``, ``oracle_splitters``
       (a tuple of p − 1 nondecreasing u64 words: a zero-extended u32 key
-      each, or the unsigned word of an 8-byte key);
+      each, or the unsigned word of an 8-byte key), ``overlap``;
     - ``"bitonic"``: none;
     - ``"gatherm"`` (everything to PE 0), ``"allgatherm"`` (everything to
       every PE): ``dims``.
 
-    ``external`` (an :class:`ExternalPolicy`, or None) and
-    ``algorithm="external"`` select the out-of-core lane.  The
-    reference's other knobs are taken at their default values (``mesh``,
-    ``mesh_shape``, ``cost_model`` and ``fault_policy`` None, ``axis``
-    "sort", ``data_axis`` "data", ``mesh_axes`` ("inter", "intra") as a
-    tuple or a list, ``overlap`` False); any other value of one, and
-    ``algorithm="auto"``, raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it."""
+    ``overlap=True`` streams the slotted exchanges of RAMS, NTB-AMS, SSort
+    and NS-SSort and of the external lane's pass C, with the same result;
+    the other algorithms run unchanged.  ``external`` (an
+    :class:`ExternalPolicy`, or None) and ``algorithm="external"`` select
+    the out-of-core lane.  The reference's other knobs are taken at their
+    default values (``mesh``, ``mesh_shape`` and ``fault_policy`` None,
+    ``axis`` "sort", ``data_axis`` "data", ``mesh_axes`` ("inter",
+    "intra") as a tuple or a list); any other value of one raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it."""
 
     p: Optional[int] = None
     backend: str = "sim"
-    algorithm: str = "rams"
+    algorithm: str = "auto"
     capacity_factor: float = 2.0
     levels: Optional[int] = None
     algo_kw: tuple = ()
     external: Optional[ExternalPolicy] = None
+    cost_model: Optional[selection.CostModel] = None
+    overlap: bool = False
 
-    def __init__(self, p=None, backend="sim", algorithm="rams",
+    def __init__(self, p=None, backend="sim", algorithm="auto",
                  capacity_factor=2.0, levels=None, algo_kw=(), external=None,
-                 **unported):
+                 cost_model=None, overlap=False, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"SortConfig got an unexpected keyword "
@@ -137,22 +146,24 @@ class SortConfig:
                                                    ExternalPolicy):
             raise TypeError(f"external must be an ExternalPolicy, got "
                             f"{type(external).__name__}")
-        if algorithm not in _PORTED and algorithm != "external":
-            if algorithm not in _ALGORITHMS:
-                raise ValueError(f"unknown algorithm {algorithm!r}")
-            raise NotImplementedError(
-                f"algorithm={algorithm!r} is not ported yet: ROADMAP queue 1 "
-                f"{_ALGORITHMS[algorithm]}")
-        if levels is not None and algorithm not in ("rams", "ntb-ams"):
+        if cost_model is not None and not isinstance(cost_model,
+                                                     selection.CostModel):
+            raise TypeError(f"cost_model must be a CostModel, got "
+                            f"{type(cost_model).__name__}")
+        if overlap not in (True, False):
+            raise TypeError(f"overlap must be True or False, got "
+                            f"{overlap!r}")
+        if algorithm not in _PORTED and algorithm not in ("auto",
+                                                          "external"):
+            raise ValueError(f"unknown algorithm {algorithm!r}")
+        if levels is not None and algorithm not in ("auto", "rams",
+                                                    "ntb-ams"):
             raise ValueError(f"levels= applies to the multi-level AMS "
-                             f"family, not algorithm={algorithm!r}")
+                             f"family (or 'auto'), not "
+                             f"algorithm={algorithm!r}")
         kw = dict(algo_kw)
-        if kw.get("overlap"):
-            raise NotImplementedError(
-                f"overlap is not ported yet: ROADMAP queue 1 "
-                f"{_UNPORTED['overlap'][1]}")
-        kw.pop("overlap", None)
-        known = _PORTED.get(algorithm, _PORTED["rams"])[1]
+        known = _PORTED[algorithm][1] if algorithm in _PORTED else \
+            {k for _, names in _PORTED.values() for k in names}
         unknown = set(kw) - set(known)
         if unknown:
             raise ValueError(f"unknown {algorithm.upper()} keywords "
@@ -163,7 +174,9 @@ class SortConfig:
                             ("capacity_factor", capacity_factor),
                             ("levels", levels),
                             ("algo_kw", tuple(sorted(kw.items()))),
-                            ("external", external)):
+                            ("external", external),
+                            ("cost_model", cost_model),
+                            ("overlap", bool(overlap))):
             object.__setattr__(self, name, value)
 
     def replace(self, **changes) -> "SortConfig":
@@ -216,7 +229,13 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     runs when ``algorithm="external"`` or n/p exceeds the budget, on every
     key dtype; its info adds the reference's ``mesh_shape``, ``d`` and
     ``external`` ({budget, runs, merge}) and the host-clock
-    ``pass_seconds`` of passes A–D."""
+    ``pass_seconds`` of passes A–D.
+
+    ``algorithm="auto"`` (the default) sorts with the algorithm the
+    reference's ``select_algorithm`` picks for (n, p) from
+    ``config.cost_model`` (the card's profile when None), which ``info``
+    names; ``overlap=True`` streams the slotted exchanges, with the same
+    result."""
     cfg = config if config is not None else SortConfig()
     if cfg.p is None:
         raise ValueError("backend='sim' needs an explicit p")
@@ -238,29 +257,40 @@ def psort(keys, config: Optional[SortConfig] = None, *,
                          "ExternalPolicy(...) (or REPRO_EXTERNAL_BUDGET)")
     n = x.shape[0]
     per = -(-max(n, 1) // p)                              # ceil(n/p)
-    if external is not None and (cfg.algorithm == "external"
-                                 or per > external.budget):
-        if x.dtype not in _KEY_DTYPES:
-            raise ValueError(f"the external lane sorts int32, uint32, "
-                             f"float32, int64, uint64 or float64 keys; got "
-                             f"{x.dtype}")
-        return _psort_external(x, n, p, external, return_info, dev)
     if x.dtype not in _KEY_DTYPES:
         raise ValueError(f"psort sorts int32, uint32, float32, int64, uint64 "
                          f"or float64 keys; got {x.dtype}")
+    algorithm = _resolve_algorithm(cfg, n, p, external)
+    if external is not None and (algorithm == "external"
+                                 or per > external.budget):
+        return _psort_external(x, n, p, external, return_info, dev,
+                               cfg.overlap)
     orig_dtype = x.dtype
     s = key_to_int(x.to(dev))
     del x
-    return _psort_incore(s, orig_dtype, n, p, cfg, return_info, dev)
+    return _psort_incore(s, orig_dtype, n, p, cfg, algorithm, return_info,
+                         dev)
 
 
-def _psort_incore(s, orig_dtype, n, p, cfg, return_info, dev):
-    """The in-core sort of the port's words ``s`` (1-D, on ``dev``): the
-    body over all p rows, then the reference's reassembly into
-    ``orig_dtype``."""
+def _resolve_algorithm(cfg: SortConfig, n: int, p: int, external) -> str:
+    """``cfg.algorithm``, or for ``"auto"`` the reference's choice from
+    the cost model (``"external"`` past the lane's budget)."""
+    if cfg.algorithm != "auto":
+        return cfg.algorithm
+    return selection.select_algorithm(
+        n, p, model=cfg.cost_model, levels=cfg.levels,
+        budget=external.budget if external is not None else None)
+
+
+def _psort_incore(s, orig_dtype, n, p, cfg, algorithm, return_info, dev):
+    """The in-core sort of the port's words ``s`` (1-D, on ``dev``) with
+    ``algorithm``: the body over all p rows, then the reference's
+    reassembly into ``orig_dtype``."""
     per = -(-max(n, 1) // p)
     algo_kw = dict(cfg.algo_kw)
-    if cfg.levels is not None:
+    if cfg.overlap and algorithm in _OVERLAP_ALGOS:
+        algo_kw.setdefault("overlap", True)
+    if cfg.levels is not None and algorithm in ("rams", "ntb-ams"):
         algo_kw.setdefault("levels", cfg.levels)
 
     capacity = max(4, int(math.ceil(per * cfg.capacity_factor)))
@@ -269,23 +299,23 @@ def _psort_incore(s, orig_dtype, n, p, cfg, return_info, dev):
     flat[:n] = s
     del s
     row_counts = torch.clamp(n - per * torch.arange(p, device=dev), 0, per)
-    out_capacity = max(1, p * per) if cfg.algorithm in _CONCENTRATED \
+    out_capacity = max(1, p * per) if algorithm in _CONCENTRATED \
         else capacity
     keys_out, idx_out, counts_out, overflow = _sort_body(
         flat.reshape(p, per), row_counts, p, capacity, out_capacity,
-        cfg.algorithm, algo_kw)
+        algorithm, algo_kw)
     del flat
 
     with record_function("reassemble"):
         take = torch.arange(keys_out.shape[1], device=dev)[None, :] \
             < counts_out[:, None]
-        rows = 1 if cfg.algorithm == "allgatherm" else p  # PE 0's copy
+        rows = 1 if algorithm == "allgatherm" else p      # PE 0's copy
         result = int_to_key(keys_out[:rows][take[:rows]], orig_dtype)
         if not return_info:
             return result
         perm = idx_out[take].to(torch.int64) & 0xFFFFFFFF
     info = {
-        "algorithm": cfg.algorithm,
+        "algorithm": algorithm,
         "backend": "sim",
         "counts": counts_out,
         "overflow": int(overflow.sum()),
@@ -313,7 +343,10 @@ def trace_collectives(n: int, config: Optional[SortConfig] = None, *,
     ``comm.counting`` scope, and returns that scope's ``CommTrace``: the
     same events, the same ``summary(p)`` and the same ``by_tag()``.
     ``config.external`` traces the external lane once on that input, its
-    ``ext:h2d``/``ext:d2h`` copies included.  ``d > 1`` raises
+    ``ext:h2d``/``ext:d2h`` copies included.  ``"auto"`` traces the
+    algorithm the cost model picks, and ``overlap=True`` the streamed
+    exchanges, recorded as the reference records them (``ovl:<phase>``
+    chunk events).  ``d > 1`` raises
     ``NotImplementedError`` (ROADMAP queue 1, item 5), as ``SortConfig``
     does for the knobs not ported yet."""
     cfg = config if config is not None else SortConfig()
@@ -332,14 +365,15 @@ def trace_collectives(n: int, config: Optional[SortConfig] = None, *,
         np.uint32)
     with comm.counting() as trace:
         if cfg.external is not None:
-            _psort_external_once(u, n, p=p, policy=cfg.external, device=dev)
+            _psort_external_once(u, n, p=p, policy=cfg.external, device=dev,
+                                 overlap=cfg.overlap)
         else:
             if cfg.algorithm == "external":
                 raise ValueError("algorithm='external' needs external="
                                  "ExternalPolicy(...)")
             x = torch.from_numpy(u[:n])
-            _psort_incore(key_to_int(x.to(dev)), x.dtype, n, p, cfg, False,
-                          dev)
+            _psort_incore(key_to_int(x.to(dev)), x.dtype, n, p, cfg,
+                          _resolve_algorithm(cfg, n, p, None), False, dev)
     return trace
 
 
@@ -351,15 +385,17 @@ def _resolve_external(external) -> Optional[ExternalPolicy]:
     return ExternalPolicy(budget=int(env)) if env else None
 
 
-def _psort_external(x, n, p, policy, return_info, dev):
-    """The external lane: the four passes from host memory, then the
-    reference's reassembly of the output."""
+def _psort_external(x, n, p, policy, return_info, dev, overlap):
+    """The external lane: the four passes from host memory (pass C
+    streamed with ``overlap``), then the reference's reassembly of the
+    output."""
     orig_dtype = x.dtype
     u = _get_keys(key_to_int(x.cpu()))        # host words, unsigned
     del x
     seconds = {}
     keys_out, idx_out, counts_out, overflow = _psort_external_once(
-        u, n, p=p, policy=policy, device=dev, seconds=seconds)
+        u, n, p=p, policy=policy, device=dev, seconds=seconds,
+        overlap=overlap)
     del u
     c = counts_out[0]
     with record_function("reassemble"):

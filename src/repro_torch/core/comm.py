@@ -6,14 +6,17 @@ Every value is a tensor whose dimension 0 indexes the p PEs.  A collective
 is a gather along that dimension through static tables: ``_group_tables``
 turns ``axis_index_groups`` into ``members[i]`` (the PEs of i's group, in
 group order) and ``rank[i]`` (i's position in it), exactly as the reference
-does.  Integer results are bit-identical to the reference; the chunked
-ring is not ported.
+does.  Integer results are bit-identical to the reference.
+:func:`alltoall_stream` is the reference's streamed all_to_all, a ring
+over the PE dimension that hands each arriving source block to a fold.
 
 The trace.  The reference counts collectives at trace time, one event per
 call site execution with the per-PE bytes of each pytree leaf read off its
 static shape (``CountingCollectives``).  The port has no backend object:
 while a :func:`counting` scope is open, :func:`ppermute`, :func:`psum`,
-:func:`all_gather` and :func:`all_to_all` record into its trace, and so
+:func:`all_gather`, :func:`all_to_all` and :func:`alltoall_stream` (one
+``all_to_all`` event per delivered block, tagged ``ovl:<phase>``, as the
+reference's counting decorator records it) record into its trace, and so
 does :func:`record`, which the algorithms call where they compute a
 reference collective without one of those (the hypercube exchange is a
 reshape and flip, the sample gather of SSort a reshape).  Each event
@@ -237,24 +240,30 @@ def _group_tables(axis_index_groups, p: int):
     """(members (p, g), rank (p,)) for equal-sized groups partitioning the
     axis; one group in axis order when ``axis_index_groups`` is None."""
     if axis_index_groups is None:
-        axis_index_groups = [list(range(p))]
+        axis_index_groups = [range(p)]
     groups = [list(g) for g in axis_index_groups]
     size = len(groups[0])
     if any(len(g) != size for g in groups):
         raise ValueError("groups must be equal-sized")
-    if sorted(pe for g in groups for pe in g) != list(range(p)):
+    table = np.asarray(groups, np.int64)                 # (G, size)
+    flat = table.reshape(-1)
+    if flat.size != p or not np.array_equal(np.sort(flat), np.arange(p)):
         raise ValueError("groups must partition the axis")
-    members = np.zeros((p, size), np.int64)
-    rank = np.zeros((p,), np.int64)
-    for g in groups:
-        for r, pe in enumerate(g):
-            members[pe] = g
-            rank[pe] = r
+    members = np.empty((p, size), np.int64)
+    rank = np.empty((p,), np.int64)
+    members[flat] = np.repeat(table, size, axis=0)
+    rank[flat] = np.tile(np.arange(size), len(groups))
     return members, rank
 
 
 def _tables(x: torch.Tensor, axis_index_groups):
-    members, rank = _group_tables(axis_index_groups, x.shape[0])
+    """``_group_tables`` on ``x``'s device; the whole axis (None) as views
+    of one ``arange``, so that no (p, p) table is built."""
+    p = x.shape[0]
+    if axis_index_groups is None:
+        idx = torch.arange(p, device=x.device)
+        return idx.expand(p, p), idx
+    members, rank = _group_tables(axis_index_groups, p)
     return (torch.as_tensor(members, device=x.device),
             torch.as_tensor(rank, device=x.device))
 
@@ -312,3 +321,74 @@ def all_to_all(x: torch.Tensor, axis_index_groups=None,
     blocks = x.reshape((p, g, x.shape[1] // g) + tuple(x.shape[2:]))
     out = blocks[members, rank[:, None]]
     return out.reshape(x.shape)
+
+
+def alltoall_stream(leaves: Sequence[torch.Tensor], fold, init, gsize: int,
+                    axis_index_groups=None):
+    """All_to_all delivered one source block at a time: the reference's
+    ``alltoall_stream`` as its ring (``_stream_ring``).
+
+    Every leaf is (P, gsize·blk, ...), laid out as the input of
+    :func:`all_to_all`.  At step t every PE i takes the block addressed to
+    it by group member (rank(i) + t) mod gsize and calls ``fold(acc,
+    chunks, src)``: ``chunks`` holds one (P, blk, ...) tensor per leaf and
+    ``src`` (P,) is each PE's source group rank.  Returns the final
+    ``acc``.  Delivery starts at a PE's own rank and wraps, the
+    reference's order, so a fold that stages blocks by source is
+    insensitive to it.
+
+    On CUDA the gather of step t + 1 runs on a side stream while the fold
+    of step t runs on the current one, ordered by events.  Recorded as
+    gsize ``all_to_all`` events of 1/gsize of the leaves' per-PE bytes
+    each, tagged ``ovl:<tag>``: together the barrier exchange's bytes."""
+    x0 = leaves[0]
+    P, dev = x0.shape[0], x0.device
+    if any(v.shape[1] % gsize for v in leaves):
+        raise ValueError(f"dimension 1 must split into {gsize} blocks")
+    traces = _TRACES.get()
+    if traces:
+        per_chunk = sum(pe_bytes(v) for v in leaves) // max(gsize, 1)
+        tag = f"ovl:{_TAG.get() or ''}"
+        for trace in traces:
+            for _ in range(gsize):
+                trace.add("all_to_all", per_chunk,
+                          _group_size(axis_index_groups), axis=AXIS, tag=tag)
+    members, rank = _tables(x0, axis_index_groups)
+    if members.shape[1] != gsize:
+        raise ValueError(f"groups of {members.shape[1]} PEs, not {gsize}")
+    blocks = [v.reshape((P, gsize, v.shape[1] // gsize) + tuple(v.shape[2:]))
+              for v in leaves]
+
+    def gather(t):
+        src = (rank + t) % gsize
+        pe = torch.gather(members, 1, src[:, None])[:, 0]
+        return [b[pe, rank] for b in blocks], src
+
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    if side is None:
+        acc = init
+        for t in range(gsize):
+            chunks, src = gather(t)
+            acc = fold(acc, chunks, src)
+        return acc
+    main = torch.cuda.current_stream(dev)
+    side.wait_stream(main)                  # the leaves are written
+
+    def prefetch(t):
+        with torch.cuda.stream(side):
+            out = gather(t)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return out, ready
+
+    nxt = prefetch(0)
+    acc = init
+    for t in range(gsize):
+        (chunks, src), ready = nxt
+        main.wait_event(ready)
+        for c in chunks + [src]:
+            c.record_stream(main)
+        if t + 1 < gsize:
+            nxt = prefetch(t + 1)           # in flight while step t folds
+        acc = fold(acc, chunks, src)
+    return acc

@@ -445,14 +445,20 @@ def _fit_splitters(sk, st, *, p: int, device=None):
 
 
 def _exchange_pass(kr, ir, counts, s_keys, s_ties, *, p: int, slot_cap: int,
-                   device=None):
+                   device=None, overlap: bool = False):
     """Pass C, one run index: classify every PE's run against the global
     splitters, route the run slices through one slotted all_to_all, and
     sort what each PE received.
 
     ``kr``/``ir`` are host (p, L) planes valid up to ``counts``.  Returns
     host (p, W) sorted planes (key, tie, idx) for W the largest received
-    count, the (p,) received counts and the (p,) overflow."""
+    count, the (p,) received counts and the (p,) overflow.
+
+    ``overlap=True`` streams the route (``_alltoall_route(stream=True)``),
+    whose merge of the (key, tie) composites leaves 4-byte keys sorted, so
+    they skip the sort after it; 8-byte keys carry no tie through the
+    route and are sorted again, as in the reference (ties are unique, so
+    the result is the same)."""
     dev = resolve_device(device)
     k, i = _put_keys(kr, dev), _put_bits(ir, dev)
     c = torch.as_tensor(np.asarray(counts, np.int64), device=dev)
@@ -471,12 +477,17 @@ def _exchange_pass(kr, ir, counts, s_keys, s_ties, *, p: int, slot_cap: int,
         keys = torch.where(valid, (k.to(torch.int64) << 32) | tie, _INVALID)
     del k, tie, valid
     out, ovf = _alltoall_route(SortShard(keys=keys, vals={"idx": i},
-                                         count=c), dest, p, slot_cap)
+                                         count=c), dest, p, slot_cap,
+                               stream=overlap)
     del keys, i, dest
-    ok = out.keys if wide else (out.keys >> 32).to(torch.int32)
     w = int(out.count.max())
-    with record_function("ext:sort"):
-        ko, to, io_ = _sort_planes(ok, out.vals["idx"], out.count, w)
+    if overlap and not wide:                # the sorted composite
+        ko, to, io_ = ((out.keys >> 32).to(torch.int32),
+                       as_int32_bits(out.keys & _M32), out.vals["idx"])
+    else:
+        ok = out.keys if wide else (out.keys >> 32).to(torch.int32)
+        with record_function("ext:sort"):
+            ko, to, io_ = _sort_planes(ok, out.vals["idx"], out.count, w)
     return (_get_keys(ko[:, :w]), _get_bits(to[:, :w]),
             _get_bits(io_[:, :w]), out.count.cpu().numpy(),
             ovf.cpu().numpy())
@@ -491,14 +502,22 @@ def _merge_barrier(counts, *, p: int, device=None) -> int:
 
 
 def _psort_external_once(u, n: int, *, p: int, policy: ExternalPolicy,
-                         device=None, seconds: Optional[dict] = None):
+                         device=None, seconds: Optional[dict] = None,
+                         overlap: bool = False):
     """Run the four external passes once.
 
     ``u`` is the full host key array (uint32 or uint64); returns host
     ``(keys (1, p, out_cap), idx (1, p, out_cap), counts (1, p), overflow
     (1, p))`` — the reference's contract.  ``seconds``, when given, gets
     the host-clock seconds of passes "A" to "D" (each ends in a copy to the
-    host, so the clock covers the device work)."""
+    host, so the clock covers the device work).
+
+    ``overlap=True`` streams every exchange of pass C and folds each PE's
+    received slice into a running merge (``merge_runs`` of two runs) as
+    soon as its pass lands, so pass D finds the merge done; its copies are
+    recorded under ``ext:merge`` as they happen, as in the reference.  The
+    result is the same: ties are unique, so any merge order gives the
+    same planes."""
     u = np.asarray(u)
     dev = resolve_device(device)
     per = -(-max(n, 1) // p)
@@ -552,6 +571,8 @@ def _psort_external_once(u, n: int, *, p: int, policy: ExternalPolicy,
     # --- pass C: per-run slotted exchanges --------------------------------
     t0 = time.perf_counter()
     received = [[] for _ in range(p)]
+    acc: List[Optional[Tuple]] = [None] * p  # overlap: running merge per PE
+    io_merge = comm.io_recorder("ext:merge")
     recv_counts = np.zeros(p, np.int64)
     overflow = np.zeros(p, np.int64)
     for r in range(R):
@@ -566,14 +587,22 @@ def _psort_external_once(u, n: int, *, p: int, policy: ExternalPolicy,
         slot_cap = max(4, int(math.ceil(policy.slot_factor * cap_rd)))
         with record_function("ext:exchange"), comm.tagged(f"ext:pass{r}"):
             ko, to, io_, co, oo = _exchange_pass(
-                k, i, c, s_keys, s_ties, p=p, slot_cap=slot_cap, device=dev)
+                k, i, c, s_keys, s_ties, p=p, slot_cap=slot_cap, device=dev,
+                overlap=overlap)
         del k, i
         overflow += np.asarray(oo, np.int64)
         for pe in range(p):
             cnt = int(co[pe])
             recv_counts[pe] += cnt
-            received[pe].append((ko[pe, :cnt], to[pe, :cnt],
-                                 io_[pe, :cnt]))
+            sl = (ko[pe, :cnt], to[pe, :cnt], io_[pe, :cnt])
+            if not overlap:
+                received[pe].append(sl)
+                continue
+            # fold the slice into the running merge before pass r + 1
+            with record_function("ext:merge"):
+                acc[pe] = sl if acc[pe] is None else merge_runs(
+                    [acc[pe], sl], budget=B, merge=policy.merge,
+                    sketch_per_run=s, io=io_merge, device=dev)
     clock["C"] = time.perf_counter() - t0
 
     # --- pass D: merge barrier + per-PE k-way merge -----------------------
@@ -581,12 +610,16 @@ def _psort_external_once(u, n: int, *, p: int, policy: ExternalPolicy,
     with record_function("ext:merge"):
         with comm.tagged("ext:merge"):
             _merge_barrier(recv_counts, p=p, device=dev)
-        io = comm.io_recorder("ext:merge")
         merged = []
         for pe in range(p):
+            if overlap:
+                merged.append(acc[pe] if acc[pe] is not None else (
+                    np.zeros(0, u.dtype), np.zeros(0, np.uint32),
+                    np.zeros(0, np.uint32)))
+                continue
             merged.append(merge_runs(received[pe], budget=B,
                                      merge=policy.merge, sketch_per_run=s,
-                                     io=io, device=dev))
+                                     io=io_merge, device=dev))
             received[pe] = None
     out_counts = np.array([len(m[0]) for m in merged], np.int32)
     out_cap = max(4, int(out_counts.max(initial=1)))

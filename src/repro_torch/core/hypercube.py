@@ -1,8 +1,9 @@
 """Hypercube patterns over the leading PE dimension (counterpart of
 ``repro/core/hypercube.py``): XOR exchange of tensors and shards, subcube
 groups, the all-gather-merge, butterfly sums and prefix sums, the one-shot
-and the hypercube random shuffles, the barrier path of the slotted
-all-to-all route and the route by explicit target PE.
+and the hypercube random shuffles, the slotted all-to-all route (the
+barrier path, and the streamed path that merges the source blocks as
+they arrive) and the route by explicit target PE.
 
 Each exchange records the reference's ``ppermute`` (``hc_exchange``) into
 an open ``comm.counting`` scope, one event per tensor, at the reference's
@@ -17,7 +18,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import comm, prng
-from .types import SortShard, compact, merge_shards, resize
+from .types import (SortShard, compact, local_sort, merge_shards,
+                    merge_sorted_shards, resize)
 
 
 def subcube_groups(p: int, dims: int):
@@ -147,30 +149,35 @@ def hypercube_shuffle(shard: SortShard, p: int, seed: int,
     return shard, overflow
 
 
-def alltoall_shuffle(shard: SortShard, p: int, seed: int, slot_cap: int
+def alltoall_shuffle(shard: SortShard, p: int, seed: int, slot_cap: int,
+                     stream: bool = False
                      ) -> Tuple[SortShard, torch.Tensor]:
     """Direct random shuffle via one all-to-all: every valid element goes
     to a uniformly random PE drawn with the reference's threefry stream
-    (``fold_in(PRNGKey(seed), me)``).  Returns the unsorted shard and the
-    per-PE overflow."""
+    (``fold_in(PRNGKey(seed), me)``).  Returns the shard, unsorted (sorted
+    with ``stream``, see :func:`_alltoall_route`), and the per-PE
+    overflow."""
     dev = shard.keys.device
     key = prng.fold_in(prng.PRNGKey(seed, dev), comm.axis_index(p, dev))
     dest = prng.randint(key, shard.capacity, 0, p)
     dest = torch.where(shard.valid_mask(), dest, p)      # pads → nowhere
-    return _alltoall_route(shard, dest, p, slot_cap)
+    return _alltoall_route(shard, dest, p, slot_cap, stream=stream)
 
 
 def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
-                    slot_cap: int, groups=None
+                    slot_cap: int, groups=None, stream: bool = False
                     ) -> Tuple[SortShard, torch.Tensor]:
-    """Scatter elements to ``dest`` PEs via slotted all-to-all buffers
-    (the reference's barrier path).
+    """Scatter elements to ``dest`` PEs via slotted all-to-all buffers.
 
     ``dest`` (P, C) holds per-element targets in [0, p) within the
     element's group of p PEs, and p for invalid elements.  An element's
     slot is its rank among the elements of its row with the same target,
-    in row order; elements with slot ≥ slot_cap overflow.  Returns (shard
-    of capacity p·slot_cap, unsorted and compacted; overflow (P,))."""
+    in row order; elements with slot ≥ slot_cap overflow, counted on the
+    sender's side on both paths.  Returns (shard of capacity p·slot_cap;
+    overflow (P,)): on the barrier path unsorted and compacted; with
+    ``stream`` sorted, equal bit for bit to the barrier path followed by
+    ``local_sort`` (:func:`_stream_route_merge`), so callers skip their
+    sort."""
     P, C = dest.shape
     dev = dest.device
     sorted_dest, order = torch.sort(dest, dim=1, stable=True)
@@ -190,10 +197,20 @@ def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
     flat = torch.where(ok, dest * slot_cap + slot, p * slot_cap)
     del ok, slot
 
-    def scatter(v, fill):
+    def slots(v, fill):                     # the (P, p·slot_cap) send slots
         buf = v.new_full((P, p * slot_cap + 1), fill)
-        buf.scatter_(1, flat, v)
-        return comm.all_to_all(buf[:, :-1].reshape(P, p, slot_cap),
+        return buf.scatter_(1, flat, v)[:, :-1]
+
+    if stream:
+        keys = slots(shard.keys, shard.pad)
+        vals = {k: slots(v, 0) for k, v in shard.vals.items()}
+        del flat
+        counts = torch.clamp(sent, max=slot_cap).to(torch.int32)
+        return _stream_route_merge(keys, vals, counts, shard.pad, p,
+                                   slot_cap, groups), overflow
+
+    def scatter(v, fill):
+        return comm.all_to_all(slots(v, fill).reshape(P, p, slot_cap),
                                groups).reshape(P, p * slot_cap)
 
     keys = scatter(shard.keys, shard.pad)
@@ -206,6 +223,69 @@ def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
     full = torch.full((P,), p * slot_cap, dtype=torch.int64, device=dev)
     out = compact(SortShard(keys, vals, full), valid)
     return out, overflow
+
+
+def _stream_route_merge(keys, vals, counts, pad: int, p: int, slot_cap: int,
+                        groups) -> SortShard:
+    """The streamed consumer of a slotted exchange (the reference's
+    ``_stream_route_merge``).
+
+    ``keys``/``vals`` (P, p·slot_cap) are the send slots, ``counts`` (P, p)
+    int32 the valid prefix of each slot.  Each block that arrives through
+    :func:`comm.alltoall_stream` is sorted (``local_sort``: the tile sort
+    on the card) and staged at row ``src`` of a per-source run table; then
+    the log2 p levels of a merge tree each merge all PEs' pairs of runs in
+    one batched :func:`merge_sorted_shards`, lower source on the left.
+    Ties therefore resolve by (source, slot), the order the barrier path's
+    compaction and stable ``local_sort`` give, and staging by source makes
+    the result independent of the delivery order.  A valid key equal to
+    the pad word stays before every pad at each level."""
+    if p & (p - 1):
+        raise ValueError(f"the merge tree needs a power-of-two group, "
+                         f"not {p}")
+    P, dev = keys.shape[0], keys.device
+    names = list(vals)
+    # every block's sort runs the merge passes the longest block needs:
+    # one read back here instead of one per block
+    cmax = int(counts.max()) if counts.numel() else 0
+    table = [torch.full((P, p, slot_cap), pad, dtype=keys.dtype,
+                        device=dev)]
+    table += [torch.zeros((P, p, slot_cap), dtype=vals[k].dtype, device=dev)
+              for k in names]
+    run_counts = torch.zeros((P, p), dtype=torch.int64, device=dev)
+    rows = torch.arange(P, device=dev)
+
+    def fold(acc, chunks, src):
+        chunk_keys, *chunk_vals, chunk_count = chunks
+        count = chunk_count[:, 0].to(torch.int64)
+        run = local_sort(SortShard(chunk_keys, dict(zip(names, chunk_vals)),
+                                   count), max_count=cmax)
+        for t, v in zip(acc, [run.keys] + [run.vals[k] for k in names]):
+            t[rows, src] = v
+        run_counts[rows, src] = count
+        return acc
+
+    table = comm.alltoall_stream(
+        [keys] + [vals[k] for k in names] + [counts], fold, table, p, groups)
+    runs = SortShard(table[0].reshape(P * p, slot_cap),
+                     {k: t.reshape(P * p, slot_cap)
+                      for k, t in zip(names, table[1:])},
+                     run_counts.reshape(P * p))
+    del table
+    width = slot_cap
+    while runs.keys.shape[0] > P:
+        def half(t, i):
+            return t.reshape(-1, 2, width)[:, i]
+        a = SortShard(half(runs.keys, 0),
+                      {k: half(v, 0) for k, v in runs.vals.items()},
+                      runs.count[0::2])
+        b = SortShard(half(runs.keys, 1),
+                      {k: half(v, 1) for k, v in runs.vals.items()},
+                      runs.count[1::2])
+        runs, _ = merge_sorted_shards(a, b, capacity=2 * width)
+        del a, b
+        width *= 2
+    return runs
 
 
 def route_by_target(shard: SortShard, p: int, dims: Sequence[int],

@@ -6,7 +6,10 @@ with tie-break composites, all-gather and sort the samples in the subcube,
 pick nb − 1 splitters, classify + rank every element (the partition
 kernel), prefix-sum the bucket histograms over the subcube, map each
 element to a target PE inside its group, and exchange through one slotted
-all-to-all.  Only the barrier exchange (``overlap=False``) is ported.
+all-to-all.  ``overlap=True`` streams every slotted exchange (the
+shuffle and each level) and merges the source blocks as they arrive
+(``hypercube._alltoall_route(stream=True)``), bit for bit the barrier
+path's result; the sort after each exchange is then already done.
 
 Each phase runs under a ``torch.profiler.record_function`` scope and the
 reference's ``comm.tagged`` scope of the same name (``shuffle``,
@@ -105,7 +108,7 @@ def rams(shard: SortShard, p: int, *, seed: int = 0xA35,
          levels: Optional[int] = None,
          level_bits: Optional[Sequence[int]] = None, oversample: int = 4,
          tie_break: bool = True, shuffle: bool = True,
-         slot_factor: float = 2.0) -> RAMSResult:
+         slot_factor: float = 2.0, overlap: bool = False) -> RAMSResult:
     """Sort the p-PE shard.  Requires int32 internal words (4-byte keys):
     8-byte keys raise the reference's error."""
     if shard.keys.dtype != torch.int32:
@@ -127,9 +130,11 @@ def rams(shard: SortShard, p: int, *, seed: int = 0xA35,
     with record_function("shuffle"), comm.tagged("shuffle"):
         if shuffle:
             shard, ovf = alltoall_shuffle(
-                shard, p, seed, slot_cap=_slot_cap(cap, p, slot_factor))
+                shard, p, seed, slot_cap=_slot_cap(cap, p, slot_factor),
+                stream=overlap)
             overflow = overflow + ovf
-        shard = local_sort(shard)
+        if not (shuffle and overlap):           # streamed arrives sorted
+            shard = local_sort(shard)
         # the shuffle's p·slot_cap buffer shrinks to 2× the working
         # capacity, the slack the levels' slot caps are scaled from
         shard, ovf = resize(shard, min(shard.capacity, 2 * cap))
@@ -142,14 +147,16 @@ def rams(shard: SortShard, p: int, *, seed: int = 0xA35,
                                      seed=seed + 7919 * (lvl + 1),
                                      oversample=oversample,
                                      tie_break=tie_break,
-                                     slot_factor=slot_factor)
+                                     slot_factor=slot_factor,
+                                     overlap=overlap)
         overflow = overflow + ovf
         h -= b
     return RAMSResult(shard, overflow)
 
 
 def _rams_level(shard: SortShard, p: int, h: int, b: int, *, seed: int,
-                oversample: int, tie_break: bool, slot_factor: float):
+                oversample: int, tie_break: bool, slot_factor: float,
+                overlap: bool = False):
     """One k-way splitting level within the 2^h-subcubes."""
     k = 1 << b
     p_sub = 1 << h
@@ -219,8 +226,9 @@ def _rams_level(shard: SortShard, p: int, h: int, b: int, *, seed: int,
     # --- 6. slotted all-to-all within the subcube --------------------------
     out, ovf = _alltoall_route(shard, dest, p_sub,
                                _slot_cap(cap, p_sub, slot_factor),
-                               groups=groups)
+                               groups=groups, stream=overlap)
     del dest, shard
-    out = local_sort(out)
+    if not overlap:                         # streamed arrives sorted
+        out = local_sort(out)
     out, ovf2 = resize(out, cap)
     return out, ovf + ovf2

@@ -4,7 +4,10 @@
 ``robust=True`` (SSort) first shuffles the elements through one random
 all-to-all; ``robust=False`` (NS-SSort) does not, and skewed or
 duplicate-heavy inputs overflow its slots, as in the reference.
-``oracle_splitters`` skips the sampling.
+``oracle_splitters`` skips the sampling.  ``overlap=True`` streams the
+shuffle and the route and merges the source blocks as they arrive
+(``hypercube._alltoall_route(stream=True)``), bit for bit the barrier
+path's result, overflow included (it is counted on the sender's side).
 
 Samples and splitters are the reference's u64 words (a zero-extended u32
 key or an 8-byte key, all-ones for an invalid sample) held sign-flipped in
@@ -72,8 +75,8 @@ def _destinations(shard: SortShard, splitters: torch.Tensor) -> torch.Tensor:
 def samplesort(shard: SortShard, p: int, *, seed: int = 0x550,
                robust: bool = True, sample_factor: int = 16,
                slot_factor: float = 2.0,
-               oracle_splitters: Optional[Sequence[int]] = None
-               ) -> SSortResult:
+               oracle_splitters: Optional[Sequence[int]] = None,
+               overlap: bool = False) -> SSortResult:
     """Sort the p-PE shard; ``oracle_splitters`` are p − 1 nondecreasing
     u64 words (a zero-extended u32 key each, or an 8-byte key's word)."""
     cap = shard.capacity
@@ -83,9 +86,11 @@ def samplesort(shard: SortShard, p: int, *, seed: int = 0x550,
 
     with record_function("shuffle"):
         if robust:
-            shard, ovf = alltoall_shuffle(shard, p, seed, slot_cap=slot_cap)
+            shard, ovf = alltoall_shuffle(shard, p, seed, slot_cap=slot_cap,
+                                          stream=overlap)
             overflow = overflow + ovf
-            shard = local_sort(shard)
+            if not overlap:                 # streamed arrives sorted
+                shard = local_sort(shard)
             # the shuffle's p·slot_cap buffer shrinks to 2× the working
             # capacity
             shard, ovf = resize(shard, min(shard.capacity, 2 * cap))
@@ -97,10 +102,12 @@ def samplesort(shard: SortShard, p: int, *, seed: int = 0x550,
                                oracle_splitters)
         dest = _destinations(shard, splitters.expand(p, p - 1))
     with record_function("route"):
-        out, ovf = _alltoall_route(shard, dest, p, slot_cap)
+        out, ovf = _alltoall_route(shard, dest, p, slot_cap, stream=overlap)
         del dest, shard
         overflow = overflow + ovf
-        out, ovf = resize(local_sort(out), cap)
+        if not overlap:                     # streamed arrives sorted
+            out = local_sort(out)
+        out, ovf = resize(out, cap)
     return SSortResult(out, overflow + ovf)
 
 

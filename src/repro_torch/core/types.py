@@ -120,7 +120,8 @@ def make_shard(keys: torch.Tensor, count=None, capacity: Optional[int] = None,
     return local_sort(SortShard(keys=s, vals=vals, count=count))
 
 
-def local_sort(shard: SortShard) -> SortShard:
+def local_sort(shard: SortShard, max_count: Optional[int] = None
+               ) -> SortShard:
     """Sort each PE's valid elements ascending, stable w.r.t. input order.
 
     Pads are written over the tail first, so a valid key equal to the pad
@@ -130,16 +131,21 @@ def local_sort(shard: SortShard) -> SortShard:
     4-byte payload go through the Hopper tile-sort and run-merge kernels on
     the card (their plain stable sort on the CPU), which sort only each
     row's prefix [0, count); other shards take torch's stable sort, as the
-    reference takes its stable argsort where no kernel lowers."""
+    reference takes its stable argsort where no kernel lowers.  A caller
+    that holds a bound on ``max(count)`` on the host passes it as
+    ``max_count`` to spare the kernels' read back of the counts."""
     keys = torch.where(shard.valid_mask(), shard.keys, shard.pad)
     if keys.dtype == torch.int32 and len(shard.vals) <= 1 and all(
             v.dtype == torch.int32 for v in shard.vals.values()):
         from repro_torch.kernels.bitonic import local_sort_fast
         if not shard.vals:
-            ks, _ = local_sort_fast(keys, count=shard.count.contiguous())
+            ks, _ = local_sort_fast(keys, count=shard.count.contiguous(),
+                                    max_count=max_count)
             return shard.replace(keys=ks)
         (name, v), = shard.vals.items()
-        ks, vs = local_sort_fast(keys, v, shard.count.contiguous())
+        ks, vs = local_sort_fast(keys, v.contiguous(),
+                                 shard.count.contiguous(),
+                                 max_count=max_count)
         return shard.replace(keys=ks, vals={name: vs})
     ks, order = torch.sort(keys, dim=1, stable=True)
     return shard.replace(keys=ks, vals={k: torch.gather(v, 1, order)
@@ -269,6 +275,17 @@ def merge_shards(a: SortShard, b: SortShard, capacity: Optional[int] = None,
     idx = torch.arange(cap, device=dev)
     keys = torch.where(idx[None, :] < count[:, None], keys, a.pad)
     return SortShard(keys, vals, count), torch.clamp(total - cap, min=0)
+
+
+def merge_sorted_shards(a: SortShard, b: SortShard,
+                        capacity: Optional[int] = None):
+    """The reference's positional merge of two ascending shards with
+    a-before-b ties: valid a < valid b < pads, so a valid key equal to the
+    pad word stays before every pad.  That is :func:`merge_shards` with
+    ``tie_a_first=True``, whose positions are computed the same way (two
+    ``searchsorted`` and a scatter); equal to the reference on keys,
+    counts, overflow and the vals in ``[0, count)``."""
+    return merge_shards(a, b, capacity, tie_a_first=True)
 
 
 # ---------------------------------------------------------------------------

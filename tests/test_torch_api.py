@@ -32,7 +32,8 @@ def _same_as_reference(x, p, levels=None, **algo_kw):
     want, wi = j_psort(x, config=JConfig(p=p, algorithm="rams",
                                          backend="sim", levels=levels,
                                          algo_kw=algo_kw), return_info=True)
-    got, gi = psort(x, SortConfig(p=p, levels=levels, algo_kw=algo_kw),
+    got, gi = psort(x, SortConfig(p=p, algorithm="rams", levels=levels,
+                                  algo_kw=algo_kw),
                     return_info=True, device="cpu")
     want = np.asarray(want)
     g = got.numpy() if got.dtype != torch.uint32 else \
@@ -72,7 +73,7 @@ def test_empty_and_tiny_inputs_match_reference():
 
 def test_psort_accepts_a_torch_tensor_and_keeps_its_dtype():
     x = torch.tensor([5, -3, 9, 0, -3], dtype=torch.int32)
-    out = psort(x, SortConfig(p=2), device="cpu")
+    out = psort(x, SortConfig(p=2, algorithm="rams"), device="cpu")
     assert out.dtype == torch.int32
     assert out.tolist() == [-3, -3, 0, 5, 9]
 
@@ -80,21 +81,69 @@ def test_psort_accepts_a_torch_tensor_and_keeps_its_dtype():
 def test_psort_without_a_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        psort(np.arange(8, dtype=np.uint32), SortConfig(p=2))
+        psort(np.arange(8, dtype=np.uint32), SortConfig(p=2,
+                                                        algorithm="rams"))
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"overlap": True}, "item 4 "), ({"mesh_shape": (2, 2)}, "item 5 "),
+    ({"mesh_shape": (2, 2)}, "item 5 "),
     ({"fault_policy": object()}, "item 8 "),
-    ({"external": ExternalPolicy(budget=4), "overlap": True}, "item 4 "),
-    ({"cost_model": object()}, "item 3 "), ({"algorithm": "auto"}, "item 3 "),
     ({"data_axis": "batch"}, "item 5 "), ({"backend": "shard_map"},
-                                          "item 7 "),
-    ({"algo_kw": {"overlap": True}}, "item 4 ")])
+                                          "item 7 ")])
 def test_unported_knobs_raise_not_implemented(kw, match):
     """Each names its item of the re-anchored ROADMAP queue 1."""
     with pytest.raises(NotImplementedError, match=match):
         SortConfig(p=4, **kw)
+
+
+_MODEL = None
+
+
+def _model():
+    """The reference's CPU profile, loaded into the port's CostModel."""
+    global _MODEL
+    if _MODEL is None:
+        from repro_torch.core.selection import CostModel
+        _MODEL = CostModel.load(ROOT / "profiles" / "linux-x86_64-sim.json")
+    return _MODEL
+
+
+@pytest.mark.parametrize("kw,ref_kw", [
+    ({"overlap": True, "algorithm": "rams"},
+     {"overlap": True, "algorithm": "rams"}),
+    ({"external": ExternalPolicy(budget=4), "overlap": True,
+      "algorithm": "external"}, {"overlap": True, "algorithm": "external"}),
+    ({"algorithm": "auto", "cost_model": "cpu"},
+     {"algorithm": "auto", "cost_model": "cpu"}),
+    ({"algorithm": "auto", "cost_model": "cpu", "levels": 1},
+     {"algorithm": "auto", "cost_model": "cpu", "levels": 1}),
+    ({"algorithm": "rams", "algo_kw": {"overlap": True}},
+     {"algorithm": "rams", "algo_kw": {"overlap": True}})])
+def test_knobs_of_selection_and_overlap_sort_as_the_reference(kw, ref_kw):
+    """``overlap``, ``cost_model``, ``"auto"`` (with ``levels``) and the
+    ``overlap`` keyword, refused until they were ported, sort bit for bit
+    as the reference does with the same knobs (the same CostModel)."""
+    from repro.core import ExternalPolicy as JPolicy
+    from repro.core.selection import CostModel as JModel
+    kw, ref_kw = dict(kw), dict(ref_kw)
+    if kw.get("cost_model") == "cpu":
+        kw["cost_model"] = _model()
+        ref_kw["cost_model"] = JModel.load(
+            str(ROOT / "profiles" / "linux-x86_64-sim.json"))
+    if "external" in kw:
+        ref_kw["external"] = JPolicy(budget=4)
+    x = generate_instance("Staggered", 4, 4 * 24).astype(np.uint32)
+    want, wi = j_psort(x, config=JConfig(p=4, backend="sim", **ref_kw),
+                       return_info=True)
+    got, gi = psort(x, SortConfig(p=4, **kw), return_info=True,
+                    device="cpu")
+    assert gi["algorithm"] == wi["algorithm"]
+    assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32),
+                          np.asarray(want))
+    assert np.array_equal(gi["counts"].numpy(), np.asarray(wi["counts"]))
+    assert gi["overflow"] == wi["overflow"]
+    assert np.array_equal(gi["perm"].numpy(),
+                          np.asarray(wi["perm"]).astype(np.int64))
 
 
 @pytest.mark.parametrize("knob,default,other,item", [
@@ -165,7 +214,11 @@ def test_bad_configs_are_refused():
     with pytest.raises(ValueError, match="unknown algorithm"):
         SortConfig(p=4, algorithm="quick")
     with pytest.raises(ValueError, match="RAMS keywords"):
-        SortConfig(p=4, algo_kw={"typo": 1})
+        SortConfig(p=4, algorithm="rams", algo_kw={"typo": 1})
+    with pytest.raises(TypeError, match="CostModel"):
+        SortConfig(p=4, cost_model=object())
+    with pytest.raises(TypeError, match="overlap"):
+        SortConfig(p=4, overlap="yes")
     with pytest.raises(ValueError, match="power of two"):
         psort(np.arange(6, dtype=np.uint32), SortConfig(p=3), device="cpu")
     with pytest.raises(NotImplementedError, match="item 5 "):
@@ -175,7 +228,7 @@ def test_bad_configs_are_refused():
     assert psort(x, SortConfig(p=2, algorithm="rquick"),
                  device="cpu").tolist() == sorted(x.tolist())
     with pytest.raises(ValueError, match="rams requires uint32 keys"):
-        psort(x, SortConfig(p=2), device="cpu")
+        psort(x, SortConfig(p=2, algorithm="rams"), device="cpu")
     with pytest.raises(ValueError, match="int64"):
         psort(np.zeros(4, np.int16), SortConfig(p=2), device="cpu")
     assert SortConfig(p=4) == SortConfig(p=4, overlap=False, mesh_shape=None)
@@ -194,7 +247,7 @@ def test_the_port_loads_neither_jax_nor_the_jax_package():
         "from repro_torch import SortConfig, psort\n"
         "import repro_torch.kernels, repro_torch.data\n"
         "x = np.arange(64, dtype=np.uint32)[::-1].copy()\n"
-        "out = psort(x, SortConfig(p=4), device='cpu')\n"
+        "out = psort(x, SortConfig(p=4, algorithm='rams'), device='cpu')\n"
         "assert out.view(__import__('torch').int32).tolist()[:2] == [0, 1]\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -217,6 +270,7 @@ def _imports(path):
 
 def test_no_port_source_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "tools").glob("*torch*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     for f in files:

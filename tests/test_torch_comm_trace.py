@@ -12,6 +12,8 @@ tolerance is 0.  8-byte keys compare a ``counting()`` scope around
 uint32 keys only); the reference records only when it traces, so its
 compilation caches are cleared first.
 """
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -209,11 +211,25 @@ def test_trace_collectives_refuses_what_is_not_ported():
         trace_collectives(64, SortConfig(p=8), d=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         SortConfig(mesh_shape=(2, 4))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        SortConfig(p=8, algorithm="auto")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        SortConfig(p=8, cost_model=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        SortConfig(p=8, overlap=True)
     with pytest.raises(ValueError, match="power of two"):
         trace_collectives(64, SortConfig(p=6), device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["auto", "overlap"])
+def test_trace_collectives_takes_auto_and_overlap(knob):
+    """``"auto"`` with a cost model and ``overlap=True``, refused until
+    they were ported, trace as the reference does (the same CostModel:
+    the reference's CPU profile, loaded into each package's class)."""
+    from repro.core.selection import CostModel as JModel
+    from repro_torch.core.selection import CostModel
+    path = Path(__file__).resolve().parents[1] / "profiles" / \
+        "linux-x86_64-sim.json"
+    if knob == "auto":
+        got_cfg = SortConfig(p=8, cost_model=CostModel.load(path))
+        want_cfg = JConfig(p=8, cost_model=JModel.load(str(path)))
+    else:
+        got_cfg = SortConfig(p=8, algorithm="rams", overlap=True)
+        want_cfg = JConfig(p=8, algorithm="rams", overlap=True)
+    jax.clear_caches()
+    _same(trace_collectives(64 * 8, got_cfg, device="cpu"),
+          j_trace(64 * 8, want_cfg), 8)

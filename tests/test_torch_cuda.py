@@ -228,7 +228,7 @@ def test_rquick_psort_cuda_equals_cpu(dev, algorithm, name, p, per):
     ("Uniform", 256, 4099), ("DeterDupl", 256, 4099)])
 def test_psort_cuda_equals_cpu(dev, name, p, per):
     x = generate_instance(name, p, p * per).astype(np.uint32)
-    cfg = SortConfig(p=p)
+    cfg = SortConfig(p=p, algorithm="rams")
     go, gi = psort(x, cfg, return_info=True, device="cuda")
     co, ci = psort(x, cfg, return_info=True, device="cpu")
     assert torch.equal(go.view(torch.int32).cpu(), co.view(torch.int32))

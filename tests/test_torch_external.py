@@ -171,12 +171,12 @@ def test_external_config_is_validated():
         psort(np.arange(8, dtype=np.int32), SortConfig(
             p=2, algorithm="external"), device="cpu")
     pol = ExternalPolicy(budget=2)
-    with pytest.raises(NotImplementedError, match="item 4 "):
-        SortConfig(p=2, external=pol, overlap=True)
+    assert SortConfig(p=2, external=pol, overlap=True).overlap
     with pytest.raises(NotImplementedError, match="item 8 "):
         SortConfig(p=2, external=pol, fault_policy=object())
     with pytest.raises(ValueError, match="rams requires uint32"):  # in core
-        psort(np.zeros(4, np.int64), SortConfig(p=2, external=pol),
+        psort(np.zeros(4, np.int64), SortConfig(p=2, algorithm="rams",
+                                                external=pol),
               device="cpu")
     assert SortConfig(p=2, external=pol).replace(p=4).external == pol
 

@@ -233,5 +233,9 @@ def test_rquick_keywords():
 
 
 def test_unported_algorithms_still_raise():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        SortConfig(p=8, algorithm="auto")
+    """``"auto"``, the last algorithm name to be ported, now builds a
+    config (and is the default); a name the reference does not know still
+    raises."""
+    assert SortConfig(p=8, algorithm="auto") == SortConfig(p=8)
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        SortConfig(p=8, algorithm="quicksort")
