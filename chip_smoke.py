@@ -108,11 +108,33 @@ Phases, each fatal on failure (no phase catches its own error):
    the CPU for ``rams`` and ``ssort`` at p = 64, n = 2^20; and phase 12's
    trace check with ``overlap=True``, its ``ovl:`` chunk events included.
 
+15. batched keys and nested meshes: the RAMS kernels at the batched RAMS
+   cell's shapes (1024 rows: ``tile_sort`` and a ``run_merge`` pass on
+   level 0's route output, every classify variant and ``partition_rank``
+   with nb = 64), as phase 3 times them; batched RAMS, d = 4 rows of
+   n = 2^24 at p = 256 (the RAMS cell's state), on four Uniform rows and
+   on [Uniform, Zero, AllToOne, Staggered], after a warm-up: wall, peak,
+   each row's overflow and the launches, every row bit for bit its 1-D
+   sort on the card (keys, perm, counts, overflow) with the checks of
+   phase 4, and the four 1-D walls beside the batched one; batched
+   RQuick, d = 4 rows of n = 2^24 at p = 2^16 (the RQuick cell's rows),
+   rows 0 and 1 against their 1-D sorts; nested RAMS at p = 256,
+   n = 2^26 on the meshes (16, 16) (schedule [4, 4]) and (4, 64) ([2, 3,
+   3]), each bit for bit the flat sort on its schedule, both walls and
+   peaks, its trace on the card equal to the CPU's at n = 2^18 and its
+   inter/intra bytes and inter-axis ``all_to_all`` tags at the cell; the
+   card against the CPU bit for bit for the ten algorithms batched
+   (d = 2, p = 16, n = 2^14), nested on (2, 8), batched and nested, and
+   RAMS and SSort batched with ``overlap=True``.  The ``kernels`` line
+   gains the rows of ``rams-batched``, ``rquick-batched`` (phase 8's
+   shapes) and ``rams-nested`` (phase 3's), with their runs' launches.
+
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
-14), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
+14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
 ``rfis``, ``gatherm``, ``allgatherm``, ``ssort``, ``ns-ssort``,
 ``bitonic`` and ``ntb-ams`` (10; ``ssort`` also 14), all but the AMS
-family on 8-byte keys (11), and ``"auto"`` (13).
+family on 8-byte keys (11), ``"auto"`` (13), and every in-core one on
+batched keys and nested meshes (15).  Each phase prints its seconds.
 
 It imports torch, numpy and the port only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -210,6 +232,16 @@ OVERLAP_PATHS = (("rams", RAMS_LAUNCHES), ("ssort", SSORT_KERNELS))
 OVERLAP_INSTANCES = ("Uniform", "Zero")
 OVERLAP_CHECKS = (("rams", P_CHECK, LOG_N_CHECK),
                   ("ssort", P_CHECK, LOG_N_CHECK))
+# phase 15: batched keys and nested meshes.  d sorts of 2^24 keys hold the
+# state of the RAMS cell (p = 256) and of the RQuick cell (2^16 PEs each);
+# the nested meshes run at the RAMS cell, their traces checked at 2^18
+D_BATCH, LOG_N_BATCH, LOG_P_MAIN = 4, 24, 8
+P_BATCH_RQUICK = 1 << 16
+BATCH_MIXED = ("Uniform", "Zero", "AllToOne", "Staggered")
+NESTED_MESHES = ((16, 16), (4, 64))
+LOG_N_NESTED_TRACE = 18
+ALGORITHMS = ("rams", "ntb-ams", "rquick", "ntb-quick", "rfis", "ssort",
+              "ns-ssort", "bitonic", "gatherm", "allgatherm")
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -550,27 +582,38 @@ def kernel_phases(torch):
     return results
 
 
-def device_ms(torch, fn, kernel: str, reps: int):
+def device_ms(torch, fn, kernel: str, reps: int, tries: int = 3):
     """Device time per launch of ``kernel`` over ``reps`` back-to-back
     calls of ``fn`` under ``torch.profiler`` (the kernel's own intervals,
     so the host's time between launches does not count), and the number
-    of device operations (kernels, copies, memsets) per call."""
+    of device operations (kernels, copies, memsets) per call.
+
+    The profiler now and then loses one activity record of a window of
+    many short launches, so a window that does not show exactly ``reps``
+    launches is profiled again, up to ``tries`` windows in all; a count
+    that is wrong in every window fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    mine = [e for e in ops if kernel in e.name]
-    if len(mine) != reps:
-        raise AssertionError(f"the profiler saw {len(mine)} launches of "
-                             f"{kernel} in {reps} calls")
-    total_us = sum(e.time_range.end - e.time_range.start for e in mine)
-    return total_us / reps / 1e3, len(ops) / reps
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mine = [e for e in ops if kernel in e.name]
+        if len(mine) == reps:
+            total_us = sum(e.time_range.end - e.time_range.start
+                           for e in mine)
+            return total_us / reps / 1e3, len(ops) / reps
+        seen.append(len(mine))
+        print(f"  profiler window saw {len(mine)} launches of {kernel} in "
+              f"{reps} calls; profiling again", flush=True)
+    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in "
+                         f"{reps} calls in each of {tries} windows")
 
 
 def wall_ms(torch, fn, reps: int) -> float:
@@ -1394,6 +1437,257 @@ def overlap_phase(torch, np, psort, SortConfig, ExternalPolicy,
     return first, chunk_rows
 
 
+def batch_kernel_rows(torch):
+    """Phase 15, first part: the RAMS kernels at the shapes of the batched
+    RAMS cell (d = 4 sorts of n = 2^24 at p = 256: 1024 rows of capacity
+    2^17), as phase 3 times them: ``tile_sort`` and one ``run_merge`` pass
+    on level 0's route output (1024, 256·2246) with ~2^16 valid keys per
+    row, and every classify variant and ``partition_rank`` with nb = 64
+    on the level's (1024, 2^18) sorted keys with ~2^16 valid.  Returns
+    (rows keyed by launch key, [(row, paths)] of the local sort)."""
+    from repro_torch.kernels import partition as pt
+    from repro_torch.kernels.partition import ref as pref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    rows = D_BATCH * P_MAIN
+    per = 1 << (LOG_N_BATCH - LOG_P_MAIN)
+    count = per - (torch.arange(rows, device=dev) * 997) % 2000
+    sort_rows = sort_kernel_rows(torch, g, rows, P_MAIN * 2246, count,
+                                 ("rams-batched",), merge=True)
+    C, nb = 1 << 18, 64
+    col = torch.arange(C, device=dev)
+    keys = torch.sort(torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, C),
+                                    generator=g, device=dev,
+                                    dtype=torch.int32), dim=1)[0]
+    keys = torch.where(col[None, :] < count[:, None], keys, 2 ** 31 - 1)
+    del col
+    ties = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, C), generator=g,
+                         device=dev, dtype=torch.int32)
+    pick = torch.randint(0, int(count.min()), (rows, nb - 1), generator=g,
+                         device=dev)
+    comp = torch.sort((torch.gather(keys, 1, pick).to(torch.int64) << 32)
+                      | (torch.gather(ties, 1, pick).to(torch.int64)
+                         & 0xFFFFFFFF), dim=1)[0]
+    s_keys = (comp >> 32).to(torch.int32).contiguous()
+    s_ties = ((comp & 0xFFFFFFFF) - ((comp & 0x80000000) << 1)).to(
+        torch.int32).contiguous()
+    del pick, comp
+    results = partition_rows(torch, keys, ties, s_keys, s_ties, count, nb,
+                             path="rams-batched")
+    bucket, th = pt.classify(keys, ties, s_keys, s_ties, count, n_buckets=nb)
+    off = torch.cumsum(th, dim=1, dtype=torch.int32) - th
+    valid = int(count.sum())
+    measure(torch, results, "partition_rank", SRC_P, REPLACES_P,
+            [pt.rank(bucket, off, n_buckets=nb)],
+            [pref.rank_ref(bucket, off, n_buckets=nb, tile=pt.PTILE)],
+            lambda: pt.rank(bucket, off, n_buckets=nb),
+            lambda: pref.rank_ref(bucket, off, n_buckets=nb, tile=pt.PTILE),
+            nbytes=8 * rows * C + 4 * th.numel(), ops=valid,
+            shape=[rows, C], path="rams-batched")
+    del keys, ties, s_keys, s_ties, bucket, th, off
+    torch.cuda.empty_cache()
+    return results, sort_rows
+
+
+def same_rows(torch, a, b) -> bool:
+    """Two 1-D psort outputs (keys or perm) bit for bit, on any device."""
+    return a.shape == b.shape and torch.equal(
+        a.view(torch.int32).cpu() if a.element_size() == 4 else a.cpu(),
+        b.view(torch.int32).cpu() if b.element_size() == 4 else b.cpu())
+
+
+def batch_against_rows(torch, np, psort, x, cfg, batched, n, rows,
+                       reset_launch_counts, launch_counts):
+    """Each of ``rows`` of a timed batched run (out, info, wall, launches,
+    peak) against the port's 1-D sort of that row on the card, bit for
+    bit (keys, perm, counts, overflow), with the checks of phase 4.
+    Returns the 1-D walls and each row's overflow."""
+    out, info = batched[0], batched[1]
+    walls, overflows = [], []
+    for r in rows:
+        one = timed_psort(torch, psort, x[r], cfg, reset_launch_counts,
+                          launch_counts)
+        got = out[r]
+        ovf = n - int(info["counts"][r].sum())
+        same = (same_rows(torch, got, one[0])
+                and same_rows(torch, info["perm"][r],
+                              one[1]["perm"])
+                and torch.equal(info["counts"][r].cpu(),
+                                one[1]["counts"].cpu())
+                and ovf == one[1]["overflow"])
+        if not same:
+            raise AssertionError(f"{cfg.algorithm}: row {r} of the batch "
+                                 f"differs from its 1-D sort")
+        check_sorted(torch, np, x[r], got, {
+            "perm": info["perm"][r], "overflow": ovf}, n)
+        walls.append(one[2])
+        overflows.append(ovf)
+        del one, got
+    return walls, overflows
+
+
+def batched_phase(torch, np, psort, SortConfig, generate_instance,
+                  launch_counts, reset_launch_counts, trace_collectives):
+    """Phase 15: batched (d, n) keys and nested meshes on the card.
+
+    Batched RAMS, d = 4 rows of n = 2^24 at p = 256 (the RAMS cell's 2^27
+    slots), on four Uniform rows of their own seeds and on [Uniform,
+    Zero, AllToOne, Staggered], after a warm-up; batched RQuick, d = 4
+    rows of n = 2^24 at p = 2^16 (RQuick's cell's 2^18 rows of 1024);
+    nested RAMS at the RAMS cell (p = 256, n = 2^26) on the meshes
+    (16, 16) and (4, 64) against the flat sort on the same schedule, with
+    both walls and peaks, and each mesh's trace on the card against the
+    CPU's; then the card against the CPU for the ten algorithms batched,
+    nested, batched and nested, and RAMS and SSort batched with
+    ``overlap=True``.  Returns the launches of the batched RAMS, batched
+    RQuick and nested RAMS runs."""
+    t0 = time.perf_counter()
+    launches = {}
+    n = 1 << LOG_N_BATCH
+    cfg = SortConfig(p=P_MAIN, algorithm="rams")
+    for label, names in (("uniform", ("Uniform",) * D_BATCH),
+                         ("mixed", BATCH_MIXED)):
+        x = np.stack([generate_instance(name, P_MAIN, n, seed=r).astype(
+            np.uint32) for r, name in enumerate(names)])
+        if label == "uniform":                       # warm-up
+            psort(x, cfg)
+            torch.cuda.synchronize()
+        batched = timed_psort(torch, psort, x, cfg, reset_launch_counts,
+                              launch_counts)
+        missing = [k for k in RAMS_LAUNCHES if batched[3][k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the batched "
+                                 f"RAMS path: {missing}")
+        launches.setdefault("rams-batched", batched[3])
+        walls, overflows = batch_against_rows(
+            torch, np, psort, x, cfg, batched, n, range(D_BATCH),
+            reset_launch_counts, launch_counts)
+        emit({"phase": "batched_rams", "batch": label,
+              "instances": list(names), "d": D_BATCH, "p": P_MAIN, "n": n,
+              "identical_rows": True, "wall_s": batched[2],
+              "rows_wall_s": walls, "rows_wall_sum_s": sum(walls),
+              "max_memory_allocated": batched[4],
+              "overflow_rows": overflows,
+              "overflow": batched[1]["overflow"],
+              "balance": batched[1]["balance"], "launches": batched[3]})
+        del batched, x
+        torch.cuda.empty_cache()
+
+    cfg = SortConfig(p=P_BATCH_RQUICK, algorithm="rquick")
+    x = np.stack([generate_instance("Uniform", P_BATCH_RQUICK, n,
+                                    seed=r).astype(np.uint32)
+                  for r in range(D_BATCH)])
+    batched = timed_psort(torch, psort, x, cfg, reset_launch_counts,
+                          launch_counts)
+    missing = [k for k in RQUICK_KERNELS if batched[3][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the batched "
+                             f"RQuick path: {missing}")
+    launches["rquick-batched"] = batched[3]
+    walls, overflows = batch_against_rows(
+        torch, np, psort, x, cfg, batched, n, (0, 1), reset_launch_counts,
+        launch_counts)
+    emit({"phase": "batched_rquick", "d": D_BATCH, "p": P_BATCH_RQUICK,
+          "n": n, "identical_rows": [0, 1], "wall_s": batched[2],
+          "rows_wall_s": walls, "max_memory_allocated": batched[4],
+          "overflow_rows": overflows, "overflow": batched[1]["overflow"],
+          "balance": batched[1]["balance"], "launches": batched[3]})
+    del batched, x
+    torch.cuda.empty_cache()
+    emit({"phase": "batched_done", "seconds": time.perf_counter() - t0})
+
+    from repro_torch.core.rams import nested_level_bits
+    n = 1 << LOG_N_MAIN
+    x = generate_instance("Uniform", P_MAIN, n).astype(np.uint32)
+    for mesh in NESTED_MESHES:
+        bits = tuple(nested_level_bits(*mesh))
+        nested_cfg = SortConfig(mesh_shape=mesh, algorithm="rams")
+        flat_cfg = SortConfig(p=P_MAIN, algorithm="rams",
+                              algo_kw={"level_bits": bits})
+        psort(x, nested_cfg)                         # warm-up
+        torch.cuda.synchronize()
+        nest = timed_psort(torch, psort, x, nested_cfg, reset_launch_counts,
+                           launch_counts)
+        flat = timed_psort(torch, psort, x, flat_cfg, reset_launch_counts,
+                           launch_counts)
+        same = same_result(torch, nest[:2], flat[:2])
+        check_sorted(torch, np, x, nest[0], nest[1], n)
+        missing = [k for k in RAMS_LAUNCHES if nest[3][k] <= 0]
+        launches.setdefault("rams-nested", nest[3])
+        t_card = trace_collectives(1 << LOG_N_NESTED_TRACE, nested_cfg,
+                                   device="cuda")
+        t_cpu = trace_collectives(1 << LOG_N_NESTED_TRACE, nested_cfg,
+                                  device="cpu")
+        t_cell = trace_collectives(n, nested_cfg, device="cuda")
+        trace_same = [(e.primitive, e.bytes, e.group_size, e.axis, e.tag)
+                      for e in t_card.events] == [
+            (e.primitive, e.bytes, e.group_size, e.axis, e.tag)
+            for e in t_cpu.events]
+        inter = t_cell.filter(primitive="all_to_all", axis="inter").tags()
+        emit({"phase": "nested_rams", "mesh_shape": list(mesh),
+              "level_bits": list(bits), "p": P_MAIN, "n": n,
+              "identical_to_flat": same, "nested_wall_s": nest[2],
+              "flat_wall_s": flat[2], "ratio": nest[2] / flat[2],
+              "nested_max_memory_allocated": nest[4],
+              "flat_max_memory_allocated": flat[4],
+              "overflow": nest[1]["overflow"],
+              "nested_launches": nest[3], "flat_launches": flat[3],
+              "trace_identical_cpu": trace_same,
+              "trace_n": 1 << LOG_N_NESTED_TRACE,
+              "wire_bytes_by_axis": {a: s["wire_bytes"] for a, s in
+                                     t_cell.by_axis().items()},
+              "inter_all_to_all_tags": inter})
+        if not same:
+            raise AssertionError(f"nested RAMS on {mesh} differs from the "
+                                 f"flat run on {bits}")
+        if missing:
+            raise AssertionError(f"kernels never launched on the nested "
+                                 f"RAMS path: {missing}")
+        if not trace_same:
+            raise AssertionError(f"the nested trace on {mesh} differs on "
+                                 f"the card from the CPU's")
+        if inter != ["level0", "shuffle"]:
+            raise AssertionError(f"inter-axis all_to_all tags {inter}")
+        del nest, flat
+        torch.cuda.empty_cache()
+    del x
+    emit({"phase": "nested_done", "seconds": time.perf_counter() - t0})
+
+    # the card against the CPU at the check size, every in-core algorithm
+    d, p, n = 2, 1 << 4, 1 << 14
+    xs = np.stack([generate_instance(name, p, n, seed=r).astype(np.uint32)
+                   for r, name in enumerate(("Uniform", "Staggered"))])
+    layouts = (("batched", xs, {"p": p}), ("nested", xs[0],
+                                           {"mesh_shape": (2, 8)}),
+               ("batched-nested", xs, {"mesh_shape": (2, 8)}))
+    checks = [(a, label, keys, kw) for a in ALGORITHMS
+              for label, keys, kw in layouts]
+    checks += [(a, "batched-overlap", xs, {"p": p, "overlap": True})
+               for a in ("rams", "ssort")]
+    for algorithm, label, keys, kw in checks:
+        c = SortConfig(algorithm=algorithm, **kw)
+        go = psort(keys, c, return_info=True, device="cuda")
+        co = psort(keys, c, return_info=True, device="cpu")
+        rows = range(len(keys)) if keys.ndim == 2 else (slice(None),)
+        same = (all(same_rows(torch, go[0][r], co[0][r])
+                    and same_rows(torch, go[1]["perm"][r], co[1]["perm"][r])
+                    for r in rows)
+                and torch.equal(go[1]["counts"].cpu(), co[1]["counts"])
+                and go[1]["overflow"] == co[1]["overflow"])
+        emit({"phase": "batched_cuda_vs_cpu", "algorithm": algorithm,
+              "layout": label, "d": d if keys.ndim == 2 else 1, "p": p,
+              "n": n, **{k: list(v) if isinstance(v, tuple) else v
+                         for k, v in kw.items() if k != "p"},
+              "identical": same, "overflow": go[1]["overflow"]})
+        if not same:
+            raise AssertionError(f"{algorithm} {label}: cuda and cpu runs "
+                                 f"differ")
+    emit({"phase": "batched_nested_done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def check_external(torch, np, x_np, out, info, n):
     """Phase-6 assertions on one external psort result (all on the card):
     the lane ran, nothing overflowed, the output is the sorted input and
@@ -1429,6 +1723,15 @@ def main() -> int:
     from repro_torch.data import generate_instance
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 
+    start = clock = time.perf_counter()
+
+    def lap(name):
+        """Print the seconds of the phase that just ended."""
+        nonlocal clock
+        now = time.perf_counter()
+        emit({"phase": "seconds", "of": name, "seconds": now - clock})
+        clock = now
+
     # --- 1. the card ---------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1450,9 +1753,13 @@ def main() -> int:
     emit({"phase": "ptxas", "source": "bitonic",
           "kernels": None if log is None else ptxas_report(log)})
 
+    lap("1-2")
+
     # --- 3. kernels against their plain versions -----------------------------
     kernels = kernel_phases(torch)
+    lap("3")
     kway_rows = kway_phase(torch)
+    lap("3b")
 
     # --- 4. psort end to end at p = 256, n = 2^26 ----------------------------
     n = 1 << LOG_N_MAIN
@@ -1487,6 +1794,8 @@ def main() -> int:
               "launches": launches})
         del out, info, x
 
+    lap("4")
+
     # --- 5. card vs CPU at p = 64, n = 2^20 ----------------------------------
     n = 1 << LOG_N_CHECK
     x = generate_instance("Uniform", P_CHECK, n).astype(np.uint32)
@@ -1506,6 +1815,8 @@ def main() -> int:
         raise AssertionError(f"overflow {gi['overflow']} != the reference's "
                              f"{OVERFLOW_CHECK}")
     check_sorted(torch, np, x, go, gi, n)
+
+    lap("5")
 
     # --- 6. psort through the external lane at p = 16, n = 2^28 ------------
     n = 1 << LOG_N_EXT
@@ -1546,6 +1857,8 @@ def main() -> int:
               "counts": info["counts"].tolist(), "launches": launches})
         del out, info, x
 
+    lap("6")
+
     # --- 7. card vs CPU on the external lane at p = 16, n = 2^20 -----------
     n = 1 << LOG_N_EXT_CHECK
     x = generate_instance("Uniform", P_EXT, n).astype(np.uint32)
@@ -1571,11 +1884,14 @@ def main() -> int:
             np.uint32)):
         raise AssertionError("external output differs from np.sort(input)")
 
+    lap("7")
+
     # --- 8. RQuick at p = 2^18, n = 2^26 --------------------------------------
     rquick_rows = rquick_kernel_phase(torch)
     rquick_launches = rquick_phase(torch, np, psort, SortConfig,
                                    generate_instance, launch_counts,
                                    reset_launch_counts)
+    lap("8")
 
     # --- 10. the other algorithms at their sizes ----------------------------
     t10 = time.perf_counter()
@@ -1584,6 +1900,7 @@ def main() -> int:
                                        generate_instance, launch_counts,
                                        reset_launch_counts)
     emit({"phase": "other_done", "seconds": time.perf_counter() - t10})
+    lap("10")
 
     # --- 11. 8-byte keys -----------------------------------------------------
     t11 = time.perf_counter()
@@ -1591,20 +1908,33 @@ def main() -> int:
                                    generate_instance, launch_counts,
                                    reset_launch_counts)
     emit({"phase": "keys64_done", "seconds": time.perf_counter() - t11})
+    lap("11")
 
     # --- 12. collective traces ----------------------------------------------
     t12 = time.perf_counter()
     trace_phase(torch, SortConfig, ExternalPolicy, trace_collectives)
     emit({"phase": "trace_done", "seconds": time.perf_counter() - t12})
+    lap("12")
 
     # --- 13. selection ---------------------------------------------------------
     selection_phase(torch, np, psort, SortConfig, generate_instance,
                     launch_counts, reset_launch_counts)
+    lap("13")
 
     # --- 14. the streamed exchange ---------------------------------------------
     overlap_launches, chunk_rows = overlap_phase(
         torch, np, psort, SortConfig, ExternalPolicy, generate_instance,
         launch_counts, reset_launch_counts, trace_collectives)
+    lap("14")
+
+    # --- 15. batched keys and nested meshes -----------------------------------
+    batch_rows, batch_sort_rows = batch_kernel_rows(torch)
+    batch_launches = batched_phase(torch, np, psort, SortConfig,
+                                   generate_instance, launch_counts,
+                                   reset_launch_counts, trace_collectives)
+    lap("15")
+    emit({"phase": "seconds", "of": "all",
+          "seconds": time.perf_counter() - start})
 
     # --- 9. summary (printed last) -----------------------------------------
     # a row per kernel (classify: per variant), path and shape: its time at
@@ -1639,6 +1969,21 @@ def main() -> int:
         for path in paths:
             rows.append((row, path, overlap_launches[path.split("-")[0]][
                 launch_key(row)]))
+    # phase 15: the RAMS kernels at the batched cell's shapes, RQuick's at
+    # its cell's (the batched RQuick's rows), RAMS's main-path shapes for
+    # the nested meshes; each with that path's launches
+    for key, row in batch_rows.items():
+        rows.append((row, "rams-batched", batch_launches["rams-batched"][key]))
+    for row, paths in batch_sort_rows:
+        rows.append((row, "rams-batched",
+                     batch_launches["rams-batched"][launch_key(row)]))
+    for row in rquick_rows:
+        rows.append((row, "rquick-batched",
+                     batch_launches["rquick-batched"][launch_key(row)]))
+    for key, row in kernels.items():
+        if row["name"] in RAMS_KERNELS:
+            rows.append((row, "rams-nested",
+                         batch_launches["rams-nested"][key]))
     emit({"kernels": [
         {"name": row["name"], "variant": row["variant"], "path": path,
          "what": row.get("what"),

@@ -10,6 +10,15 @@ does.  Integer results are bit-identical to the reference.
 :func:`alltoall_stream` is the reference's streamed all_to_all, a ring
 over the PE dimension that hands each arriving source block to a fold.
 
+Two scopes change the layout.  :func:`batched` ``(d)`` makes dimension 0
+hold d independent sorts of p PEs each, PE i of sort r at row ``r·p + i``
+(the reference's ``sim_map(mesh=(d, p))``): every collective runs within
+each sort's rows and :func:`axis_index` gives i.  :func:`nested` views the
+sort axis as an (outer × inner) pair of real axes (the reference's
+``NestedCollectives``): every collective on the sort axis runs as the
+reference's view runs it, stage by stage over the real axes, and the trace
+records those stages with their real axes.
+
 The trace.  The reference counts collectives at trace time, one event per
 call site execution with the per-PE bytes of each pytree leaf read off its
 static shape (``CountingCollectives``).  The port has no backend object:
@@ -24,7 +33,8 @@ carries the reference's bytes: the port's count is int64 where the
 reference's is int32, so a call site passes ``itemsize``.  Bytes come from
 shapes only, so recording adds no device-to-host sync; outside a scope
 nothing is recorded.  Tags come from the reference's :func:`tagged`
-scopes only; the axis is the reference's ``"sort"``.
+scopes only; the axis is the reference's ``"sort"``, or under
+:func:`nested` the real axis of each stage.
 """
 from __future__ import annotations
 
@@ -193,21 +203,248 @@ def counting():
         _TRACES.reset(token)
 
 
+# ---------------------------------------------------------------------------
+# The layout of the PE dimension: a batch of d independent sorts, and the
+# nested (outer × inner) view of the sort axis
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NestedAxes:
+    """One virtual flat axis of p = p_o·p_i PEs over an (outer, inner) pair
+    of real axes, PE ``o·p_i + i`` (the reference's ``NestedCollectives``,
+    ``repro/core/comm.py``): a collective on the virtual axis runs as
+    collectives on the real axes, element for element equal to the flat
+    one, and the trace records those, each with its real axis."""
+    outer: str
+    p_o: int
+    inner: str
+    p_i: int
+
+    @property
+    def p(self) -> int:
+        return self.p_o * self.p_i
+
+    def bit_axis(self, j: int) -> str:
+        """The real axis the hypercube partner ``f ^ 2^j`` differs on."""
+        return self.inner if (1 << j) < self.p_i else self.outer
+
+    def factor_perm(self, perm):
+        """A flat permutation as (real axis, permutation on that axis); it
+        must move every inner slice alike (or every outer slice alike)."""
+        po, pi = self.p_o, self.p_i
+        pairs = [(int(s), int(d)) for s, d in perm]
+        srcs = sorted(s for s, _ in pairs)
+        dsts = sorted(d for _, d in pairs)
+        if srcs == dsts == list(range(self.p)):
+            if all(s // pi == d // pi for s, d in pairs):
+                maps = [{} for _ in range(po)]
+                for s, d in pairs:
+                    maps[s // pi][s % pi] = d % pi
+                if all(m == maps[0] for m in maps):
+                    return self.inner, sorted(maps[0].items())
+            if all(s % pi == d % pi for s, d in pairs):
+                maps = [{} for _ in range(pi)]
+                for s, d in pairs:
+                    maps[s % pi][s // pi] = d // pi
+                if all(m == maps[0] for m in maps):
+                    return self.outer, sorted(maps[0].items())
+        raise NotImplementedError(
+            f"virtual-axis ppermute does not factor through one of the "
+            f"nested axes {self.axes}: {perm}")
+
+    def classify_groups(self, axis_index_groups):
+        """(mode, groups): ``"inner"`` (groups inside one inner slice, the
+        same pattern in every slice: the inner axis alone) or ``"outer"``
+        (groups that are unions of whole outer slices: an inner stage over
+        the whole inner axis, then the outer axis); ``groups`` are along
+        that real axis, None for all of it."""
+        po, pi = self.p_o, self.p_i
+        if axis_index_groups is None:
+            return "outer", None
+        groups = [[int(v) for v in g] for g in axis_index_groups]
+        if len(groups) == 1 and groups[0] == list(range(self.p)):
+            return "outer", None
+        gsize = len(groups[0])
+        if gsize <= pi and all(pe // pi == g[0] // pi
+                               for g in groups for pe in g):
+            per_slice = [[] for _ in range(po)]
+            for g in groups:
+                per_slice[g[0] // pi].append(tuple(pe % pi for pe in g))
+            pattern = sorted(per_slice[0])
+            if all(sorted(s) == pattern for s in per_slice):
+                inner = [list(g) for g in pattern]
+                if len(inner) == 1 and inner[0] == list(range(pi)):
+                    return "inner", None
+                return "inner", inner
+        if gsize % pi == 0:
+            outer = []
+            for g in groups:
+                outs = sorted({pe // pi for pe in g})
+                if g != [o * pi + i for o in outs for i in range(pi)]:
+                    break
+                outer.append(outs)
+            else:
+                if len(outer) == 1 and outer[0] == list(range(po)):
+                    return "outer", None
+                return "outer", outer
+        raise NotImplementedError(
+            f"axis_index_groups do not align with the nested axes "
+            f"{self.axes}: {axis_index_groups}")
+
+    @property
+    def axes(self):
+        return ((self.outer, self.p_o), (self.inner, self.p_i))
+
+    def flat_groups(self, axis: str, groups):
+        """Groups along the real ``axis`` (None: all of it) as groups of
+        flat PEs, one set for every slice of the other axis."""
+        po, pi = self.p_o, self.p_i
+        if axis == self.inner:
+            return [[o * pi + i for i in g] for o in range(po)
+                    for g in (groups or [list(range(pi))])]
+        if axis == self.outer:
+            return [[o * pi + i for o in g] for i in range(pi)
+                    for g in (groups or [list(range(po))])]
+        raise ValueError(f"no axis {axis!r} in the nested axes {self.axes}")
+
+    def flat_perm(self, axis: str, perm):
+        """A permutation of the real ``axis`` as one of the flat PEs."""
+        po, pi = self.p_o, self.p_i
+        if axis == self.inner:
+            return [(o * pi + s, o * pi + d) for o in range(po)
+                    for s, d in perm]
+        if axis == self.outer:
+            return [(s * pi + i, d * pi + i) for i in range(pi)
+                    for s, d in perm]
+        raise ValueError(f"no axis {axis!r} in the nested axes {self.axes}")
+
+
+@dataclasses.dataclass(frozen=True)
+class _View:
+    d: int = 1                              # independent sorts (rows of p)
+    nest: Optional[NestedAxes] = None       # the sort axis's nested view
+
+
+_VIEW: contextvars.ContextVar[_View] = contextvars.ContextVar(
+    "repro_torch_comm_view", default=_View())
+
+
+@contextlib.contextmanager
+def batched(d: int):
+    """Lay the PE dimension out as d independent sorts: PE i of sort r is
+    row ``r·p + i``.  Every collective then runs within each sort's p rows
+    (the reference's ``sim_map(mesh=(d, p))``), and :func:`axis_index`
+    gives i, so each sort draws what it draws alone."""
+    if d < 1:
+        raise ValueError(f"d={d} must be at least 1")
+    token = _VIEW.set(dataclasses.replace(_VIEW.get(), d=int(d)))
+    try:
+        yield
+    finally:
+        _VIEW.reset(token)
+
+
+@contextlib.contextmanager
+def nested(virtual_axis: str, axes):
+    """View the sort axis (``virtual_axis``, the reference's ``"sort"``)
+    as the ``axes = ((outer, p_o), (inner, p_i))`` pair: in this scope every
+    collective on it runs as the reference's ``NestedCollectives`` runs
+    it, stage by stage on the real axes, and records those stages."""
+    if virtual_axis != AXIS:
+        raise ValueError(f"the port's collectives run on the axis "
+                         f"{AXIS!r}, not {virtual_axis!r}")
+    axes = tuple((str(n), int(s)) for n, s in axes)
+    if len(axes) != 2:
+        raise NotImplementedError(
+            f"NestedCollectives supports exactly 2 nested axes; got {axes}")
+    (outer, p_o), (inner, p_i) = axes
+    view = NestedAxes(outer, p_o, inner, p_i)
+    token = _VIEW.set(dataclasses.replace(_VIEW.get(), nest=view))
+    try:
+        yield view
+    finally:
+        _VIEW.reset(token)
+
+
+def bit_axis(j: int) -> str:
+    """The axis a hypercube exchange along bit j targets: the sort axis,
+    or under :func:`nested` the real axis bit j belongs to."""
+    nest = _VIEW.get().nest
+    return AXIS if nest is None else nest.bit_axis(j)
+
+
+def _virtual(axis: Optional[str]) -> Optional[NestedAxes]:
+    """The nested view when ``axis`` means the (virtual) sort axis."""
+    return _VIEW.get().nest if axis in (None, AXIS) else None
+
+
+def _real(axis: str) -> NestedAxes:
+    """The nested view that holds the real ``axis``."""
+    nest = _VIEW.get().nest
+    if nest is None:
+        raise ValueError(f"no axis {axis!r} outside a nested scope")
+    return nest
+
+
+def _flat_groups(axis_index_groups, axis: Optional[str]):
+    if axis in (None, AXIS):
+        return axis_index_groups
+    return _real(axis).flat_groups(axis, axis_index_groups)
+
+
+def _split(x: torch.Tensor):
+    """(d, p) of ``x``'s leading dimension."""
+    d = _VIEW.get().d
+    if x.shape[0] % d:
+        raise ValueError(f"{x.shape[0]} rows do not split into {d} sorts")
+    return d, x.shape[0] // d
+
+
+# ---------------------------------------------------------------------------
+# Recording
+# ---------------------------------------------------------------------------
+
+
 def record(primitive: str, nbytes: int,
-           group_size: Optional[int] = None) -> None:
+           group_size: Optional[int] = None, axis: str = AXIS) -> None:
     """One collective of the reference, ``nbytes`` per PE, into the open
     traces (nothing outside a :func:`counting` scope)."""
     for trace in _TRACES.get():
-        trace.add(primitive, nbytes, group_size, axis=AXIS, tag=_TAG.get())
+        trace.add(primitive, nbytes, group_size, axis=axis, tag=_TAG.get())
+
+
+def _stages(primitive: str, nbytes: int, axis_index_groups, axis):
+    """The events of one collective: itself, or under :func:`nested` on
+    the sort axis the stages the reference's view runs (all_to_all: the
+    outer axis first; psum and all_gather: the inner axis first, whose
+    gather multiplies the outer stage's bytes by p_i)."""
+    nest = _virtual(axis)
+    if nest is None:
+        return [(primitive, nbytes, _group_size(axis_index_groups),
+                 axis or AXIS)]
+    if primitive == "ppermute":
+        raise ValueError("a ppermute under a nested view names the real "
+                         "axis it permutes (comm.bit_axis)")
+    mode, g = nest.classify_groups(axis_index_groups)
+    if mode == "inner":
+        return [(primitive, nbytes, _group_size(g), nest.inner)]
+    inner = (primitive, nbytes, None, nest.inner)
+    if primitive == "all_to_all":
+        return [(primitive, nbytes, _group_size(g), nest.outer), inner]
+    outer_bytes = nbytes * nest.p_i if primitive == "all_gather" else nbytes
+    return [inner, (primitive, outer_bytes, _group_size(g), nest.outer)]
 
 
 def note(primitive: str, x: torch.Tensor, itemsize: Optional[int] = None,
-         axis_index_groups=None) -> None:
-    """:func:`record` of a collective on the (p, ...) tensor ``x``, its
-    bytes read off the shape only when a scope is open."""
+         axis_index_groups=None, axis: Optional[str] = None) -> None:
+    """:func:`record` of a collective on the (P, ...) tensor ``x`` (on the
+    sort axis, or the real ``axis``), its bytes read off the shape only
+    when a scope is open; under :func:`nested` the stages of the view."""
     if _TRACES.get():
-        record(primitive, pe_bytes(x, itemsize),
-               _group_size(axis_index_groups))
+        nbytes = pe_bytes(x, itemsize)
+        for ev in _stages(primitive, nbytes, axis_index_groups, axis):
+            record(*ev)
 
 
 def io_recorder(tag: str):
@@ -225,7 +462,7 @@ def io_recorder(tag: str):
 
 
 def pe_bytes(x: torch.Tensor, itemsize: Optional[int] = None) -> int:
-    """Per-PE bytes of a (p, ...) tensor, at ``itemsize`` bytes an element
+    """Per-PE bytes of a (P, ...) tensor, at ``itemsize`` bytes an element
     where the reference's dtype differs from the port's."""
     per = x.numel() // x.shape[0] if x.shape[0] else 0
     return per * (itemsize or x.element_size())
@@ -234,6 +471,11 @@ def pe_bytes(x: torch.Tensor, itemsize: Optional[int] = None) -> int:
 def _group_size(axis_index_groups) -> Optional[int]:
     return None if axis_index_groups is None \
         else len(list(axis_index_groups)[0])
+
+
+# ---------------------------------------------------------------------------
+# The collectives
+# ---------------------------------------------------------------------------
 
 
 def _group_tables(axis_index_groups, p: int):
@@ -256,71 +498,127 @@ def _group_tables(axis_index_groups, p: int):
     return members, rank
 
 
-def _tables(x: torch.Tensor, axis_index_groups):
-    """``_group_tables`` on ``x``'s device; the whole axis (None) as views
-    of one ``arange``, so that no (p, p) table is built."""
-    p = x.shape[0]
+def _tables(p: int, axis_index_groups, device):
+    """``_group_tables`` on ``device``; the whole axis (None) as views of
+    one ``arange``, so that no (p, p) table is built."""
     if axis_index_groups is None:
-        idx = torch.arange(p, device=x.device)
+        idx = torch.arange(p, device=device)
         return idx.expand(p, p), idx
     members, rank = _group_tables(axis_index_groups, p)
-    return (torch.as_tensor(members, device=x.device),
-            torch.as_tensor(rank, device=x.device))
+    return (torch.as_tensor(members, device=device),
+            torch.as_tensor(rank, device=device))
 
 
 def axis_index(p: int, device=None) -> torch.Tensor:
-    """Every PE's own index: (p,) int64."""
-    return torch.arange(p, device=device)
+    """Every PE's own index within its sort: (d·p,) int64."""
+    return torch.arange(p, device=device).repeat(_VIEW.get().d)
 
 
-def ppermute(x: torch.Tensor, perm: Sequence) -> torch.Tensor:
-    """``out[dst] = x[src]`` for each (src, dst) pair; PEs that receive
-    nothing get zeros (the ``jax.lax.ppermute`` contract)."""
-    note("ppermute", x)
+def ppermute(x: torch.Tensor, perm: Sequence,
+             axis: Optional[str] = None) -> torch.Tensor:
+    """``out[dst] = x[src]`` for each (src, dst) pair of the sort axis (or
+    of the real ``axis`` of a nested view) in every sort; PEs that
+    receive nothing get zeros (the ``jax.lax.ppermute`` contract).  On the
+    nested sort axis the permutation must factor through one real axis."""
+    nest = _virtual(axis)
+    if nest is not None:
+        axis, perm = nest.factor_perm(perm)
+    note("ppermute", x, axis=axis or AXIS)
+    if axis not in (None, AXIS):
+        perm = _real(axis).flat_perm(axis, perm)
+    d, p = _split(x)
     out = torch.zeros_like(x)
     src = torch.as_tensor([s for s, _ in perm], device=x.device)
-    dst = torch.as_tensor([d for _, d in perm], device=x.device)
-    out[dst] = x[src]
+    dst = torch.as_tensor([t for _, t in perm], device=x.device)
+    rest = tuple(x.shape[1:])
+    out.view((d, p) + rest)[:, dst] = x.reshape((d, p) + rest)[:, src]
     return out
 
 
-def psum(x: torch.Tensor, axis_index_groups=None) -> torch.Tensor:
-    """Sum over each PE's group, dtype preserved."""
-    note("psum", x, axis_index_groups=axis_index_groups)
-    members, _ = _tables(x, axis_index_groups)
-    return x[members].sum(dim=1, dtype=x.dtype)
+def psum(x: torch.Tensor, axis_index_groups=None,
+         axis: Optional[str] = None) -> torch.Tensor:
+    """Sum over each PE's group, dtype preserved; nested: the inner axis,
+    then the outer."""
+    nest = _virtual(axis)
+    if nest is not None:
+        mode, g = nest.classify_groups(axis_index_groups)
+        if mode == "inner":
+            return psum(x, g, axis=nest.inner)
+        return psum(psum(x, axis=nest.inner), g, axis=nest.outer)
+    note("psum", x, axis_index_groups=axis_index_groups, axis=axis)
+    d, p = _split(x)
+    members, _ = _tables(p, _flat_groups(axis_index_groups, axis), x.device)
+    rest = tuple(x.shape[1:])
+    return x.reshape((d, p) + rest)[:, members].sum(
+        dim=2, dtype=x.dtype).reshape(x.shape)
 
 
-def all_gather(x: torch.Tensor, axis_index_groups=None,
-               tiled: bool = False) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis_index_groups=None, tiled: bool = False,
+               axis: Optional[str] = None) -> torch.Tensor:
     """``out[i]`` = the values of i's group members in group order:
-    (p, g, ...) or, tiled, (p, g·n, ...)."""
-    note("all_gather", x, axis_index_groups=axis_index_groups)
-    members, _ = _tables(x, axis_index_groups)
-    out = x[members]
-    return out.reshape((x.shape[0], -1) + tuple(x.shape[2:])) if tiled \
-        else out
+    (P, g, ...) or, tiled, (P, g·n, ...); nested: a gather over the whole
+    inner axis, then one of those over the outer axis's groups."""
+    P, rest = x.shape[0], tuple(x.shape[1:])
+    nest = _virtual(axis)
+    if nest is not None:
+        mode, g = nest.classify_groups(axis_index_groups)
+        if mode == "inner":
+            return all_gather(x, g, tiled, axis=nest.inner)
+        gi = all_gather(x, axis=nest.inner)             # (P, p_i, ...)
+        out = all_gather(gi, g, axis=nest.outer)        # (P, g_o, p_i, ...)
+        out = out.reshape((P, -1) + rest)               # flat group order
+    else:
+        note("all_gather", x, axis_index_groups=axis_index_groups,
+             axis=axis)
+        d, p = _split(x)
+        members, _ = _tables(p, _flat_groups(axis_index_groups, axis),
+                             x.device)
+        out = x.reshape((d, p) + rest)[:, members].reshape(
+            (P, members.shape[1]) + rest)
+    return out.reshape((P, -1) + rest[1:]) if tiled else out
 
 
 def all_to_all(x: torch.Tensor, axis_index_groups=None,
-               itemsize: Optional[int] = None) -> torch.Tensor:
+               itemsize: Optional[int] = None,
+               axis: Optional[str] = None) -> torch.Tensor:
     """Tiled all_to_all with split/concat axis 0 of each PE's value.
 
-    ``x`` is (p, g·blk, ...): PE i's block j goes to its group member j;
+    ``x`` is (P, g·blk, ...): PE i's block j goes to its group member j;
     ``out[i]`` concatenates, in group order, the block each member
     addressed to i (the block at i's rank) — the block order of the
     reference (``comm.py:884-889``).  ``itemsize`` is the bytes of an
     element in the reference, where its dtype is narrower than the
-    port's (the trace records those)."""
-    note("all_to_all", x, itemsize, axis_index_groups)
-    members, rank = _tables(x, axis_index_groups)
-    p, g = members.shape
+    port's (the trace records those).  Nested: an all_to_all over the
+    outer axis's groups (chunk o of a PE's blocks goes to outer slice o),
+    then one over the whole inner axis, as the reference's view runs it."""
+    P, rest = x.shape[0], tuple(x.shape[2:])
+    nest = _virtual(axis)
+    if nest is not None:
+        mode, g = nest.classify_groups(axis_index_groups)
+        if mode == "inner":
+            return all_to_all(x, g, itemsize, axis=nest.inner)
+        pi = nest.p_i
+        g_out = nest.p_o if g is None else len(g[0])
+        if x.shape[1] % (g_out * pi):
+            raise ValueError(f"dimension 1 ({x.shape[1]}) must split into "
+                             f"{g_out * pi} blocks")
+        blk = x.shape[1] // (g_out * pi)
+        y = all_to_all(x, g, itemsize, axis=nest.outer)
+        y = y.reshape((P, g_out, pi, blk) + rest).transpose(1, 2).reshape(
+            (P, pi * g_out * blk) + rest)
+        z = all_to_all(y, None, itemsize, axis=nest.inner)
+        return z.reshape((P, pi, g_out, blk) + rest).transpose(1, 2).reshape(
+            x.shape)
+    note("all_to_all", x, itemsize, axis_index_groups, axis)
+    d, p = _split(x)
+    members, rank = _tables(p, _flat_groups(axis_index_groups, axis),
+                            x.device)
+    g = members.shape[1]
     if x.shape[1] % g:
         raise ValueError(f"dimension 1 ({x.shape[1]}) must split into "
                          f"{g} blocks")
-    blocks = x.reshape((p, g, x.shape[1] // g) + tuple(x.shape[2:]))
-    out = blocks[members, rank[:, None]]
-    return out.reshape(x.shape)
+    blocks = x.reshape((d, p, g, x.shape[1] // g) + rest)
+    return blocks[:, members, rank[:, None]].reshape(x.shape)
 
 
 def alltoall_stream(leaves: Sequence[torch.Tensor], fold, init, gsize: int,
@@ -340,11 +638,37 @@ def alltoall_stream(leaves: Sequence[torch.Tensor], fold, init, gsize: int,
     On CUDA the gather of step t + 1 runs on a side stream while the fold
     of step t runs on the current one, ordered by events.  Recorded as
     gsize ``all_to_all`` events of 1/gsize of the leaves' per-PE bytes
-    each, tagged ``ovl:<tag>``: together the barrier exchange's bytes."""
+    each, tagged ``ovl:<tag>``: together the barrier exchange's bytes.
+
+    Under :func:`nested` it is the reference's fallback, as its view has
+    no streamed path: one :func:`all_to_all` of the leaves, then the blocks
+    folded in ascending source order.  The view hands the leaves to the
+    inner axis as one collective (one event of their bytes together) and
+    decomposes them leaf by leaf otherwise."""
     x0 = leaves[0]
     P, dev = x0.shape[0], x0.device
     if any(v.shape[1] % gsize for v in leaves):
         raise ValueError(f"dimension 1 must split into {gsize} blocks")
+    nest = _VIEW.get().nest
+    if nest is not None:
+        mode, g = nest.classify_groups(axis_index_groups)
+        token = None
+        if mode == "inner":
+            record("all_to_all", sum(pe_bytes(v) for v in leaves),
+                   _group_size(g), nest.inner)
+            token = _TRACES.set(())         # recorded: the leaves as one
+        try:
+            recv = [all_to_all(v, axis_index_groups).reshape(
+                (P, gsize, v.shape[1] // gsize) + tuple(v.shape[2:]))
+                for v in leaves]
+        finally:
+            if token is not None:
+                _TRACES.reset(token)
+        acc = init
+        for s in range(gsize):
+            acc = fold(acc, [r[:, s] for r in recv],
+                       torch.full((P,), s, dtype=torch.int64, device=dev))
+        return acc
     traces = _TRACES.get()
     if traces:
         per_chunk = sum(pe_bytes(v) for v in leaves) // max(gsize, 1)
@@ -353,16 +677,18 @@ def alltoall_stream(leaves: Sequence[torch.Tensor], fold, init, gsize: int,
             for _ in range(gsize):
                 trace.add("all_to_all", per_chunk,
                           _group_size(axis_index_groups), axis=AXIS, tag=tag)
-    members, rank = _tables(x0, axis_index_groups)
+    d, p = _split(x0)
+    members, rank = _tables(p, axis_index_groups, dev)
     if members.shape[1] != gsize:
         raise ValueError(f"groups of {members.shape[1]} PEs, not {gsize}")
-    blocks = [v.reshape((P, gsize, v.shape[1] // gsize) + tuple(v.shape[2:]))
-              for v in leaves]
+    blocks = [v.reshape((d, p, gsize, v.shape[1] // gsize)
+                        + tuple(v.shape[2:])) for v in leaves]
 
     def gather(t):
         src = (rank + t) % gsize
         pe = torch.gather(members, 1, src[:, None])[:, 0]
-        return [b[pe, rank] for b in blocks], src
+        return ([b[:, pe, rank].reshape((P,) + tuple(b.shape[3:]))
+                 for b in blocks], src.repeat(d))
 
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     if side is None:

@@ -33,7 +33,7 @@ def gather_merge(shard: SortShard, p: int,
     shard = local_sort(shard)
     dev = shard.keys.device
     me = comm.axis_index(p, dev)
-    overflow = torch.zeros(p, dtype=torch.int64, device=dev)
+    overflow = torch.zeros_like(shard.count)
     for t in dims:
         # the senders: bits below t zero, bit t one
         sender = ((me & ((1 << t) - 1)) == 0) & (((me >> t) & 1) == 1)
@@ -57,5 +57,4 @@ def allgather_merge_sort(shard: SortShard, p: int,
                          ) -> GatherResult:
     """All-gather-merge: every PE ends with the full sorted input."""
     out = allgather_merge(local_sort(shard), p, dims=dims)
-    return GatherResult(out, torch.zeros(p, dtype=torch.int64,
-                                         device=out.keys.device))
+    return GatherResult(out, torch.zeros_like(out.count))

@@ -5,11 +5,14 @@ and the hypercube random shuffles, the slotted all-to-all route (the
 barrier path, and the streamed path that merges the source blocks as
 they arrive) and the route by explicit target PE.
 
-Each exchange records the reference's ``ppermute`` (``hc_exchange``) into
-an open ``comm.counting`` scope, one event per tensor, at the reference's
-bytes: a shard's count is the reference's int32 (4 bytes), and where the
-port carries fewer payloads than the reference (``ref_vals``) the events
-are those of the reference's payloads.
+The functions take any number of rows: p, or d·p for a batch of d sorts
+(``comm.batched``), whose hypercube partners ``i ^ 2^j`` stay inside each
+sort's rows.  Each exchange records the reference's ``ppermute``
+(``hc_exchange``) into an open ``comm.counting`` scope, one event per
+tensor, on the real axis of its bit under ``comm.nested``, at the
+reference's bytes: a shard's count is the reference's int32 (4 bytes),
+and where the port carries fewer payloads than the reference
+(``ref_vals``) the events are those of the reference's payloads.
 """
 from __future__ import annotations
 
@@ -31,20 +34,22 @@ def subcube_groups(p: int, dims: int):
 _COUNT_BYTES = 4                   # the reference's int32 shard count
 
 
-def _swap(x: torch.Tensor, p: int, j: int) -> torch.Tensor:
+def _swap(x: torch.Tensor, j: int) -> torch.Tensor:
+    """Swap the halves of every 2^(j+1) block of rows: the partner
+    ``i ^ 2^j`` of every row, inside each sort of a batch (2^j < p)."""
     rest = tuple(x.shape[1:])
-    return x.reshape((p >> (j + 1), 2, 1 << j) + rest).flip(1).reshape(
-        x.shape)
+    return x.reshape((x.shape[0] >> (j + 1), 2, 1 << j) + rest).flip(
+        1).reshape(x.shape)
 
 
 def hc_exchange(x: torch.Tensor, p: int, j: int,
                 itemsize: Optional[int] = None) -> torch.Tensor:
     """Every PE receives its partner ``i ^ 2^j``'s value: a swap of the
     halves of every 2^(j+1) block of rows, with no index table.  Recorded
-    as one ``ppermute`` (elements of ``itemsize`` bytes in the
-    reference)."""
-    comm.note("ppermute", x, itemsize)
-    return _swap(x, p, j)
+    as one ``ppermute`` (elements of ``itemsize`` bytes in the reference)
+    on the sort axis, or on the real axis of bit j under ``comm.nested``."""
+    comm.note("ppermute", x, itemsize, axis=comm.bit_axis(j))
+    return _swap(x, j)
 
 
 def exchange_shard(shard: SortShard, p: int, j: int,
@@ -57,8 +62,9 @@ def exchange_shard(shard: SortShard, p: int, j: int,
         vals = {k: hc_exchange(v, p, j) for k, v in shard.vals.items()}
     else:
         for itemsize in ref_vals.values():
-            comm.record("ppermute", shard.capacity * itemsize)
-        vals = {k: _swap(v, p, j) for k, v in shard.vals.items()}
+            comm.record("ppermute", shard.capacity * itemsize,
+                        axis=comm.bit_axis(j))
+        vals = {k: _swap(v, j) for k, v in shard.vals.items()}
     return SortShard(keys=keys, vals=vals,
                      count=hc_exchange(shard.count, p, j, _COUNT_BYTES))
 
@@ -104,7 +110,7 @@ def subcube_prefix_sum(x: torch.Tensor, p: int, dims: Sequence[int]):
     total = x
     for t in dims:
         other = hc_exchange(total, p, t)
-        upper = ((me >> t) & 1).reshape((p,) + (1,) * (x.dim() - 1)) == 1
+        upper = ((me >> t) & 1).reshape((-1,) + (1,) * (x.dim() - 1)) == 1
         prefix = prefix + torch.where(upper, other, torch.zeros_like(other))
         total = total + other
     return prefix, total
@@ -125,7 +131,7 @@ def hypercube_shuffle(shard: SortShard, p: int, seed: int,
     dims = list(dims) if dims is not None else list(range(p.bit_length() - 1))
     dev = shard.keys.device
     me = comm.axis_index(p, dev)
-    overflow = torch.zeros(p, dtype=torch.int64, device=dev)
+    overflow = torch.zeros_like(shard.count)
     cap = shard.capacity
     rank = torch.arange(cap, device=dev)[None, :]
     # every step's fold_in(PRNGKey(seed), t), made on the host, one copy
@@ -244,7 +250,7 @@ def _stream_route_merge(keys, vals, counts, pad: int, p: int, slot_cap: int,
         raise ValueError(f"the merge tree needs a power-of-two group, "
                          f"not {p}")
     P, dev = keys.shape[0], keys.device
-    names = list(vals)
+    names = sorted(vals)
     # every block's sort runs the merge passes the longest block needs:
     # one read back here instead of one per block
     cmax = int(counts.max()) if counts.numel() else 0
@@ -256,7 +262,7 @@ def _stream_route_merge(keys, vals, counts, pad: int, p: int, slot_cap: int,
     rows = torch.arange(P, device=dev)
 
     def fold(acc, chunks, src):
-        chunk_keys, *chunk_vals, chunk_count = chunks
+        chunk_count, chunk_keys, *chunk_vals = chunks
         count = chunk_count[:, 0].to(torch.int64)
         run = local_sort(SortShard(chunk_keys, dict(zip(names, chunk_vals)),
                                    count), max_count=cmax)
@@ -265,8 +271,10 @@ def _stream_route_merge(keys, vals, counts, pad: int, p: int, slot_cap: int,
         run_counts[rows, src] = count
         return acc
 
+    # the reference's pytree order (counts, keys, vals by name), in which
+    # the barrier fallback of a nested view records its exchanges
     table = comm.alltoall_stream(
-        [keys] + [vals[k] for k in names] + [counts], fold, table, p, groups)
+        [counts, keys] + [vals[k] for k in names], fold, table, p, groups)
     runs = SortShard(table[0].reshape(P * p, slot_cap),
                      {k: t.reshape(P * p, slot_cap)
                       for k, t in zip(names, table[1:])},

@@ -58,6 +58,31 @@ def default_levels(p: int, levels: Optional[int] = None) -> Sequence[int]:
     return [base + (1 if i < rem else 0) for i in range(levels)]
 
 
+def nested_level_bits(p_outer: int, p_inner: int,
+                      levels: Optional[int] = None) -> Sequence[int]:
+    """The level schedule of a nested (outer × inner) mesh: the first
+    level splits across the p_outer outer slices (its all_to_all is the
+    only level exchange on the outer axis), every later one recurses inside
+    an inner subcube; ``levels=1`` spans both axes with one level.
+
+    >>> nested_level_bits(16, 64), nested_level_bits(4, 16, levels=1)
+    ([4, 3, 3], [6])
+    """
+    d_o = p_outer.bit_length() - 1
+    d_i = p_inner.bit_length() - 1
+    if p_outer.bit_count() != 1 or p_inner.bit_count() != 1:
+        raise ValueError(f"mesh ({p_outer}, {p_inner}) entries must be "
+                         f"powers of two")
+    if d_o == 0:
+        return list(default_levels(p_inner, levels))
+    if d_i == 0:
+        return [d_o]
+    if levels == 1:
+        return [d_o + d_i]
+    inner_levels = None if levels is None else max(1, levels - 1)
+    return [d_o] + list(default_levels(p_inner, inner_levels))
+
+
 def _mul32(x, c: int):
     """``x * c mod 2^32`` for uint32 words held in int64, exact: the
     constant is split into 16-bit halves so no product reaches 2^63."""
@@ -205,7 +230,8 @@ def _rams_level(shard: SortShard, p: int, h: int, b: int, *, seed: int,
     cum_before = cum - totals
     mid = cum_before + totals // 2
     g_of_bucket = torch.clamp((mid * k) // torch.clamp(total, min=1), 0, k - 1)
-    group_total = torch.zeros((p, k), dtype=torch.int64, device=dev)
+    group_total = torch.zeros((totals.shape[0], k), dtype=torch.int64,
+                              device=dev)
     group_total.scatter_add_(1, g_of_bucket, totals)
     cum_grp = torch.cumsum(group_total, dim=1) - group_total
 

@@ -11,13 +11,14 @@ path's result, overflow included (it is counted on the sender's side).
 
 Samples and splitters are the reference's u64 words (a zero-extended u32
 key or an 8-byte key, all-ones for an invalid sample) held sign-flipped in
-int64.  Every PE all-gathers the same samples, so the port sorts them once
-for all rows, and records the reference's ``all_gather`` into an open
-``comm.counting`` scope.  The classify is the partition kernel with nb = p and no
-rank: 4-byte keys classify as (word, tie 0), 8-byte keys as the (hi, lo)
-planes of their word, as the reference's (hi, lo) u32 planes.  The
-shuffle, the splitter pick and classify, and the route run under
-``torch.profiler`` scopes ``shuffle``, ``splitters`` and ``route``.
+int64.  Every PE of a sort all-gathers the same samples, so the port sorts
+them once for all rows of that sort, and records the reference's
+``all_gather`` into an open ``comm.counting`` scope.  The classify is
+the partition kernel with nb = p and no rank: 4-byte keys classify as
+(word, tie 0), 8-byte keys as the (hi, lo) planes of their word, as the
+reference's (hi, lo) u32 planes.  The shuffle, the splitter pick and
+classify, and the route run under ``torch.profiler`` scopes ``shuffle``,
+``splitters`` and ``route``.
 """
 from __future__ import annotations
 
@@ -99,8 +100,9 @@ def samplesort(shard: SortShard, p: int, *, seed: int = 0x550,
             shard = local_sort(shard)
     with record_function("splitters"):
         splitters = _splitters(shard, p, seed, sample_factor,
-                               oracle_splitters)
-        dest = _destinations(shard, splitters.expand(p, p - 1))
+                               oracle_splitters)       # (d, p − 1)
+        dest = _destinations(shard, splitters.repeat_interleave(
+            shard.keys.shape[0] // splitters.shape[0], dim=0))
     with record_function("route"):
         out, ovf = _alltoall_route(shard, dest, p, slot_cap, stream=overlap)
         del dest, shard
@@ -113,8 +115,9 @@ def samplesort(shard: SortShard, p: int, *, seed: int = 0x550,
 
 def _splitters(shard: SortShard, p: int, seed: int, sample_factor: int,
                oracle_splitters) -> torch.Tensor:
-    """The p − 1 splitters, (1, p − 1) flipped u64 words: the oracle's, or
-    the quantiles of every PE's ``sample_factor``·log p random samples."""
+    """The p − 1 splitters of each of the d sorts, (d, p − 1) flipped u64
+    words: the oracle's, or the quantiles of the ``sample_factor``·log p
+    random samples of every PE of the sort."""
     dev = shard.keys.device
     if oracle_splitters is not None:
         w = np.asarray(oracle_splitters, dtype=np.uint64)
@@ -122,7 +125,8 @@ def _splitters(shard: SortShard, p: int, seed: int, sample_factor: int,
             raise ValueError(f"oracle_splitters must hold p - 1 = {p - 1} "
                              f"words, got shape {w.shape}")
         return torch.from_numpy(
-            (w ^ np.uint64(1 << 63)).view(np.int64)).to(dev)[None, :]
+            (w ^ np.uint64(1 << 63)).view(np.int64)).to(dev)[None, :].expand(
+            shard.keys.shape[0] // p, p - 1)
     s_per = max(1, sample_factor * max(1, int(math.log2(max(p, 2)))))
     key = prng.fold_in(prng.PRNGKey(seed, dev), comm.axis_index(p, dev))
     pos = prng.randint(key, s_per, 0, torch.clamp(shard.count, min=1))
@@ -131,4 +135,4 @@ def _splitters(shard: SortShard, p: int, seed: int, sample_factor: int,
         samp = samp.to(torch.int64) + ((1 << 31) + LO)
     samp = torch.where(pos < shard.count[:, None], samp, _INVALID)
     comm.note("all_gather", samp)
-    return quantile_splitters(torch.sort(samp.reshape(1, -1))[0], p)
+    return quantile_splitters(torch.sort(samp.reshape(-1, p * s_per))[0], p)

@@ -86,14 +86,37 @@ def test_psort_without_a_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh_shape": (2, 2)}, "item 5 "),
+    ({"axis": "rows"}, "item 7 "),
     ({"fault_policy": object()}, "item 8 "),
-    ({"data_axis": "batch"}, "item 5 "), ({"backend": "shard_map"},
-                                          "item 7 ")])
+    ({"mesh": object()}, "item 7 "), ({"backend": "shard_map"},
+                                      "item 7 ")])
 def test_unported_knobs_raise_not_implemented(kw, match):
     """Each names its item of the re-anchored ROADMAP queue 1."""
     with pytest.raises(NotImplementedError, match=match):
         SortConfig(p=4, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"mesh_shape": (2, 2)}, {"mesh_shape": [2, 2], "p": 4},
+    {"mesh_shape": (1, 4), "mesh_axes": ("slow", "fast")},
+    {"data_axis": "batch", "p": 4}])
+def test_nested_and_batch_knobs_sort_as_the_reference(kw):
+    """``mesh_shape``, ``mesh_axes`` and ``data_axis``, refused until they
+    were ported, sort bit for bit as the reference does with them, 1-D
+    and 2-D keys alike."""
+    x = generate_instance("Staggered", 4, 4 * 24).astype(np.uint32)
+    for keys in (x, np.stack([x, x[::-1].copy()])):
+        want, wi = j_psort(keys, config=JConfig(algorithm="rams",
+                                                backend="sim", **kw),
+                           return_info=True)
+        got, gi = psort(keys, SortConfig(algorithm="rams", **kw),
+                        return_info=True, device="cpu")
+        assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32),
+                              np.asarray(want))
+        assert np.array_equal(gi["perm"].numpy(),
+                              np.asarray(wi["perm"]).astype(np.int64))
+        assert np.array_equal(gi["counts"].numpy(), np.asarray(wi["counts"]))
+        assert (gi["mesh_shape"], gi["d"]) == (wi["mesh_shape"], wi["d"])
 
 
 _MODEL = None
@@ -148,22 +171,33 @@ def test_knobs_of_selection_and_overlap_sort_as_the_reference(kw, ref_kw):
 
 @pytest.mark.parametrize("knob,default,other,item", [
     ("axis", "sort", "rows", "item 7 "),
-    ("data_axis", "data", "batch", "item 5 "),
-    ("mesh_axes", ("inter", "intra"), ("intra", "inter"), "item 5 "),
-    ("mesh_axes", ["inter", "intra"], ["inter"], "item 5 "),
+    ("data_axis", "data", "batch", None),
+    ("mesh_axes", ("inter", "intra"), ("intra", "inter"), None),
+    ("mesh_axes", ["inter", "intra"], ["inter"], None),
     ("mesh", None, object(), "item 7 ")])
 def test_reference_defaults_of_unported_knobs_are_accepted(knob, default,
                                                            other, item):
     """The reference's own defaults (``repro/core/api.py``) build a config
-    that sorts as the plain one does; any other value still raises."""
+    that sorts as the plain one does.  Any other value of a knob still to
+    port (``item``) raises; the others sort as the reference does with
+    that value (the names are the sim layout's, which reads them only on
+    a nested mesh)."""
     cfg = SortConfig(p=4, algorithm="rquick", **{knob: default})
     assert cfg == SortConfig(p=4, algorithm="rquick")
     x = np.arange(64, dtype=np.uint32)[::-1].copy()
     assert np.array_equal(
         psort(x, cfg, device="cpu").view(torch.int32).numpy(),
         np.arange(64, dtype=np.int32))
-    with pytest.raises(NotImplementedError, match=item):
-        SortConfig(p=4, **{knob: other})
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            SortConfig(p=4, **{knob: other})
+        return
+    got = psort(x, SortConfig(p=4, algorithm="rquick", **{knob: other}),
+                device="cpu")
+    want = j_psort(x, config=JConfig(p=4, algorithm="rquick", backend="sim",
+                                     **{knob: other}))
+    assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32),
+                          np.asarray(want))
 
 
 def test_all_reference_defaults_at_once():
@@ -221,8 +255,13 @@ def test_bad_configs_are_refused():
         SortConfig(p=4, overlap="yes")
     with pytest.raises(ValueError, match="power of two"):
         psort(np.arange(6, dtype=np.uint32), SortConfig(p=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5 "):
-        psort(np.zeros((2, 4), np.uint32), SortConfig(p=2), device="cpu")
+    # 2-D keys are a batch of sorts (tests/test_torch_batched.py); 3-D
+    # keys raise the reference's error
+    assert psort(np.array([[3, 1, 2, 0], [9, 8, 7, 6]], np.uint32),
+                 SortConfig(p=2, algorithm="rquick"), device="cpu").view(
+        torch.int32).tolist() == [[0, 1, 2, 3], [6, 7, 8, 9]]
+    with pytest.raises(ValueError, match="1-D .* or 2-D"):
+        psort(np.zeros((2, 2, 4), np.uint32), SortConfig(p=2), device="cpu")
     # 8-byte keys: RQuick sorts them, RAMS raises the reference's error
     x = np.array([3, -1, 2 ** 40, 0], np.int64)
     assert psort(x, SortConfig(p=2, algorithm="rquick"),

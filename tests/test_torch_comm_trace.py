@@ -207,12 +207,22 @@ def test_record_takes_the_open_tag_and_filter_selects_unset_fields():
 
 
 def test_trace_collectives_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trace_collectives(64, SortConfig(p=8), d=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SortConfig(mesh_shape=(2, 4))
+    """``d`` and ``mesh_shape``, refused until they were ported, trace as
+    the reference does (the batched trace per PE is the 1-D one; the
+    nested one names its real axes); a p that is not a power of two, or
+    that the mesh contradicts, raises the reference's error."""
+    jax.clear_caches()
+    for d, cfg, jcfg in ((2, SortConfig(p=8, algorithm="rams"),
+                          JConfig(p=8, algorithm="rams")),
+                         (1, SortConfig(mesh_shape=(2, 4), algorithm="rams"),
+                          JConfig(mesh_shape=(2, 4), algorithm="rams"))):
+        _same(trace_collectives(64 * 8, cfg, d=d, device="cpu"),
+              j_trace(64 * 8, jcfg, d=d), 8)
     with pytest.raises(ValueError, match="power of two"):
         trace_collectives(64, SortConfig(p=6), device="cpu")
+    with pytest.raises(ValueError, match="inconsistent"):
+        trace_collectives(64, SortConfig(p=4, mesh_shape=(2, 4)),
+                          device="cpu")
 
 
 @pytest.mark.parametrize("knob", ["auto", "overlap"])

@@ -486,3 +486,32 @@ def test_kway_on_views_at_an_offset(dev, offset, nb):
     rb, rh = kref.kway_classify_ref(keys, ties, sk, st, n_buckets=nb)
     torch.cuda.synchronize()
     assert torch.equal(b, rb) and torch.equal(h, rh)
+
+
+def _same_result(a, b):
+    """Two psort results (tensors, or lists of rows) bit for bit."""
+    if torch.is_tensor(a):
+        return torch.equal(a.view(torch.int32).cpu(), b.view(torch.int32))
+    return len(a) == len(b) and all(_same_result(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("algorithm", ["rams", "rquick", "ssort"])
+@pytest.mark.parametrize("layout", ["batched", "nested", "batched-nested"])
+def test_batched_and_nested_cuda_equal_cpu(dev, algorithm, layout):
+    """Batched keys (d = 3 rows of one instance each), a nested mesh
+    (4, 16) and both at once, on the card against the CPU bit for bit."""
+    p, n = 64, 1 << 16
+    names = ("Uniform", "Zero", "Staggered")
+    x = generate_instance("Uniform", p, n).astype(np.uint32)
+    if layout != "nested":
+        x = np.stack([generate_instance(name, p, n, seed=r).astype(np.uint32)
+                      for r, name in enumerate(names)])
+    kw = {"p": p} if layout == "batched" else {"mesh_shape": (4, 16)}
+    cfg = SortConfig(algorithm=algorithm, **kw)
+    go, gi = psort(x, cfg, return_info=True, device="cuda")
+    co, ci = psort(x, cfg, return_info=True, device="cpu")
+    assert _same_result(go, co)
+    assert _same_result(gi["perm"], ci["perm"])
+    assert torch.equal(gi["counts"].cpu(), ci["counts"])
+    assert gi["overflow"] == ci["overflow"]
+    assert (gi["d"], gi["mesh_shape"]) == (ci["d"], ci["mesh_shape"])

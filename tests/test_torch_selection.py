@@ -298,5 +298,32 @@ def test_reckoned_bytes_and_windows():
     assert cal.eligible("rfis", 6, 256) and not cal.eligible("rfis", 6, 4096)
     assert (256, 10) in cal.grid(cal.PS) and (4096, 10) not in cal.grid(
         cal.PS)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cal.main(["--nested", "2", "4", "--profile", "unused.json"])
+    # the two-tier pass's axis bits: the inner axis the low ones
+    assert cal._axis_bits(4, 16, "intra") == [0, 1, 2, 3]
+    assert cal._axis_bits(4, 16, "inter") == [4, 5]
+    with pytest.raises(ValueError, match="one PE"):
+        cal._axis_bits(1, 16, "inter")
+
+
+def test_nested_pass_runs_at_2x4(tmp_path):
+    """``--nested 2 4 --fast`` on the CPU: the per-axis constants land in
+    the profile and the rams@2x4 cells beside rams-flat@2x4, whose traces
+    are the nested and flat ones (plumbing only: a CPU run says nothing
+    of the card's constants)."""
+    cal = _tool()
+    prof, out = tmp_path / "nested.json", tmp_path / "cells.json"
+    assert cal.main(["--device", "cpu", "--p", "8", "--nested", "2", "4",
+                     "--fast", "--no-sweep", "--iters", "1",
+                     "--profile", str(prof), "--out", str(out)]) == 0
+    m = ts.CostModel.load(prof)
+    for v in (m.alpha_inner, m.alpha_c_inner, m.beta_inner):
+        assert math.isfinite(v) and v > 0
+    nm = m.meta["nested_microbench"]
+    assert nm["mesh_shape"] == [2, 4] and set(nm) >= {"intra", "inter"}
+    cells = json.loads(out.read_text())["nested_cells"]
+    assert [c["algorithm"] for c in cells] == ["rams@2x4",
+                                               "rams-flat@2x4"] * 3
+    assert [c["e"] for c in cells[::2]] == list(cal.EXPS_FAST)
+    nested, flat = cells[0], cells[1]
+    assert set(nested["wire_bytes_by_axis"]) == {"inter", "intra"}
+    assert set(flat["wire_bytes_by_axis"]) == {"sort"}

@@ -38,12 +38,26 @@ Two phases on the sim layout (p PEs as the rows of one device's tensors):
 The profile (``--profile``) holds the card's ``nvidia-smi`` name and
 power limit, the torch and CUDA versions and the grid in ``meta``; the
 sweep's cells go to ``--out`` (``calibrate_out/calibrate_torch.json``).
-It imports the port, numpy and scipy only.  ``--nested`` (the reference's
-two-tier pass) is not ported: ROADMAP queue 1, item 5.
+``--nested P_OUTER P_INNER`` adds the reference's two-tier pass after
+phase 1, on a nested (outer × inner) mesh of P_OUTER·P_INNER PEs
+(``comm.nested``): α, α_c and β of each real axis (the hypercube exchange
+along that axis's bits and a tiny ``all_gather`` on that axis; the inner
+axis's go into the profile's ``alpha_inner``, ``alpha_c_inner`` and
+``beta_inner``, the outer's into ``meta``), then the ``rams@PoxPi`` and
+``rams-flat@PoxPi`` cells: RAMS on the nested mesh beside the flat axis
+on the same level schedule, at n/p = 2^e for e in ``NESTED_EXPS``
+(``--fast``: ``EXPS_FAST``), under ``nested_cells`` in ``--out``; it runs
+whether or not ``--no-sweep`` is given.
+
+    python3 tools/calibrate_torch.py --nested 16 16 --no-sweep --p 256 \
+        --profile calibrate_out/h100-nested.json
+
+It imports the port, numpy and scipy only.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import platform
@@ -352,10 +366,156 @@ def fit_profile(cells, name: str, floor: CostModel) -> CostModel:
 # ---------------------------------------------------------------------------
 
 
-def cell_features(n: int, p: int, algo: str, device=None) -> dict:
+# ---------------------------------------------------------------------------
+# The two-tier pass (--nested): per-axis constants and nested-vs-flat RAMS
+# ---------------------------------------------------------------------------
+
+
+NESTED_EXPS = (0, 2, 4, 8, 12, 16)
+
+
+def _axis_bits(p_o: int, p_i: int, axis: str):
+    """The hypercube bits of one real axis of a (p_o × p_i) mesh: the low
+    log2 p_i bits are the inner axis, the ones above the outer."""
+    lo = p_i.bit_length() - 1
+    bits = list(range(lo)) if axis == "intra" else \
+        list(range(lo, lo + p_o.bit_length() - 1))
+    if not bits:
+        raise ValueError(f"the {axis} axis of ({p_o}, {p_i}) has one PE")
+    return bits
+
+
+def bench_axis_ppermute(p_o: int, p_i: int, axis: str, w: int, dev,
+                        chain: int = 16) -> float:
+    """Seconds per point-to-point step on one real axis of a nested mesh:
+    the port's hypercube exchange along that axis's bits under
+    ``comm.nested`` (the reference's per-axis ``ppermute``)."""
+    from repro_torch.core.hypercube import hc_exchange
+    p = p_o * p_i
+    bits = _axis_bits(p_o, p_i, axis)
+    axes = (("inter", p_o), ("intra", p_i))
+    x = torch.zeros((p, w), dtype=torch.int32, device=dev)
+
+    def run():
+        with comm.nested(comm.AXIS, axes):
+            v = x
+            for i in range(chain):
+                v = hc_exchange(v, p, bits[i % len(bits)]) + 1
+        return v
+    return _median_seconds(run, dev) / chain
+
+
+def bench_axis_all_gather(p_o: int, p_i: int, axis: str, w: int, dev,
+                          chain: int = 8) -> float:
+    """Seconds per fused collective (a tiny tiled ``all_gather``) on one
+    real axis of a nested mesh."""
+    p = p_o * p_i
+    size = p_o if axis == "inter" else p_i
+    axes = (("inter", p_o), ("intra", p_i))
+    x = torch.zeros((p, w), dtype=torch.int32, device=dev)
+
+    def run():
+        with comm.nested(comm.AXIS, axes):
+            acc = x
+            for _ in range(chain):
+                g = comm.all_gather(acc, tiled=True, axis=axis)
+                acc = g.reshape(p, size, w)[:, 0] + 1       # chained
+        return acc
+    return _median_seconds(run, dev) / chain
+
+
+def measure_nested_profile(model: CostModel, p_o: int, p_i: int,
+                           device=None) -> CostModel:
+    """The inner-axis constants (α, α_c, β of the intra axis) from
+    per-axis primitives on a (p_o × p_i) nested mesh, attached to
+    ``model``; the outer axis's go into ``meta`` (the reference's
+    ``measure_nested_profile``).  On one card both axes are rows of one
+    device's memory: the split shows what the decomposition costs, not a
+    second link."""
+    dev = resolve_device(device)
+    # the payload slope at 2^24 words in all: at 4096 words a PE (phase
+    # 1's width, which 2^16 PEs make 2^28 words) a few hundred PEs move
+    # too little for the slope to clear the launch time on the card
+    w_lo, w_hi = 64, max(4096, (1 << 24) // (p_o * p_i))
+    per_axis = {}
+    for axis in ("intra", "inter"):
+        a = bench_axis_ppermute(p_o, p_i, axis, 1, dev)
+        t_lo = bench_axis_ppermute(p_o, p_i, axis, w_lo, dev)
+        t_hi = bench_axis_ppermute(p_o, p_i, axis, w_hi, dev)
+        per_axis[axis] = {
+            "alpha": a,
+            "alpha_c": max(bench_axis_all_gather(p_o, p_i, axis, 1, dev),
+                           1e-3 * model.alpha_c),
+            "beta": max((t_hi - t_lo) / (w_hi - w_lo), 1e-3 * model.beta),
+            "ppermute_s": {"w1": a, f"w{w_lo}": t_lo, f"w{w_hi}": t_hi}}
+    meta = dict(model.meta)
+    meta["nested_microbench"] = {
+        "mesh_shape": [p_o, p_i], **per_axis,
+        "method": "per-axis hypercube exchanges and all_gathers under "
+                  "comm.nested (tools/calibrate_torch.py --nested)"}
+    intra = per_axis["intra"]
+    return dataclasses.replace(
+        model, alpha_inner=float(intra["alpha"]),
+        alpha_c_inner=float(intra["alpha_c"]),
+        beta_inner=float(intra["beta"]), meta=meta)
+
+
+def run_nested_sweep(p_o: int, p_i: int, iters: int, exps=NESTED_EXPS,
+                     device=None):
+    """Nested-vs-flat RAMS cells at the same p: ``rams@{p_o}x{p_i}`` (the
+    nested mesh) beside ``rams-flat@{p_o}x{p_i}`` (the flat axis on the
+    same level schedule), each the median of ``iters`` sorts after a
+    warm-up, with its trace features.  The two must sort bit for bit
+    alike; a cell whose results differ raises."""
+    from repro_torch.core.rams import nested_level_bits
+    dev = resolve_device(device)
+    p = p_o * p_i
+    bits = tuple(nested_level_bits(p_o, p_i))
+    cells = []
+    for e in exps:
+        n = max(1, int(p * 2.0 ** e))
+        x = torch.from_numpy(generate_instance(
+            "Uniform", p, n, seed=11).astype(np.int32)).to(dev)
+        outs = []
+        for label, cfg, feat_kw in (
+                (f"rams@{p_o}x{p_i}",
+                 SortConfig(mesh_shape=(p_o, p_i), algorithm="rams"),
+                 {"mesh_shape": (p_o, p_i)}),
+                (f"rams-flat@{p_o}x{p_i}",
+                 SortConfig(p=p, algorithm="rams",
+                            algo_kw={"level_bits": bits}),
+                 {"algo_kw": {"level_bits": bits}})):
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            seconds = _median_seconds(lambda: psort(x, cfg, device=dev),
+                                      dev, iters)
+            peak = torch.cuda.max_memory_allocated(dev) \
+                if dev.type == "cuda" else None
+            outs.append(psort(x, cfg, device=dev))
+            feat = cell_features(n, p, "rams", dev, **feat_kw)
+            cells.append({"p": p, "e": e, "n": n, "algorithm": label,
+                          "mesh_shape": [p_o, p_i], "level_bits": list(bits),
+                          "seconds": seconds, "max_memory_allocated": peak,
+                          **feat})
+            print(f"calibrate/nested{p_o}x{p_i}/npp2^{e}/{label},"
+                  f"{seconds * 1e6:.1f},p2p={feat['p2p']} "
+                  f"fused={feat['fused']} wire={feat['wire_bytes']}B "
+                  f"peak={peak}", flush=True)
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"nested and flat RAMS differ at p={p}, "
+                                 f"n={n}")
+        del x, outs
+    return cells
+
+
+def cell_features(n: int, p: int, algo: str, device=None, **cfg) -> dict:
     """Counted-trace features of one cell (the port's
-    ``trace_collectives``, equal to the reference's)."""
-    tr = trace_collectives(n, SortConfig(p=p, algorithm=algo),
+    ``trace_collectives``, equal to the reference's); ``cfg`` adds
+    ``SortConfig`` fields (``mesh_shape``, ``algo_kw``)."""
+    if "mesh_shape" not in cfg:
+        cfg["p"] = p
+    tr = trace_collectives(n, SortConfig(algorithm=algo, **cfg),
                            device=device)
     npp = n / p
     return {
@@ -366,6 +526,8 @@ def cell_features(n: int, p: int, algo: str, device=None) -> dict:
         "local_words": npp * math.log2(max(2, n)) + npp,
         "counts": tr.counts(),
         "wire_bytes": tr.wire_bytes(),
+        "wire_bytes_by_axis": {a: s["wire_bytes"]
+                               for a, s in tr.by_axis().items()},
     }
 
 
@@ -479,12 +641,12 @@ def main(argv=None) -> int:
     ap.add_argument("--peak-limit", type=float, default=PEAK_LIMIT,
                     help="skip cells whose reckoned peak passes this")
     ap.add_argument("--nested", type=int, nargs=2, default=None,
-                    metavar=("P_OUTER", "P_INNER"))
+                    metavar=("P_OUTER", "P_INNER"),
+                    help="the two-tier pass on a (P_OUTER x P_INNER) "
+                         "nested mesh: per-axis constants, then the "
+                         "nested-vs-flat RAMS cells (run with --no-sweep "
+                         "too)")
     args = ap.parse_args(argv)
-    if args.nested:
-        raise NotImplementedError("--nested is not ported yet: ROADMAP "
-                                  "queue 1 item 5 (batched keys and nested "
-                                  "meshes)")
     dev = resolve_device(args.device)
     ps = [1 << 8] if args.fast else args.p
     exps = list(EXPS_FAST) if args.fast else args.exps
@@ -510,8 +672,21 @@ def main(argv=None) -> int:
         # the profile and the cells so far are on disk after every step
         report.update(fields, seconds=time.perf_counter() - t0)
         out.write_text(json.dumps(report, indent=2, sort_keys=True) + "\n")
+    if args.nested:
+        p_o, p_i = args.nested
+        model = measure_nested_profile(model, p_o, p_i, dev)
+        print(f"# two-tier ({p_o}x{p_i}): "
+              f"alpha_inner={model.alpha_inner!r} "
+              f"alpha_c_inner={model.alpha_c_inner!r} "
+              f"beta_inner={model.beta_inner!r} "
+              f"outer={model.meta['nested_microbench']['inter']}", flush=True)
+        report["profile"] = json.loads(model.to_json())
     model.save(args.profile)
     write()
+    if args.nested:
+        nested = run_nested_sweep(p_o, p_i, args.iters, list(EXPS_FAST)
+                                  if args.fast else NESTED_EXPS, dev)
+        write(nested_cells=nested)
     if not args.no_sweep:
         cells, skipped = run_sweep(
             ps, exps, args.iters, dev, args.peak_limit,
