@@ -128,13 +128,34 @@ Phases, each fatal on failure (no phase catches its own error):
    RAMS and SSort batched with ``overlap=True``.  The ``kernels`` line
    gains the rows of ``rams-batched``, ``rquick-batched`` (phase 8's
    shapes) and ``rams-nested`` (phase 3's), with their runs' launches.
+16. query serving (``repro_torch.core.queries``, ``SortService``) over the
+   RAMS cell's data: ``tile_sort`` and a ``run_merge`` pass at the
+   ingest's (256, 2^18) full rows of keys, against their plain versions;
+   ``shard_data`` at p = 256, n = 2^26 Uniform uint32 (wall, peak, its
+   launches, rows equal to the library's row sort); every query kind bit
+   for bit against one ``torch.sort`` of the keys on Uniform, Zero and
+   Staggered uint32 and int64 Uniform (``select_rank`` over 64 ranks with
+   the window on and off, ``percentile``, ``top_k`` for k = 1 … 64 and
+   4096, ``rank_of_key``, ``range_query``); per batch on Uniform the
+   median wall of 5 after a warm-up, its host syncs (``torch.profiler``)
+   and peak, beside phase 4's RAMS wall; the reference CLI's stream of 512
+   queries through ``SortService`` under ``selection``, ``fullsort``
+   (bitonic's sorted copy: RAMS drops keys at this cell) and ``auto``,
+   p50/p99 per kind and queries/s, every answer against the oracle; and
+   the card against the CPU at p = 64, n = 2^20 (every kind on uint32,
+   int64, uint64 and float64 keys, the service under ``selection`` and
+   ``fullsort``, ``trace_query`` for every kind and key width).  The
+   ``kernels`` line gains the ``serve-ingest`` rows with the ingest's
+   launches.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
 ``rfis``, ``gatherm``, ``allgatherm``, ``ssort``, ``ns-ssort``,
 ``bitonic`` and ``ntb-ams`` (10; ``ssort`` also 14), all but the AMS
-family on 8-byte keys (11), ``"auto"`` (13), and every in-core one on
-batched keys and nested meshes (15).  Each phase prints its seconds.
+family on 8-byte keys (11), ``"auto"`` (13), every in-core one on
+batched keys and nested meshes (15), and the query path with its ingest
+(the local sort) and bitonic behind the service's sorted copy (16).  Each
+phase prints its seconds.
 
 It imports torch, numpy and the port only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -242,6 +263,18 @@ NESTED_MESHES = ((16, 16), (4, 64))
 LOG_N_NESTED_TRACE = 18
 ALGORITHMS = ("rams", "ntb-ams", "rquick", "ntb-quick", "rfis", "ssort",
               "ns-ssort", "bitonic", "gatherm", "allgatherm")
+# phase 16: query serving over the RAMS cell's data (256 rows of 2^18 keys
+# resident on the card); batches of 64 queries, the reference CLI's mix;
+# the service's sorted copy is bitonic's, exact on any input and the
+# fastest exact sort at this cell (RAMS's second level drops 25 204 keys
+# here, RQuick takes seconds); the card against the CPU at p = 64, n = 2^20
+P_SERVE, LOG_N_SERVE = P_MAIN, LOG_N_MAIN
+SERVE_INSTANCES = ("Uniform", "Zero", "Staggered")
+SERVE_B, SERVE_TOPK_BIG, SERVE_QUERIES = 64, 4096, 512
+SERVE_MIX = "top_k=4,percentile=2,rank_of_key=2,range_query=1"
+SERVE_SORT = "bitonic"
+P_SERVE_CHECK, LOG_N_SERVE_CHECK = P_CHECK, LOG_N_CHECK
+SERVE_B_CHECK, SERVE_QUERIES_CHECK = 16, 64
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -1688,6 +1721,453 @@ def batched_phase(torch, np, psort, SortConfig, generate_instance,
     return launches
 
 
+def ingest_kernel_rows(torch):
+    """Phase 16, first part: ``tile_sort`` and one ``run_merge`` pass at
+    the shape the serving ingest gives them, (256, 2^18) full rows of
+    keys with no payload (``shard_data`` at p = 256, n = 2^26), each
+    against its plain version, timed beside its bound (8 bytes a key:
+    read once, written once) and the library's sort of the same segments.
+    Returns the rows keyed by kernel."""
+    from repro_torch.kernels import bitonic as bt
+    from repro_torch.kernels.bitonic import ref as bref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    src = "src/repro_torch/kernels/bitonic/csrc/bitonic.cu"
+    rows, C = P_SERVE, 1 << (LOG_N_SERVE - LOG_P_MAIN)
+    t = bt.TILE
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, C), generator=g,
+                         device=dev, dtype=torch.int32)
+    count = torch.full((rows,), C, dtype=torch.int64, device=dev)
+    info = {"shape": [rows, C], "valid_keys": rows * C,
+            "path": "serve-ingest"}
+
+    def segments(k, seg):
+        return torch.sort(k.reshape(-1, seg), dim=1)[0].view(rows, C)
+
+    out = {}
+    runs = bt.sort_tiles(keys, None, count)[0]
+    measure(torch, out, "tile_sort", src,
+            "src/repro/kernels/bitonic/bitonic.py:121", [runs],
+            [bref.sort_tiles_ref(keys, None, t, count)[0]],
+            lambda: bt.sort_tiles(keys, None, count),
+            lambda: bref.sort_tiles_ref(keys, None, t, count),
+            nbytes=8 * rows * C, ops=rows * C * (t.bit_length() - 1),
+            library=lambda: segments(keys, t), **info)
+    del keys
+    merged = torch.empty_like(runs)
+    measure(torch, out, "run_merge", src,
+            "src/repro/kernels/bitonic/bitonic.py:146",
+            [bt.merge_runs(runs, None, t, count)[0]],
+            [bref.merge_runs_ref(runs, None, t, count)[0]],
+            lambda: bt.ops.launch_run_merge(runs, None, count, t, C, merged,
+                                            None),
+            lambda: bref.merge_runs_ref(runs, None, t, count),
+            nbytes=8 * rows * C, ops=rows * C * t.bit_length(),
+            library=lambda: segments(runs, 2 * t), **info)
+    del runs, merged
+    torch.cuda.empty_cache()
+    return out
+
+
+def key_words(torch, x, device):
+    """numpy keys → the port's words (``key_to_int``) on ``device``."""
+    from repro_torch.core.types import key_to_int
+    return key_to_int(torch.from_numpy(x).to(device))
+
+
+def same_bits(np, a, b) -> bool:
+    """Two numpy keys or arrays equal bit for bit, dtype included."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def serve_args(torch, np, rng, x, oracle, batch):
+    """Query batches of phase 16 over keys ``x`` (numpy) with sorted
+    words ``oracle`` on the card: ranks with 1, 2, n/2, n − 1 and n;
+    percentiles with 0 and 100; k = 1 … batch; keys with the minimum, the
+    maximum and one absent from the data; intervals with an empty one
+    (lo = hi), one with hi < lo and (min, max)."""
+    n = len(x)
+    ranks = np.concatenate([[1, 2, n // 2, n - 1, n], rng.integers(
+        1, n + 1, size=batch - 5)]).astype(np.int64)
+    qs = np.concatenate([[0.0, 100.0], rng.uniform(0, 100, batch - 2)])
+    lo_key, hi_key = x.min(), x.max()
+    info = np.iinfo(x.dtype) if x.dtype.kind in "iu" else None
+    draws = (rng.integers(info.min, info.max, size=64, dtype=x.dtype,
+                          endpoint=True) if info is not None
+             else rng.uniform(-1e12, 1e12, 64).astype(x.dtype))
+    w = key_words(torch, draws, oracle.device)
+    absent = (torch.searchsorted(oracle, w) ==
+              torch.searchsorted(oracle, w, right=True)).cpu().numpy()
+    if not absent.any():
+        raise AssertionError("no absent key among 64 draws")
+    absent_key = draws[np.argmax(absent)]
+    keys = np.concatenate([[lo_key, hi_key, absent_key],
+                           x[rng.integers(0, n, batch - 3)]]).astype(x.dtype)
+    a, b = x[rng.integers(0, n, batch)], x[rng.integers(0, n, batch)]
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    lo[0] = hi[0]                                     # empty
+    lo[1], hi[1] = x.max(), x.min()                   # hi < lo
+    lo[2], hi[2] = x.min(), x.max()
+    return {"ranks": ranks, "q": qs, "k": np.arange(1, batch + 1),
+            "keys": keys, "lo": lo, "hi": hi}
+
+
+def serve_expected(torch, np, oracle, dtype, args):
+    """The oracle's answers (sorted words ``oracle`` on the card) to the
+    batches of :func:`serve_args`, as the port returns them."""
+    from repro_torch.core.queries import _np_keys
+    dev, n = oracle.device, oracle.numel()
+
+    def keys(words):
+        return _np_keys(words.cpu().numpy(), dtype)
+
+    def ranks(words):
+        return (torch.searchsorted(oracle, words).cpu().numpy(),
+                torch.searchsorted(oracle, words, right=True).cpu().numpy())
+
+    sel = oracle[torch.as_tensor(args["ranks"] - 1, device=dev)]
+    pct = oracle[torch.as_tensor(np.floor(args["q"] / 100.0 * (n - 1))
+                                 .astype(np.int64), device=dev)]
+    lo = torch.searchsorted(oracle, key_words(torch, args["lo"], dev))
+    hi = torch.searchsorted(oracle, key_words(torch, args["hi"], dev))
+    return {"select": (keys(sel),) + ranks(sel), "percentile": keys(pct),
+            "top_k": [keys(oracle[n - int(k):]) for k in args["k"]],
+            "rank_of_key": ranks(key_words(torch, args["keys"], dev)),
+            "range_query": np.maximum((hi - lo).cpu().numpy(), 0)}
+
+
+def serve_answers(np, Q, data, args, window=True):
+    """Every query kind over ``data`` on the batches of
+    :func:`serve_args` (``window`` for select_rank)."""
+    return {"select": Q.select_rank(data, args["ranks"], window=window),
+            "percentile": Q.percentile(data, args["q"]),
+            "top_k": Q.top_k(data, args["k"]),
+            "rank_of_key": Q.rank_of_key(data, args["keys"]),
+            "range_query": Q.range_query(data, args["lo"], args["hi"])}
+
+
+def same_answers(np, got, want) -> list:
+    """The kinds whose answers differ bit for bit."""
+    bad = []
+    for kind, w in want.items():
+        g = got[kind]
+        if isinstance(w, (tuple, list)):
+            ok = len(g) == len(w) and all(same_bits(np, a, b)
+                                          for a, b in zip(g, w))
+        else:
+            ok = same_bits(np, g, w)
+        if not ok:
+            bad.append(kind)
+    return bad
+
+
+def host_syncs(torch, fn) -> dict:
+    """Synchronising CUDA runtime calls of one ``fn()``, as
+    ``torch.profiler`` records them on the host, less those it records
+    around an empty window (its own)."""
+    from torch.profiler import ProfilerActivity, profile
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy")
+
+    def count(f):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            f()
+        return {e.key: e.count for e in prof.key_averages()
+                if e.key in names}
+    own, got = count(lambda: None), count(fn)
+    return {k: v - own.get(k, 0) for k, v in got.items()
+            if v != own.get(k, 0)}
+
+
+def device_breakdown(torch, fn, top: int = 8) -> dict:
+    """Where one ``fn()`` spends the card's time under ``torch.profiler``:
+    its wall, the device operations and their summed time, and the
+    ``top`` operation names by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + us)
+    busy = sum(t for _, t in by_name.values()) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_ops": sum(n for n, _ in by_name.values()),
+            "top": [{"name": name[:90], "launches": n, "ms": t / 1e3}
+                    for name, (n, t) in ranked]}
+
+
+def time_batch(torch, fn, reps: int = REPS):
+    """(median wall s of ``reps`` calls after a warm-up, peak bytes of one
+    call, its host syncs): each call ends with its answers on the host."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    peak = torch.cuda.max_memory_allocated()
+    return statistics.median(walls), peak, host_syncs(torch, fn)
+
+
+def service_run(torch, np, SortService, SortConfig, parse_mix, gen_stream,
+                keys, p, policy, queries, device, seed=0):
+    """The reference CLI's stream of ``queries`` requests over ``keys``
+    through one ``SortService``: (service, results in order, drain wall
+    s)."""
+    svc = SortService(keys, config=SortConfig(p=p, algorithm=SERVE_SORT),
+                      policy=policy, max_batch=SERVE_B, device=device)
+    rng = np.random.default_rng(seed)
+    pool = keys[rng.integers(0, len(keys), size=256)]
+    for kind, arg in gen_stream(rng, len(keys), queries,
+                                parse_mix(SERVE_MIX), pool):
+        svc.submit(kind, arg)
+    t0 = time.perf_counter()
+    done = svc.drain()
+    return svc, done, time.perf_counter() - t0
+
+
+def check_service(torch, np, done, oracle, dtype):
+    """Every answer of a drained stream against the oracle (sorted words
+    on the card; the keys are unsigned, so the key order is the word
+    order on both paths)."""
+    from repro_torch.core.queries import _np_keys
+    n = oracle.numel()
+    bad = 0
+    for r in done:
+        kind, arg, v = r.request.kind, r.request.arg, r.value
+        if kind == "top_k":
+            ok = same_bits(np, v, _np_keys(oracle[n - arg:].cpu().numpy(),
+                                           dtype))
+        elif kind == "percentile":
+            i = int(np.floor(arg / 100.0 * (n - 1)))
+            ok = same_bits(np, np.asarray(v), _np_keys(
+                oracle[i:i + 1].cpu().numpy(), dtype)[0])
+        elif kind == "rank_of_key":
+            w = key_words(torch, np.asarray([arg], dtype), oracle.device)
+            ok = tuple(v) == (int(torch.searchsorted(oracle, w)),
+                              int(torch.searchsorted(oracle, w, right=True)))
+        else:
+            lo, hi = key_words(torch, np.asarray(arg, dtype), oracle.device)
+            ok = int(v) == max(int(torch.searchsorted(oracle, hi[None]))
+                               - int(torch.searchsorted(oracle, lo[None])),
+                               0)
+        bad += not ok
+    return bad
+
+
+def serve_phase(torch, np, generate_instance, launch_counts,
+                reset_launch_counts, rams_wall):
+    """Phase 16: query serving over the RAMS cell's data on the card.
+
+    The ingest (``shard_data``, p = 256, n = 2^26 Uniform uint32): wall,
+    peak and launches, rows equal to the library's row sort; then on
+    Uniform, Zero and Staggered uint32 and int64 Uniform, every query kind
+    bit for bit against one ``torch.sort`` of the keys (select_rank with
+    the window on and off, percentile, top_k for k = 1 … 64 and 4096,
+    rank_of_key, range_query); the median wall of 5 per batch after a
+    warm-up, its host syncs and peak, beside phase 4's RAMS wall; the
+    reference CLI's stream of 512 queries through ``SortService`` under
+    ``selection``, ``fullsort`` and ``auto``, every answer against the
+    oracle; and the card against the CPU at p = 64, n = 2^20 (every kind
+    on uint32, int64, uint64 and float64 keys, the service under
+    ``selection`` and ``fullsort``, ``trace_query`` for every kind and
+    key width).  Returns the ingest's launches."""
+    from repro_torch.core import queries as Q
+    from repro_torch import SortConfig
+    from repro_torch.launch.sort_serve import (SortService, _gen_stream,
+                                               parse_mix)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    p, n = P_SERVE, 1 << LOG_N_SERVE
+
+    # --- the ingest
+    x = generate_instance("Uniform", p, n).astype(np.uint32)
+    Q.shard_data(x, p)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    data = Q.shard_data(x, p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rows = key_words(torch, x, dev).reshape(p, -1)
+    same = (torch.equal(data.keys, torch.sort(rows, dim=1)[0])
+            and bool((data.counts == n // p).all()))
+    row_sort_ms = cuda_ms(torch, lambda: torch.sort(rows, dim=1))
+    del rows
+    emit({"phase": "serve_ingest", "p": p, "n": n, "instance": "Uniform",
+          "wall_s": wall, "max_memory_allocated": peak,
+          "resident_bytes": data.keys.numel() * data.keys.element_size(),
+          "launches": launches, "rows_equal_library_sort": same,
+          "library_row_sort_ms": row_sort_ms})
+    if not same:
+        raise AssertionError("shard_data's rows differ from torch.sort")
+    missing = [k for k in ("tile_sort", "run_merge") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the ingest: "
+                             f"{missing}")
+
+    # --- every kind against the oracle, and the batches timed
+    rng = np.random.default_rng((16, 1))      # apart from the PEs' seeds
+    datasets = [(name, "uint32") for name in SERVE_INSTANCES] + [
+        ("Uniform", "int64")]
+    for name, dtype in datasets:
+        if dtype == "int64":
+            x = keys64(np, generate_instance, name, p, n, np.int64)
+        elif name != "Uniform":
+            x = generate_instance(name, p, n).astype(np.uint32)
+        if name != "Uniform" or dtype == "int64":
+            data = Q.shard_data(x, p)
+        oracle = torch.sort(key_words(torch, x, dev))[0]
+        args = serve_args(torch, np, rng, x, oracle, SERVE_B)
+        want = serve_expected(torch, np, oracle, x.dtype, args)
+        bad = {}
+        for window in ((True, False) if dtype == "uint32" else (True,)):
+            got = serve_answers(np, Q, data, args, window)
+            bad[f"window={window}"] = same_answers(np, got, want)
+        big = Q.top_k(data, SERVE_TOPK_BIG)
+        big_ok = same_bits(np, big, Q._np_keys(
+            oracle[n - SERVE_TOPK_BIG:].cpu().numpy(), x.dtype))
+        emit({"phase": "serve_oracle", "instance": name, "dtype": dtype,
+              "p": p, "n": n, "batch": SERVE_B, "differs": bad,
+              "top_k_4096_identical": big_ok})
+        if any(bad.values()) or not big_ok:
+            raise AssertionError(f"{name} {dtype}: answers differ from the "
+                                 f"oracle: {bad}, top_k 4096 {big_ok}")
+        if name == "Uniform":
+            batches = {
+                "select_rank": lambda: Q.select_rank(data, args["ranks"]),
+                "percentile": lambda: Q.percentile(data, args["q"]),
+                "top_k": lambda: Q.top_k(data, args["k"]),
+                "top_k_4096": lambda: Q.top_k(data, SERVE_TOPK_BIG),
+                "rank_of_key": lambda: Q.rank_of_key(data, args["keys"]),
+                "range_query": lambda: Q.range_query(data, args["lo"],
+                                                     args["hi"])}
+            if dtype == "uint32":
+                batches["select_rank_no_window"] = lambda: Q.select_rank(
+                    data, args["ranks"], window=False)
+            emit({"phase": "serve_breakdown", "kind": "select_rank",
+                  "dtype": dtype, "p": p, "n": n, "batch": SERVE_B,
+                  **device_breakdown(torch, batches["select_rank"])})
+            for kind, fn in batches.items():
+                med, bpeak, syncs = time_batch(torch, fn)
+                emit({"phase": "serve_batch", "kind": kind, "dtype": dtype,
+                      "p": p, "n": n,
+                      "batch": 1 if kind == "top_k_4096" else SERVE_B,
+                      "rounds": Q.n_rounds(data.bits) if kind not in (
+                          "rank_of_key", "range_query") else 0,
+                      "wall_s": med, "max_memory_allocated": bpeak,
+                      "host_syncs": syncs, "rams_psort_wall_s": rams_wall})
+        del data, oracle, x
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_oracle_done", "seconds": time.perf_counter() - t0})
+
+    # --- SortService at the cell: the CLI's stream, three policies
+    keys = np.random.default_rng(0).integers(0, 1 << 32, size=n).astype(
+        np.uint32)
+    oracle = torch.sort(key_words(torch, keys, dev))[0]
+    for policy in ("selection", "fullsort", "auto"):
+        svc, done, wall = service_run(torch, np, SortService, SortConfig,
+                                      parse_mix, _gen_stream, keys, p,
+                                      policy, SERVE_QUERIES, None)
+        bad = check_service(torch, np, done, oracle, keys.dtype)
+        routes = sorted({(r.request.kind, r.path) for r in done})
+        emit({"phase": "serve_service", "policy": policy, "p": p, "n": n,
+              "queries": len(done), "mix": SERVE_MIX, "sort": SERVE_SORT,
+              "drain_wall_s": wall, "steps": len({(r.request.kind,
+                                                   r.step_s) for r in done}),
+              "routes": [list(r) for r in routes], "stats": svc.stats(),
+              "wrong_answers": bad})
+        if bad or len(done) != SERVE_QUERIES:
+            raise AssertionError(f"SortService ({policy}): {bad} answers "
+                                 f"differ from the oracle")
+        del svc, done
+        torch.cuda.empty_cache()
+    del oracle, keys
+    emit({"phase": "serve_service_done",
+          "seconds": time.perf_counter() - t0})
+
+    # --- the card against the CPU at p = 64, n = 2^20
+    p, n = P_SERVE_CHECK, 1 << LOG_N_SERVE_CHECK
+    rng = np.random.default_rng((16, 2))
+    u = generate_instance("Uniform", p, n)
+    for dtype in (np.uint32, np.int64, np.uint64, np.float64):
+        x = u.astype(np.uint32) if dtype == np.uint32 else keys64(
+            np, generate_instance, "Uniform", p, n, dtype)
+        if dtype == np.float64:                     # both zeros
+            x[:4] = [0.0, -0.0, -0.0, 0.0]
+        dg, dc = Q.shard_data(x, p), Q.shard_data(x, p, device="cpu")
+        oracle = torch.sort(key_words(torch, x, "cpu"))[0]
+        args = serve_args(torch, np, rng, x, oracle, SERVE_B_CHECK)
+        bad = {"rows": not (torch.equal(dg.keys.cpu(), dc.keys)
+                            and torch.equal(dg.counts.cpu(), dc.counts))}
+        for window in ((True, False) if dtype == np.uint32 else (True,)):
+            bad[f"window={window}"] = same_answers(
+                np, serve_answers(np, Q, dg, args, window),
+                serve_answers(np, Q, dc, args, window))
+        emit({"phase": "serve_cuda_vs_cpu", "dtype": np.dtype(dtype).name,
+              "p": p, "n": n, "batch": SERVE_B_CHECK, "differs": bad})
+        if any(bad.values()):
+            raise AssertionError(f"{np.dtype(dtype).name}: card and CPU "
+                                 f"answers differ: {bad}")
+        del dg, dc, oracle
+    keys = u.astype(np.uint32)
+    for policy in ("selection", "fullsort"):
+        runs = [service_run(torch, np, SortService, SortConfig, parse_mix,
+                            _gen_stream, keys, p, policy,
+                            SERVE_QUERIES_CHECK, d)[1]
+                for d in ("cuda", "cpu")]
+        same = [(r.request.kind, r.path, r.batch) for r in runs[0]] == [
+            (r.request.kind, r.path, r.batch) for r in runs[1]] and all(
+            same_bits(np, np.asarray(a.value), np.asarray(b.value))
+            for a, b in zip(*runs))
+        emit({"phase": "serve_service_cuda_vs_cpu", "policy": policy,
+              "p": p, "n": n, "queries": SERVE_QUERIES_CHECK,
+              "identical": same})
+        if not same:
+            raise AssertionError(f"SortService ({policy}): card and CPU "
+                                 f"differ")
+    for dtype in (np.uint32, np.uint64):
+        for kind in Q.QUERY_KINDS:
+            if kind == "sort" and dtype == np.uint64:
+                continue                     # the sort's trace is uint32
+            tg, tc = (Q.trace_query(kind, n, p, batch=4, dtype=dtype, k=8,
+                                    device=d) for d in ("cuda", "cpu"))
+            same = [(e.primitive, e.bytes, e.group_size, e.axis, e.tag)
+                    for e in tg.events] == [
+                (e.primitive, e.bytes, e.group_size, e.axis, e.tag)
+                for e in tc.events]
+            emit({"phase": "serve_trace_cuda_vs_cpu", "kind": kind,
+                  "dtype": np.dtype(dtype).name, "p": p, "n": n,
+                  "identical": same, "summary": tg.summary(p)})
+            if not same:
+                raise AssertionError(f"trace_query({kind}, "
+                                     f"{np.dtype(dtype).name}) differs")
+    emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def check_external(torch, np, x_np, out, info, n):
     """Phase-6 assertions on one external psort result (all on the card):
     the lane ran, nothing overflowed, the output is the sorted input and
@@ -1764,7 +2244,7 @@ def main() -> int:
     # --- 4. psort end to end at p = 256, n = 2^26 ----------------------------
     n = 1 << LOG_N_MAIN
     cfg = SortConfig(p=P_MAIN, algorithm="rams")
-    main_launches = None
+    main_launches = rams_uniform_wall = None
     for i, name in enumerate(INSTANCES_MAIN):
         x = generate_instance(name, P_MAIN, n).astype(np.uint32)
         if i == 0:                                   # warm-up
@@ -1786,7 +2266,7 @@ def main() -> int:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{missing}")
         if main_launches is None:
-            main_launches = launches
+            main_launches, rams_uniform_wall = launches, wall
         emit({"phase": "psort", "instance": name, "p": P_MAIN, "n": n,
               "algorithm": info["algorithm"], "wall_s": wall,
               "keys_per_s": n / wall, "max_memory_allocated": peak,
@@ -1933,6 +2413,12 @@ def main() -> int:
                                    generate_instance, launch_counts,
                                    reset_launch_counts, trace_collectives)
     lap("15")
+
+    # --- 16. query serving ----------------------------------------------------
+    serve_rows = ingest_kernel_rows(torch)
+    serve_launches = serve_phase(torch, np, generate_instance, launch_counts,
+                                 reset_launch_counts, rams_uniform_wall)
+    lap("16")
     emit({"phase": "seconds", "of": "all",
           "seconds": time.perf_counter() - start})
 
@@ -1984,6 +2470,9 @@ def main() -> int:
         if row["name"] in RAMS_KERNELS:
             rows.append((row, "rams-nested",
                          batch_launches["rams-nested"][key]))
+    # phase 16: the serving ingest's local sort, with its launches
+    for key, row in serve_rows.items():
+        rows.append((row, "serve-ingest", serve_launches[key]))
     emit({"kernels": [
         {"name": row["name"], "variant": row["variant"], "path": path,
          "what": row.get("what"),

@@ -547,8 +547,16 @@ def psum(x: torch.Tensor, axis_index_groups=None,
         return psum(psum(x, axis=nest.inner), g, axis=nest.outer)
     note("psum", x, axis_index_groups=axis_index_groups, axis=axis)
     d, p = _split(x)
-    members, _ = _tables(p, _flat_groups(axis_index_groups, axis), x.device)
+    groups = _flat_groups(axis_index_groups, axis)
     rest = tuple(x.shape[1:])
+    if groups is None and not (x.dtype.is_floating_point
+                               or x.dtype == torch.bool):
+        # the whole axis on integers: one sum per sort, in any order the
+        # same bits, with no (p, p) gather
+        return x.reshape((d, p) + rest).sum(
+            dim=1, keepdim=True, dtype=x.dtype).expand(
+            (d, p) + rest).reshape(x.shape).contiguous()
+    members, _ = _tables(p, groups, x.device)
     return x.reshape((d, p) + rest)[:, members].sum(
         dim=2, dtype=x.dtype).reshape(x.shape)
 

@@ -1,10 +1,13 @@
-"""Approximate median selection with a single reduction (counterpart of
-the median-window functions of ``repro/core/median.py``; see there for the
-algorithm).
+"""Approximate median selection with a single reduction, and its rank
+generalisation (counterpart of the window functions of
+``repro/core/median.py``; see there for the algorithm).
 
 Every PE takes the k elements around its local median; at each butterfly
 step it exchanges its window with partner ``i ^ 2^t`` and keeps the middle
 k of the merged 2k, so every PE of the subcube ends with the same window.
+The rank windows do the same around a rank fraction per query (a batch of
+B of them at once), seeding the candidates of the selection queries
+(``queries.py``).
 
 Windows live in the reference's lifted space, real key u ↦ u + 1 with 0
 as the "-inf" filler and 2^64 − 1 as "+inf", a uint64.  The port holds a
@@ -94,6 +97,51 @@ def merge_windows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     k = a.shape[1]
     merged = torch.sort(torch.cat([a, b], dim=1), dim=1)[0]
     return merged[:, k // 2:k // 2 + k].contiguous()
+
+
+def local_rank_window(shard: SortShard, k: int,
+                      frac: torch.Tensor) -> torch.Tensor:
+    """Each PE's k elements around its local rank ``floor(frac·(m − 1))``
+    for each of the (B,) float64 rank fractions ``frac``, ±inf-filled:
+    (p, B, k) lifted words.  The start is computed in float64, cast to an
+    integer and moved ``− k/2 + 1``, as the reference computes it."""
+    assert k % 2 == 0, "window size k must be even"
+    m = shard.count
+    frac = torch.as_tensor(frac, dtype=torch.float64, device=m.device)
+    r = torch.floor(frac.reshape(1, -1) * torch.clamp(
+        m - 1, min=0).to(torch.float64)[:, None])                 # (p, B)
+    start = r.to(torch.int64) - k // 2 + 1
+    idx = start[:, :, None] + torch.arange(k, device=m.device)
+    got = torch.gather(shard.keys, 1, idx.clamp(0, shard.capacity - 1)
+                       .reshape(m.shape[0], -1)).reshape(idx.shape)
+    return torch.where(idx < 0, LO,
+                       torch.where(idx < m[:, None, None], lift(got), HI))
+
+
+def merge_rank_windows(a: torch.Tensor, b: torch.Tensor,
+                       frac: torch.Tensor) -> torch.Tensor:
+    """The k-window of the merged 2k at rank fraction ``frac`` (B,):
+    start ``clip(round(frac·2k) − k/2, 0, k)``, rounding half to even as
+    ``jnp.round`` does.  ``a``, ``b`` are (p, B, k)."""
+    k = a.shape[-1]
+    merged = torch.sort(torch.cat([a, b], dim=-1), dim=-1)[0]
+    frac = torch.as_tensor(frac, dtype=torch.float64, device=a.device)
+    start = torch.clamp(torch.round(frac * (2 * k)).to(torch.int32) - k // 2,
+                        0, k).to(torch.int64)                       # (B,)
+    idx = start[:, None] + torch.arange(k, device=a.device)         # (B, k)
+    return torch.gather(merged, -1, idx.expand(a.shape[:-1] + (k,)))
+
+
+def butterfly_rank_window(shard: SortShard, p: int, dims: Sequence[int],
+                          k: int, fracs: torch.Tensor) -> torch.Tensor:
+    """Per-query rank windows (p, B, k), agreed across the subcube spanned
+    by ``dims``: the leaf windows, then at each step the partner's
+    windows (one ``ppermute`` of the (B, k) words a PE) merged at each
+    query's fraction."""
+    w = local_rank_window(shard, k, fracs)
+    for t in dims:
+        w = merge_rank_windows(w, hc_exchange(w, p, t), fracs)
+    return w
 
 
 def butterfly_median_window(shard: SortShard, p: int, dims: Sequence[int],

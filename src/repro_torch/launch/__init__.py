@@ -1,0 +1,2 @@
+"""repro_torch.launch — entry points of the port: the sort service
+(``sort_serve``)."""

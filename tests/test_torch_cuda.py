@@ -515,3 +515,101 @@ def test_batched_and_nested_cuda_equal_cpu(dev, algorithm, layout):
     assert torch.equal(gi["counts"].cpu(), ci["counts"])
     assert gi["overflow"] == ci["overflow"]
     assert (gi["d"], gi["mesh_shape"]) == (ci["d"], ci["mesh_shape"])
+
+
+def _query_keys(dtype, p, n, name="Uniform"):
+    """An instance as keys of ``dtype``: uint32 words, the 8-byte words
+    ``u << 32 | u`` (int64 and uint64 view them), or float64 with both
+    zeros."""
+    u = generate_instance(name, p, n).astype(np.uint64)
+    if dtype == np.uint32:
+        return u.astype(np.uint32)
+    if dtype == np.float64:
+        x = (u.astype(np.float64) - 2.0 ** 31) * 0.37
+        x[:4] = [0.0, -0.0, -0.0, 0.0]
+        return x
+    return ((u << np.uint64(32)) | u).view(dtype)
+
+
+def _same_keys(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int64, np.uint64,
+                                   np.float64])
+@pytest.mark.parametrize("name", ["Uniform", "Zero", "Staggered"])
+def test_shard_data_cuda_equals_cpu(dev, dtype, name):
+    """The resident rows (the ingest's local sort) on the card equal the
+    CPU's, for n a multiple of p and not."""
+    from repro_torch.core.queries import shard_data
+    for p, n in ((64, 1 << 16), (16, 100_003)):
+        x = _query_keys(dtype, p, n, name)
+        g, c = shard_data(x, p, device=dev), shard_data(x, p, device="cpu")
+        assert torch.equal(g.keys.cpu(), c.keys)
+        assert torch.equal(g.counts.cpu(), c.counts)
+        assert (g.n, g.orig_dtype) == (c.n, c.orig_dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int64, np.uint64,
+                                   np.float64])
+@pytest.mark.parametrize("kind", ["select_rank", "select_rank_no_window",
+                                  "percentile", "top_k", "rank_of_key",
+                                  "range_query"])
+def test_queries_cuda_equal_cpu(dev, dtype, kind):
+    """Each query kind on the card against the CPU, bit for bit, at
+    p = 64, n = 2^16 over a batch of 16 (scalar forms too)."""
+    from repro_torch.core import queries as Q
+    p, n = 64, 1 << 16
+    x = _query_keys(dtype, p, n)
+    g, c = Q.shard_data(x, p, device=dev), Q.shard_data(x, p, device="cpu")
+    rng = np.random.default_rng((20, 1))
+    ranks = np.concatenate([[1, 2, n // 2, n], rng.integers(1, n, 12)])
+    keys = np.concatenate([x[:12], [x.min(), x.max()], x[-2:]]).astype(
+        x.dtype)
+    calls = {
+        "select_rank": lambda d: Q.select_rank(d, ranks),
+        "select_rank_no_window": lambda d: Q.select_rank(d, ranks,
+                                                         window=False),
+        "percentile": lambda d: (Q.percentile(d, np.linspace(0, 100, 16)),
+                                 Q.percentile(d, 50.0)),
+        "top_k": lambda d: Q.top_k(d, np.arange(1, 17) * 7) + [
+            Q.top_k(d, 4096)],
+        "rank_of_key": lambda d: Q.rank_of_key(d, keys) + Q.rank_of_key(
+            d, keys[0]),
+        "range_query": lambda d: (Q.range_query(d, keys[:8], keys[8:]),
+                                  Q.range_query(d, keys[3], keys[2])),
+    }
+    got, want = calls[kind](g), calls[kind](c)
+    assert len(got) == len(want)
+    assert all(_same_keys(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("policy", ["selection", "fullsort"])
+def test_sort_service_cuda_equals_cpu(dev, policy):
+    """The CLI's stream through ``SortService`` on the card and on the
+    CPU: the same answers, paths and batches."""
+    from repro_torch.launch.sort_serve import (SortService, _gen_stream,
+                                               parse_mix)
+    p, n = 16, 1 << 14
+    keys = np.random.default_rng(3).integers(0, 1 << 32, n).astype(
+        np.uint32)
+    runs = []
+    for d in (dev, "cpu"):
+        svc = SortService(keys, config=SortConfig(p=p, algorithm="rquick"),
+                          policy=policy, device=d)
+        rng = np.random.default_rng(4)
+        pool = keys[rng.integers(0, n, 256)]
+        for kind, arg in _gen_stream(rng, n, 80, parse_mix(
+                "top_k=4,percentile=2,rank_of_key=2,range_query=1,sort=1"),
+                pool):
+            svc.submit(kind, arg)
+        runs.append(svc.drain())
+    assert [(r.request.kind, r.path, r.batch) for r in runs[0]] == [
+        (r.request.kind, r.path, r.batch) for r in runs[1]]
+    for a, b in zip(*runs):
+        va, vb = a.value, b.value
+        if torch.is_tensor(va):
+            va, vb = va.cpu().numpy(), vb.numpy()
+        assert _same_keys(va, vb), a.request
