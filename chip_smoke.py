@@ -147,6 +147,24 @@ Phases, each fatal on failure (no phase catches its own error):
    ``fullsort``, ``trace_query`` for every kind and key width).  The
    ``kernels`` line gains the ``serve-ingest`` rows with the ingest's
    launches.
+17. faults and elastic rescale (``SortConfig(fault_policy=...)``): the
+   card against the CPU bit for bit (output, counts, overflow, perm, the
+   fault record, the attempts and every trace event) for the reference's
+   fast-lane cases at p = 8 (a kill and a straggler for GatherM,
+   AllGatherM, RFIS, RQuick, RAMS, bitonic and SSort; the nested (2, 4)
+   kill; batched RQuick; ``"auto"``; two kills; the exhausted budget) and
+   for the external lane at p = 16, n = 2^20 (kills in ``ext:merge`` and
+   ``ext:pass1``, a rescale that crosses into the lane); a kill in RAMS's
+   ``level1`` at p = 256, n = 2^25 and a straggler there, each equal bit
+   for bit to the fault-free sort at p = 128, with each attempt's wall,
+   the total against that sort's wall, the rescaled attempt's peak against
+   its peak, each over the allocation before its call (at most 5 % more),
+   and every RAMS kernel launched; and the
+   RAMS cell (p = 256, n = 2^26) with that kill, whose rescale to p = 128
+   is refused (capacity 2^20), as the reference's, with the memory
+   released.  The ``kernels`` line gains the ``rams-fault`` rows (the RAMS
+   kernels at the rescaled attempt's shapes) with the killed run's
+   launches.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
@@ -154,8 +172,10 @@ Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 ``bitonic`` and ``ntb-ams`` (10; ``ssort`` also 14), all but the AMS
 family on 8-byte keys (11), ``"auto"`` (13), every in-core one on
 batched keys and nested meshes (15), and the query path with its ingest
-(the local sort) and bitonic behind the service's sorted copy (16).  Each
-phase prints its seconds.
+(the local sort) and bitonic behind the service's sorted copy (16), and
+the fault lane over seven algorithms and the external lane (17).  Before
+phase 1 the script checks that the kernels are switched on
+(``local_kernels()``).  Each phase prints its seconds.
 
 It imports torch, numpy and the port only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -275,6 +295,16 @@ SERVE_MIX = "top_k=4,percentile=2,rank_of_key=2,range_query=1"
 SERVE_SORT = "bitonic"
 P_SERVE_CHECK, LOG_N_SERVE_CHECK = P_CHECK, LOG_N_CHECK
 SERVE_B_CHECK, SERVE_QUERIES_CHECK = 16, 64
+# phase 17: the fault lane.  The card against the CPU at p = 8 for the
+# reference's fast-lane algorithms; the lane's crossing budget lies between
+# n/16 and n/8 at its check cell; RAMS killed at n = 2^25 (p = 256 → 128,
+# capacity 2^19: survivable) and at the RAMS cell (→ capacity 2^20, which
+# RAMS refuses, as the reference does); the memory slack of its checks
+FAULT_ALGOS = ("gatherm", "allgatherm", "rfis", "rquick", "rams", "bitonic",
+               "ssort")
+BUDGET_FAULT_CROSS = 3 << 15
+LOG_N_FAULT = 25
+FAULT_SLACK = 64 << 20
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -1478,17 +1508,29 @@ def batch_kernel_rows(torch):
     row, and every classify variant and ``partition_rank`` with nb = 64
     on the level's (1024, 2^18) sorted keys with ~2^16 valid.  Returns
     (rows keyed by launch key, [(row, paths)] of the local sort)."""
+    return rams_kernel_rows(torch, D_BATCH * P_MAIN, P_MAIN,
+                            1 << (LOG_N_BATCH - LOG_P_MAIN), "rams-batched",
+                            seed=15)
+
+
+def rams_kernel_rows(torch, rows, p, per, path, seed):
+    """The RAMS kernels at the shapes of level 0 of a sort of ``rows``
+    rows of ``per`` keys on p PEs (rows = d·p), as phase 3 times them:
+    ``tile_sort`` and one ``run_merge`` pass on the level's route output
+    (rows, p·slot_cap) and every classify variant and ``partition_rank``
+    with nb = 64 on its (rows, 4·per) sorted keys (the shuffle's
+    capacity), ~per valid keys per row in both.  Returns (rows keyed by
+    launch key, [(row, paths)] of the local sort)."""
+    from repro_torch.core.rams import _slot_cap
     from repro_torch.kernels import partition as pt
     from repro_torch.kernels.partition import ref as pref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
-    g.manual_seed(15)
-    rows = D_BATCH * P_MAIN
-    per = 1 << (LOG_N_BATCH - LOG_P_MAIN)
+    g.manual_seed(seed)
+    C, nb = 4 * per, 64
     count = per - (torch.arange(rows, device=dev) * 997) % 2000
-    sort_rows = sort_kernel_rows(torch, g, rows, P_MAIN * 2246, count,
-                                 ("rams-batched",), merge=True)
-    C, nb = 1 << 18, 64
+    sort_rows = sort_kernel_rows(torch, g, rows, p * _slot_cap(C, p, 2.0),
+                                 count, (path,), merge=True)
     col = torch.arange(C, device=dev)
     keys = torch.sort(torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, C),
                                     generator=g, device=dev,
@@ -1507,7 +1549,7 @@ def batch_kernel_rows(torch):
         torch.int32).contiguous()
     del pick, comp
     results = partition_rows(torch, keys, ties, s_keys, s_ties, count, nb,
-                             path="rams-batched")
+                             path=path)
     bucket, th = pt.classify(keys, ties, s_keys, s_ties, count, n_buckets=nb)
     off = torch.cumsum(th, dim=1, dtype=torch.int32) - th
     valid = int(count.sum())
@@ -1517,7 +1559,7 @@ def batch_kernel_rows(torch):
             lambda: pt.rank(bucket, off, n_buckets=nb),
             lambda: pref.rank_ref(bucket, off, n_buckets=nb, tile=pt.PTILE),
             nbytes=8 * rows * C + 4 * th.numel(), ops=valid,
-            shape=[rows, C], path="rams-batched")
+            shape=[rows, C], path=path)
     del keys, ties, s_keys, s_ties, bucket, th, off
     torch.cuda.empty_cache()
     return results, sort_rows
@@ -2168,6 +2210,263 @@ def serve_phase(torch, np, generate_instance, launch_counts,
     return launches
 
 
+def fault_events(trace):
+    return [(e.primitive, e.bytes, e.group_size, e.axis, e.tag, e.pe)
+            for e in trace.events]
+
+
+def fault_run(torch, psort, SortConfig, x, faults, device, policy_kw=None,
+              **cfg):
+    """psort under the fault plan ``faults`` on ``device``: (out, info) or
+    the error it raised, and the policy (its attempts and trace)."""
+    from repro_torch.core import comm
+    from repro_torch.runtime import FaultPolicy
+    pol = FaultPolicy(plan=comm.FaultPlan(tuple(faults)),
+                      **(policy_kw or {}))
+    try:
+        out = psort(x, SortConfig(fault_policy=pol, **cfg), return_info=True,
+                    device=device)
+    except comm.PEFailure as e:
+        out = e
+    return out, pol
+
+
+def same_fault_run(torch, a, b) -> bool:
+    """Two fault runs (card, CPU) equal: output, counts, overflow, perm,
+    ``info["fault"]`` (or the same PEFailure), the attempts and every
+    trace event."""
+    (ra, pa), (rb, pb) = a, b
+    if pa.attempts != pb.attempts or \
+            fault_events(pa.trace) != fault_events(pb.trace):
+        return False
+    if isinstance(ra, Exception) or isinstance(rb, Exception):
+        return (type(ra) is type(rb) and str(ra) == str(rb))
+    (ao, ai), (bo, bi) = ra, rb
+    rows = ao if isinstance(ao, list) else [ao]
+    rows_b = bo if isinstance(bo, list) else [bo]
+    return (len(rows) == len(rows_b)
+            and all(same_rows(torch, u, v) for u, v in zip(rows, rows_b))
+            and torch.equal(ai["perm"].cpu(), bi["perm"].cpu())
+            and torch.equal(ai["counts"].cpu(), bi["counts"].cpu())
+            and ai["overflow"] == bi["overflow"]
+            and ai["fault"] == bi["fault"])
+
+
+def fault_phase(torch, np, psort, SortConfig, ExternalPolicy,
+                generate_instance, launch_counts, reset_launch_counts):
+    """Phase 17: the fault lane (``SortConfig(fault_policy=...)``).
+
+    (a) the card against the CPU, bit for bit, at p = 8: the reference's
+    fast-lane cases (a kill and a straggler for seven algorithms, attempts
+    8 → 4 → 2; the nested (2, 4) kill; batched RQuick; ``"auto"``; two
+    kills; the exhausted budget); (b) the external lane at its check cell
+    (p = 16, n = 2^20, budget 2^13): kills tagged ``ext:merge`` and
+    ``ext:pass1``, and a rescale from p = 16 to 8 that crosses into the
+    lane (budget 3·2^15, between n/16 and n/8), with ``kway_classify``
+    launched; (c) a kill in RAMS's ``level1`` at p = 256, n = 2^25: the
+    rescaled attempt at p = 128 equals the fault-free sort there bit for
+    bit, each attempt's wall, the rescaled attempt's peak against the
+    fault-free one's (the policy's logger resets the peak at the rescale
+    and reads the allocation there), every RAMS kernel launched; (d) the
+    same cell with a straggler (the first attempt completes, then is
+    flagged); (e) the RAMS cell itself (p = 256, n = 2^26) with the kill
+    of (c): the rescaled attempt's capacity 2^20 is refused as in the
+    reference, and the dead attempts' memory is released.  Returns the
+    launches of (c)."""
+    from repro_torch.core import comm
+    t0 = time.perf_counter()
+
+    # (a) card against CPU at p = 8
+    x8 = generate_instance("Uniform", 8, 8 * 1024).astype(np.int32)
+    r = np.random.default_rng(3)
+    cases = [(f"{a}-kill-straggler", x8,
+              [comm.kill_pe(2), comm.delay_pe(1, factor=8.0)], None,
+              {"p": 8, "algorithm": a}) for a in FAULT_ALGOS]
+    cases += [
+        ("rams-nested-kill", x8, [comm.kill_pe(5)], None,
+         {"mesh_shape": (2, 4), "algorithm": "rams"}),
+        ("rquick-batched-kill", r.integers(0, 1 << 20, size=(3, 4 * 1024)
+                                           ).astype(np.int32),
+         [comm.kill_pe(1)], None, {"p": 4, "algorithm": "rquick"}),
+        ("auto-kill", x8, [comm.kill_pe(0)], None,
+         {"p": 8, "algorithm": "auto"}),
+        ("rfis-two-kills", x8, [comm.kill_pe(6), comm.kill_pe(1, after=2)],
+         None, {"p": 8, "algorithm": "rfis"}),
+        ("rquick-budget-exhausted", np.arange(4096, dtype=np.int32),
+         [comm.kill_pe(0), comm.kill_pe(1)], {"max_restarts": 1},
+         {"p": 4, "algorithm": "rquick"}),
+    ]
+    for label, x, faults, pkw, cfg in cases:
+        card = fault_run(torch, psort, SortConfig, x, faults, "cuda", pkw,
+                         **cfg)
+        cpu = fault_run(torch, psort, SortConfig, x, faults, "cpu", pkw,
+                        **cfg)
+        same = same_fault_run(torch, card, cpu)
+        emit({"phase": "fault_cuda_vs_cpu", "case": label,
+              "attempts": card[1].attempts, "identical": same,
+              "error": type(card[0]).__name__
+              if isinstance(card[0], Exception) else None})
+        if not same:
+            raise AssertionError(f"fault case {label}: cuda and cpu differ")
+        if isinstance(card[0], Exception) != (pkw is not None):
+            raise AssertionError(f"fault case {label}: {card[0]!r}")
+        del card, cpu
+
+    # (b) the external lane at its check cell
+    n = 1 << LOG_N_EXT_CHECK
+    x = generate_instance("Uniform", P_EXT, n).astype(np.uint32)
+    for label, faults, budget in (
+            ("ext-merge-kill", [comm.kill_pe(3, tag="ext:merge")],
+             BUDGET_EXT_CHECK),
+            ("ext-pass1-kill", [comm.kill_pe(1, tag="ext:pass1")],
+             BUDGET_EXT_CHECK),
+            ("ext-crossing", [comm.kill_pe(2)], BUDGET_FAULT_CROSS)):
+        cfg = {"p": P_EXT, "external": ExternalPolicy(budget=budget)}
+        reset_launch_counts()
+        card = fault_run(torch, psort, SortConfig, x, faults, "cuda", **cfg)
+        launches = launch_counts()
+        cpu = fault_run(torch, psort, SortConfig, x, faults, "cpu", **cfg)
+        same = same_fault_run(torch, card, cpu)
+        algos = [a["algorithm"] for a in card[1].attempts]
+        emit({"phase": "fault_external", "case": label, "p": P_EXT, "n": n,
+              "budget": budget, "attempts": card[1].attempts,
+              "identical": same, "launches": launches})
+        if not same:
+            raise AssertionError(f"fault case {label}: cuda and cpu differ")
+        if isinstance(card[0], Exception) or algos[-1] != "external" or \
+                launches["kway_classify"] <= 0:
+            raise AssertionError(f"fault case {label}: {algos}, {launches}")
+        if label == "ext-crossing" and algos[0] == "external":
+            raise AssertionError(f"no crossing into the lane: {algos}")
+        check_external(torch, np, x, card[0][0], card[0][1], n)
+        del card, cpu
+    emit({"phase": "fault_checks_done", "seconds": time.perf_counter() - t0})
+
+    # (c) and (d): RAMS at p = 256, n = 2^25, killed or straggling
+    n = 1 << LOG_N_FAULT
+    x = generate_instance("Uniform", P_MAIN, n).astype(np.uint32)
+    ref_cfg = SortConfig(p=P_MAIN // 2, algorithm="rams")
+    psort(x, ref_cfg)                                # warm-up at p = 128
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    ref = timed_psort(torch, psort, x, ref_cfg, reset_launch_counts,
+                      launch_counts)
+    check_sorted(torch, np, x, ref[0], ref[1], n)
+    fault_launches = None
+    for label, fault in (("kill", comm.kill_pe(17, tag="level1")),
+                         ("straggler", comm.delay_pe(5, factor=8.0))):
+        run = timed_fault(torch, psort, SortConfig, x, fault, P_MAIN,
+                          reset_launch_counts, launch_counts)
+        out, info = run["result"]
+        same = same_result(torch, (out, info), ref[:2])
+        check_sorted(torch, np, x, out, info, n)
+        attempts = [(a["p"], a["ok"]) for a in run["attempts"]]
+        missing = [k for k in RAMS_LAUNCHES if run["launches"][k] <= 0]
+        # each peak over what was allocated before its call (the fault
+        # runs hold the p = 128 result beside them)
+        peak_ratio = (run["rescaled_peak"] - run["before"]) / (ref[4] - base)
+        emit({"phase": "fault_rams", "case": label, "p": P_MAIN, "n": n,
+              "fault": [fault.kind, fault.pe, fault.tag, fault.factor],
+              "attempts": attempts, "identical_to_p128": same,
+              "attempt_walls_s": run["walls"], "total_wall_s": run["wall"],
+              "p128_wall_s": ref[2],
+              "total_over_p128": run["wall"] / ref[2],
+              "rescaled_peak": run["rescaled_peak"], "p128_peak": ref[4],
+              "p128_allocated_before": base,
+              "rescaled_peak_over_p128": peak_ratio,
+              "allocated_at_rescale": run["at_rescale"],
+              "allocated_before": run["before"],
+              "overflow": info["overflow"], "launches": run["launches"]})
+        if attempts != [(P_MAIN, False), (P_MAIN // 2, True)] or not same:
+            raise AssertionError(f"fault {label}: attempts {attempts}, "
+                                 f"identical {same}")
+        if peak_ratio > 1.05:
+            raise AssertionError(f"fault {label}: the rescaled attempt's "
+                                 f"peak is {peak_ratio:.3f}x the p = 128 "
+                                 f"sort's")
+        if missing:
+            raise AssertionError(f"kernels never launched on the fault "
+                                 f"path: {missing}")
+        if fault_launches is None:
+            fault_launches = run["launches"]
+        del run, out, info
+    del ref, x
+    torch.cuda.empty_cache()
+    emit({"phase": "fault_rams_done", "seconds": time.perf_counter() - t0})
+
+    # (e) the RAMS cell: the rescale to p = 128 passes RAMS's capacity
+    n = 1 << LOG_N_MAIN
+    x = generate_instance("Uniform", P_MAIN, n).astype(np.uint32)
+    err, seen = None, {}
+    try:
+        timed_fault(torch, psort, SortConfig, x,
+                    comm.kill_pe(17, tag="level1"), P_MAIN,
+                    reset_launch_counts, launch_counts, record=seen)
+    except ValueError as e:
+        err = str(e)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    attempts = [(a["p"], a["ok"]) for a in seen["policy"].attempts]
+    words = 4 * n
+    emit({"phase": "fault_rams_cell", "p": P_MAIN, "n": n, "error": err,
+          "attempts": attempts, "allocated_before": seen["before"],
+          "allocated_at_rescale": seen["at_rescale"],
+          "allocated_after": after, "input_device_bytes": words,
+          "peak_after_rescale": torch.cuda.max_memory_allocated()})
+    if err is None or "capacity < 2^20" not in err:
+        raise AssertionError(f"the RAMS cell's rescale did not fail as the "
+                             f"reference's: {err!r}")
+    if attempts != [(P_MAIN, False), (P_MAIN // 2, False)]:
+        raise AssertionError(f"the RAMS cell's attempts: {attempts}")
+    if after > seen["before"] + FAULT_SLACK or \
+            seen["at_rescale"][0] > seen["before"] + words + FAULT_SLACK:
+        raise AssertionError("the dead attempts' memory was not released")
+    del x
+    torch.cuda.empty_cache()
+    emit({"phase": "fault_done", "seconds": time.perf_counter() - t0})
+    return fault_launches
+
+
+def timed_fault(torch, psort, SortConfig, x, fault, p, reset_launch_counts,
+                launch_counts, record=None):
+    """RAMS at p under one fault, timed: its result, each attempt's wall
+    (the rescale ends the first), the total, the allocation before the
+    call and at each rescale, the rescaled attempt's peak (the logger
+    resets it) and the launches.  ``record`` gets the policy and the
+    allocations as they are taken, for a run that raises."""
+    from repro_torch.core import comm
+    from repro_torch.runtime import FaultPolicy
+    rec = {} if record is None else record
+    marks, at_rescale = [], []
+
+    def logger(msg):
+        if msg.startswith("[psort]"):           # psort's rescale
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            at_rescale.append(torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+    pol = FaultPolicy(plan=comm.FaultPlan((fault,)), logger=logger)
+    rec.update(policy=pol, at_rescale=at_rescale)
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    rec["before"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    result = psort(x, SortConfig(p=p, algorithm="rams", fault_policy=pol),
+                   return_info=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    edges = [t0] + marks + [t1]
+    return {"result": result, "attempts": pol.attempts,
+            "walls": [b - a for a, b in zip(edges, edges[1:])],
+            "wall": t1 - t0, "before": rec["before"],
+            "at_rescale": at_rescale,
+            "rescaled_peak": torch.cuda.max_memory_allocated(),
+            "launches": launch_counts()}
+
+
 def check_external(torch, np, x_np, out, info, n):
     """Phase-6 assertions on one external psort result (all on the card):
     the lane ran, nothing overflowed, the output is the sorted input and
@@ -2201,8 +2500,13 @@ def main() -> int:
     from repro_torch import (ExternalPolicy, SortConfig, psort,
                              trace_collectives)
     from repro_torch.data import generate_instance
+    from repro_torch.core import local_kernels
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 
+    kernels_on = local_kernels()
+    if not (kernels_on.sort and kernels_on.partition):
+        return fail(f"the kernels are switched off ({kernels_on}): unset "
+                    f"REPRO_LOCAL_KERNELS / REPRO_PALLAS_LOCAL_SORT")
     start = clock = time.perf_counter()
 
     def lap(name):
@@ -2221,7 +2525,9 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "local_kernels": {"sort": kernels_on.sort,
+                            "partition": kernels_on.partition}})
 
     # --- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2419,6 +2725,15 @@ def main() -> int:
     serve_launches = serve_phase(torch, np, generate_instance, launch_counts,
                                  reset_launch_counts, rams_uniform_wall)
     lap("16")
+
+    # --- 17. faults and elastic rescale --------------------------------------
+    fault_rows, fault_sort_rows = rams_kernel_rows(
+        torch, P_MAIN // 2, P_MAIN // 2, (1 << LOG_N_FAULT) // (P_MAIN // 2),
+        "rams-fault", seed=17)
+    fault_launches = fault_phase(torch, np, psort, SortConfig,
+                                 ExternalPolicy, generate_instance,
+                                 launch_counts, reset_launch_counts)
+    lap("17")
     emit({"phase": "seconds", "of": "all",
           "seconds": time.perf_counter() - start})
 
@@ -2473,6 +2788,12 @@ def main() -> int:
     # phase 16: the serving ingest's local sort, with its launches
     for key, row in serve_rows.items():
         rows.append((row, "serve-ingest", serve_launches[key]))
+    # phase 17: the RAMS kernels at the rescaled attempt's shapes (p = 128,
+    # n = 2^25), with the killed run's launches (both attempts)
+    for key, row in fault_rows.items():
+        rows.append((row, "rams-fault", fault_launches[key]))
+    for row, paths in fault_sort_rows:
+        rows.append((row, "rams-fault", fault_launches[launch_key(row)]))
     emit({"kernels": [
         {"name": row["name"], "variant": row["variant"], "path": path,
          "what": row.get("what"),

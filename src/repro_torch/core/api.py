@@ -11,9 +11,19 @@ once over all rows.  A batch of d sorts is d·p rows, sort r's PE i at row
 every collective decomposed over the two real axes (``comm.nested``).
 ``SortConfig(external=ExternalPolicy(budget))`` streams shards larger than
 ``budget`` through the device in runs (``external.py``), exactly when the
-reference does.  The port runs on
-``cuda`` unless the caller passes ``device="cpu"``, where every kernel
-wrapper takes its plain version; it never moves to the CPU on its own.
+reference does.  ``SortConfig(fault_policy=FaultPolicy(...))`` runs the
+sort under planned PE kills and stragglers, re-running it on the
+surviving power-of-two topology after each (``_psort_faulty``).  The port
+runs on ``cuda`` unless the caller passes ``device="cpu"``, where every
+kernel wrapper takes its plain version; it never moves to the CPU on its
+own.
+
+The reference's legacy call styles work as there, each with one
+``DeprecationWarning``: ``psort(keys, 8, ...)`` (a bare int is p),
+``psort(keys, p=8, algorithm=..., ...)`` (keywords split into the
+config's fields and ``algo_kw`` by :meth:`SortConfig.from_kwargs`) and
+``trace_collectives(n, p, algorithm, capacity_factor)``; mixing them with
+a ``SortConfig`` raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ import dataclasses
 import functools
 import math
 import os
+import traceback
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -39,6 +51,8 @@ from .rquick import rquick
 from .samplesort import samplesort
 from .types import (int_to_key, key_to_int, make_shard, pad_value,
                     resolve_device)
+from ..runtime.elastic import plan_sort_rescale
+from ..runtime.failures import flag_stragglers, run_with_restarts
 
 # knobs of the reference's SortConfig that this port does not honour yet:
 # the values it accepts (the reference's defaults) and the ROADMAP item
@@ -46,7 +60,6 @@ from .types import (int_to_key, key_to_int, make_shard, pad_value,
 _UNPORTED = {
     "mesh": ((None,), "item 7 (torch.distributed backend)"),
     "axis": (("sort",), "item 7 (torch.distributed backend)"),
-    "fault_policy": ((None,), "item 8 (faults and elastic rescale)"),
 }
 # the ported algorithms: each one's function and the keywords it takes
 _RAMS_KW = ("seed", "levels", "level_bits", "oversample", "tie_break",
@@ -112,10 +125,13 @@ class SortConfig:
     nested mesh of p = p_o·p_i PEs (``p`` may be left out), its real axes
     named by ``mesh_axes`` (outer, inner); ``data_axis`` names the axis of
     a batch of 2-D keys, as in the reference (the sim layout reads no
-    name).  The reference's other knobs are taken at their default values
-    (``mesh`` and ``fault_policy`` None, ``axis`` "sort"); any other value
-    of one raises ``NotImplementedError`` naming the ROADMAP item that
-    brings it."""
+    name).  ``fault_policy`` (a ``repro_torch.runtime.FaultPolicy``, which
+    psort writes its trace and attempts back to; it takes no part in
+    equality) runs the fault lane.  The reference's other knobs are taken
+    at their default values (``mesh`` None, ``axis`` "sort"); any other
+    value of one raises ``NotImplementedError`` naming the ROADMAP item
+    that brings it.  :meth:`from_kwargs` builds a config from the flat
+    keywords of the reference's legacy call style."""
 
     p: Optional[int] = None
     backend: str = "sim"
@@ -129,12 +145,14 @@ class SortConfig:
     data_axis: str = "data"
     mesh_shape: Optional[tuple] = None
     mesh_axes: tuple = ("inter", "intra")
+    fault_policy: Optional[object] = dataclasses.field(default=None,
+                                                       compare=False)
 
     def __init__(self, p=None, backend="sim", algorithm="auto",
                  capacity_factor=2.0, levels=None, algo_kw=(), external=None,
                  cost_model=None, overlap=False, data_axis="data",
                  mesh_shape=None, mesh_axes=("inter", "intra"),
-                 **unported):
+                 fault_policy=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"SortConfig got an unexpected keyword "
@@ -189,11 +207,53 @@ class SortConfig:
                             ("data_axis", data_axis),
                             ("mesh_shape", None if mesh_shape is None
                              else tuple(int(v) for v in mesh_shape)),
-                            ("mesh_axes", tuple(mesh_axes))):
+                            ("mesh_axes", tuple(mesh_axes)),
+                            ("fault_policy", fault_policy)):
             object.__setattr__(self, name, value)
+
+    @classmethod
+    def from_kwargs(cls, **kw) -> "SortConfig":
+        """Split a flat legacy-style kwarg dict into config fields plus
+        ``algo_kw`` (anything that is not a field)."""
+        cfg = {k: kw.pop(k) for k in list(kw) if k in _CONFIG_FIELDS}
+        return cls(algo_kw=kw, **cfg)
 
     def replace(self, **changes) -> "SortConfig":
         return dataclasses.replace(self, **changes)
+
+
+# the reference's field names (the unported ones included): what a legacy
+# keyword call passes as a field rather than as an algorithm keyword
+_CONFIG_FIELDS = frozenset(
+    {f.name for f in dataclasses.fields(SortConfig)} | set(_UNPORTED)
+) - {"algo_kw"}
+
+
+def _coerce_config(config, legacy: dict, caller: str) -> SortConfig:
+    """Resolve the (config | legacy kwargs) call styles to one SortConfig,
+    as the reference does: exactly one ``DeprecationWarning`` per
+    legacy-style call, and ``TypeError`` where the styles mix.  A bare int
+    ``config`` is the old positional ``p``."""
+    if isinstance(config, (int, np.integer)):      # legacy positional p
+        legacy = {"p": int(config), **legacy}
+        config = None
+    if config is not None:
+        if legacy:
+            raise TypeError(
+                f"{caller}() got both config= and legacy keyword arguments "
+                f"{sorted(legacy)}; move them into the SortConfig")
+        if not isinstance(config, SortConfig):
+            raise TypeError(f"{caller}() config must be a SortConfig, got "
+                            f"{type(config).__name__}")
+        return config
+    if not legacy:
+        return SortConfig()
+    warnings.warn(
+        f"{caller}(keys, p=..., algorithm=..., ...) keyword style is "
+        f"deprecated; pass {caller}(..., config=SortConfig(...)) instead "
+        f"(field mapping: README 'Migrating to SortConfig')",
+        DeprecationWarning, stacklevel=3)
+    return SortConfig.from_kwargs(**legacy)
 
 
 def _sort_body(keys2d, row_counts, p, capacity, out_capacity, algorithm,
@@ -222,7 +282,7 @@ def _sort_body(keys2d, row_counts, p, capacity, out_capacity, algorithm,
 
 
 def psort(keys, config: Optional[SortConfig] = None, *,
-          return_info: bool = False, device=None):
+          return_info: bool = False, device=None, **legacy):
     """Sort 1-D keys, or each row of 2-D (d, n) keys, (int32, uint32,
     float32, int64, uint64 or float64; numpy or torch) with
     ``config.algorithm`` (see :class:`SortConfig`) over p emulated PEs.
@@ -263,8 +323,19 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     ``config.cost_model`` (the card's profile when None), which ``info``
     names; ``overlap=True`` streams the slotted exchanges, with the same
     result (on a nested mesh the exchanges run as barriers, as in the
-    reference)."""
-    cfg = config if config is not None else SortConfig()
+    reference).
+
+    With ``config.fault_policy`` the sort runs the reference's fault lane
+    (:func:`_psort_faulty`): the policy's planned kills and stragglers
+    exclude PEs, and the sort re-runs on the surviving power-of-two
+    topology; ``info`` then adds ``fault`` ({p_final, failed, restarts,
+    attempts}) and ``comm_trace``, and has no ``external`` or
+    ``pass_seconds``, as the reference's.
+
+    The reference's legacy styles are taken (a bare int for p, or the
+    config's fields and algorithm keywords as keywords), each with one
+    ``DeprecationWarning``; ``device`` is the port's own keyword."""
+    cfg = _coerce_config(config, legacy, "psort")
     dev = resolve_device(device)
     x = torch.from_numpy(np.ascontiguousarray(keys)) \
         if isinstance(keys, np.ndarray) else torch.as_tensor(keys)
@@ -285,20 +356,16 @@ def psort(keys, config: Optional[SortConfig] = None, *,
         raise ValueError("algorithm='external' needs external="
                          "ExternalPolicy(...) (or REPRO_EXTERNAL_BUDGET)")
     n = x.shape[-1]
-    per = -(-max(n, 1) // p)                              # ceil(n/p)
     if x.dtype not in _KEY_DTYPES:
-        raise ValueError(f"psort sorts int32, uint32, float32, int64, uint64 "
-                         f"or float64 keys; got {x.dtype}")
-    algorithm = _resolve_algorithm(cfg, n, p, external, mesh_shape)
-    if external is not None and (algorithm == "external"
-                                 or per > external.budget):
-        return _psort_external(x, n, p, external, return_info, dev,
-                               cfg.overlap)
-    orig_dtype = x.dtype
-    s = key_to_int(x.to(dev))
-    del x
-    return _psort_incore(s if batched else s[None], orig_dtype, n, p, cfg,
-                         algorithm, return_info, dev, batched, mesh_shape)
+        raise TypeError(f"unsupported key dtype {x.dtype}: psort sorts "
+                        f"int32, uint32, float32, int64, uint64 or float64 "
+                        f"keys")
+    if cfg.fault_policy is not None:
+        return _psort_faulty(x, n, p, cfg, external, mesh_shape, batched,
+                             return_info, dev)
+    return _sort_routed(x, {}, _route(cfg, n, p, external, mesh_shape), n,
+                        p, mesh_shape, cfg, external, batched, return_info,
+                        dev)
 
 
 def _topology(cfg: SortConfig, missing_p: str):
@@ -322,15 +389,40 @@ def _topology(cfg: SortConfig, missing_p: str):
     return p, mesh_shape
 
 
-def _resolve_algorithm(cfg: SortConfig, n: int, p: int, external,
-                       mesh_shape=None) -> str:
-    """``cfg.algorithm``, or for ``"auto"`` the reference's choice from
-    the cost model (``"external"`` past the lane's budget)."""
-    if cfg.algorithm != "auto":
-        return cfg.algorithm
-    return selection.select_algorithm(
-        n, p, model=cfg.cost_model, levels=cfg.levels, mesh_shape=mesh_shape,
-        budget=external.budget if external is not None else None)
+def _route(cfg: SortConfig, n: int, p: int, external,
+           mesh_shape=None) -> str:
+    """The algorithm a sort of n keys at p runs: ``cfg.algorithm``, or
+    for ``"auto"`` the reference's choice from the cost model; and
+    ``"external"`` wherever the lane takes the sort, that is with
+    ``algorithm="external"`` or n/p past the lane's budget."""
+    algorithm = cfg.algorithm
+    if algorithm == "auto":
+        algorithm = selection.select_algorithm(
+            n, p, model=cfg.cost_model, levels=cfg.levels,
+            mesh_shape=mesh_shape,
+            budget=external.budget if external is not None else None)
+    if external is not None and -(-max(n, 1) // p) > external.budget:
+        return "external"
+    return algorithm
+
+
+def _sort_routed(x, words, algorithm, n, p, mesh_shape, cfg, external,
+                 batched, return_info, dev):
+    """One sort of the keys ``x`` at p with the ``algorithm`` that
+    :func:`_route` gave: the external lane over the host words, or the
+    in-core sort over the words on ``dev`` ((d, n), one row for 1-D
+    keys).  ``words`` keeps the words that one call makes, for a later
+    call on the same keys."""
+    if algorithm == "external":
+        if "host" not in words:
+            words["host"] = _get_keys(key_to_int(x.cpu()))   # unsigned
+        return _external_sort(words["host"], x.dtype, n, p, external,
+                              return_info, dev, cfg.overlap)
+    if "dev" not in words:
+        s = key_to_int(x.to(dev))
+        words["dev"] = s if batched else s[None]
+    return _psort_incore(words["dev"], x.dtype, n, p, cfg, algorithm,
+                         return_info, dev, batched, mesh_shape)
 
 
 def _psort_incore(s, orig_dtype, n, p, cfg, algorithm, return_info, dev,
@@ -414,8 +506,8 @@ _KEY_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
                torch.uint64, torch.float64)
 
 
-def trace_collectives(n: int, config: Optional[SortConfig] = None, *,
-                      d: int = 1, device=None) -> comm.CommTrace:
+def trace_collectives(n: int, config: Optional[SortConfig] = None, *args,
+                      d: int = 1, device=None, **legacy) -> comm.CommTrace:
     """The collectives one ``psort`` call launches, per PE, as the
     reference's ``trace_collectives`` counts them: the measured form of
     the paper's Table I and the feature vector a cost model is fitted
@@ -434,8 +526,18 @@ def trace_collectives(n: int, config: Optional[SortConfig] = None, *,
     flat), its ``ext:h2d``/``ext:d2h`` copies included.  ``"auto"`` traces
     the algorithm the cost model picks, and ``overlap=True`` the streamed
     exchanges, recorded as the reference records them (``ovl:<phase>``
-    chunk events; on a nested mesh the barrier exchanges)."""
-    cfg = config if config is not None else SortConfig()
+    chunk events; on a nested mesh the barrier exchanges).  The
+    reference's legacy ``trace_collectives(n, p, algorithm,
+    capacity_factor, ...)`` style works through the same shim as
+    :func:`psort`'s."""
+    if args:
+        names = ("algorithm", "capacity_factor")
+        if len(args) > len(names):
+            raise TypeError(f"trace_collectives() takes at most "
+                            f"{len(names)} legacy positional arguments "
+                            f"after n/p ({names}); got {len(args)}")
+        legacy.update(zip(names, args))
+    cfg = _coerce_config(config, legacy, "trace_collectives")
     if cfg.external is not None and (d > 1 or cfg.mesh_shape is not None):
         raise ValueError("external tracing covers the 1-D flat axis only "
                          "(the external lane's contract)")
@@ -456,7 +558,7 @@ def trace_collectives(n: int, config: Optional[SortConfig] = None, *,
                                  "ExternalPolicy(...)")
             x = torch.from_numpy(np.ascontiguousarray(u[:, :n]))
             _psort_incore(key_to_int(x.to(dev)), x.dtype, n, p, cfg,
-                          _resolve_algorithm(cfg, n, p, None, mesh_shape),
+                          _route(cfg, n, p, None, mesh_shape),
                           False, dev, rows > 1, mesh_shape)
     return trace
 
@@ -469,13 +571,10 @@ def _resolve_external(external) -> Optional[ExternalPolicy]:
     return ExternalPolicy(budget=int(env)) if env else None
 
 
-def _psort_external(x, n, p, policy, return_info, dev, overlap):
-    """The external lane: the four passes from host memory (pass C
-    streamed with ``overlap``), then the reference's reassembly of the
-    output."""
-    orig_dtype = x.dtype
-    u = _get_keys(key_to_int(x.cpu()))        # host words, unsigned
-    del x
+def _external_sort(u, orig_dtype, n, p, policy, return_info, dev, overlap):
+    """The external lane over the host words ``u``: the four passes from
+    host memory (pass C streamed with ``overlap``), then the reference's
+    reassembly of the output into ``orig_dtype``."""
     seconds = {}
     keys_out, idx_out, counts_out, overflow = _psort_external_once(
         u, n, p=p, policy=policy, device=dev, seconds=seconds,
@@ -507,4 +606,93 @@ def _psort_external(x, n, p, policy, return_info, dev, overlap):
         },
         "pass_seconds": seconds,
     }
+    return result, info
+
+
+def _psort_faulty(x, n, p, cfg, external, mesh_shape, batched, return_info,
+                  dev):
+    """The ``psort(..., fault_policy=...)`` loop (the reference's
+    ``_psort_faulty``).
+
+    Attempt loop, bounded by ``run_with_restarts``: run the sort under a
+    fresh ``comm.faulty`` scope executing the policy's surviving plan, its
+    launches recorded into the policy's merged trace alone.  On a
+    ``PEFailure`` (a fired kill, or a watchdog-flagged straggler raised
+    here) exclude the PE, plan the reduced topology
+    (``plan_sort_rescale``), record a ``rescale`` event carrying the new
+    extent, and retry.  Progress is shrinking p, so a rescale that fails
+    to shrink trips the loop's no-progress give-up.
+
+    Each attempt sorts the same input afresh at its p: ``"auto"`` chooses
+    again, the external lane is entered once n/p passes its budget (a
+    rescale can cross into it, never out of it), ``overlap`` applies to
+    the algorithms it streams, batched rows sort at the new p and a nested
+    mesh keeps its inner axis while it fits.  The straggler lane is
+    simulated: per-PE times are ``base_step_time`` stretched by the fired
+    delays, as a sim row has no time of its own.
+
+    A killed attempt has done real work up to the kill (the reference
+    kills at trace time, before any), and the exception's frames hold its
+    tensors: the rescale drops them before the next attempt runs, so that
+    attempt's peak is its own."""
+    policy = cfg.fault_policy
+    trace = policy.trace if policy.trace is not None else comm.CommTrace()
+    policy.trace = trace
+    log = policy.logger if policy.logger is not None else (lambda *a: None)
+    plan0 = policy.plan if policy.plan is not None else comm.FaultPlan()
+    if not isinstance(plan0, comm.FaultPlan):
+        plan0 = comm.FaultPlan(tuple(plan0))
+    state = {"p": p, "mesh_shape": mesh_shape, "plan": plan0, "failed": ()}
+    policy.attempts.clear()
+    words = {}                    # the input's words, each made once
+
+    def attempt(_start):
+        p_cur, ms = state["p"], state["mesh_shape"]
+        algo = _route(cfg, n, p_cur, external, ms)
+        rec = {"p": p_cur, "mesh_shape": ms, "algorithm": algo, "ok": False}
+        policy.attempts.append(rec)
+        with comm.recording(trace), comm.faulty(state["plan"], trace) as fc:
+            out = _sort_routed(x, words, algo, n, p_cur, ms, cfg, external,
+                               batched, return_info, dev)
+        times = [policy.base_step_time * fc.fired_delays.get(pe, 1.0)
+                 for pe in range(p_cur)]
+        slow = flag_stragglers(times, k_mad=policy.k_mad,
+                               warmup=policy.warmup)
+        if slow:
+            raise comm.PEFailure(slow[0], phase="straggler")
+        rec["ok"] = True
+        return out, p_cur
+
+    def rescale(e, restarts):
+        # the dead attempt's frames hold its tensors: let them go now
+        traceback.clear_frames(e.__traceback__)
+        e.__traceback__ = None
+        p_cur, ms = state["p"], state["mesh_shape"]
+        rplan = plan_sort_rescale(p_cur, (e.pe,), mesh_shape=ms)
+        trace.add("rescale", 0, rplan.p_new, axis=comm.AXIS, tag=e.phase,
+                  pe=e.pe)
+        why = "straggling" if e.phase == "straggler" else "failed"
+        log(f"[psort] PE {e.pe} {why} at p={p_cur}; "
+            f"rescaling to p={rplan.p_new}")
+        state["p"] = rplan.p_new
+        state["mesh_shape"] = rplan.mesh_shape
+        state["plan"] = state["plan"].surviving(e.pe, rplan.p_new)
+        state["failed"] += (e.pe,)
+
+    out, p_fin = run_with_restarts(
+        attempt, max_restarts=policy.max_restarts,
+        retry_on=(comm.PEFailure,), on_failure=rescale,
+        progress_fn=lambda: -state["p"], logger=log)
+    if not return_info:
+        return out
+    result, info = out
+    for lane_only in ("external", "pass_seconds"):
+        info.pop(lane_only, None)
+    info["fault"] = {
+        "p_final": p_fin,
+        "failed": state["failed"],
+        "restarts": len(policy.attempts) - 1,
+        "attempts": list(policy.attempts),
+    }
+    info["comm_trace"] = trace
     return result, info

@@ -35,13 +35,26 @@ shapes only, so recording adds no device-to-host sync; outside a scope
 nothing is recorded.  Tags come from the reference's :func:`tagged`
 scopes only; the axis is the reference's ``"sort"``, or under
 :func:`nested` the real axis of each stage.
+
+Faults.  The reference injects faults with a decorator backend
+(``FaultyCollectives``) that sees every launch its wrapped backend
+receives.  Here a :func:`faulty` scope installs a
+:class:`FaultyCollectives` state, and every launch of a reference
+collective asks it first, whether or not a :func:`counting` scope is open:
+each recorded event (:func:`record`: the four collectives, every stage of a
+nested one, the exchanges the algorithms compute without them) and each
+:func:`alltoall_stream` (one launch, however many chunk events it
+records).  The check runs before the launch's own event is recorded, as
+the reference's faulty decorator sits outside its counting one, so a
+killed launch leaves its ``fault:kill`` event and not its own.  The
+external lane's ``ext:h2d``/``ext:d2h`` copies are never injection points.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -201,6 +214,192 @@ def counting():
         yield trace
     finally:
         _TRACES.reset(token)
+
+
+@contextlib.contextmanager
+def recording(trace: CommTrace):
+    """Record into ``trace`` alone in this scope, not into the open
+    :func:`counting` scopes: the fault lane's counter over the plain
+    backend, which the reference builds afresh and does not nest in the
+    ambient one."""
+    token = _TRACES.set((trace,))
+    try:
+        yield trace
+    finally:
+        _TRACES.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# Fault injection: PEFailure, the fault plan and the faulty scope
+# ---------------------------------------------------------------------------
+
+
+class PEFailure(RuntimeError):
+    """A (simulated) PE died mid-collective.
+
+    Raised by :class:`FaultyCollectives` when a planned kill fires, at the
+    launch that observes it, before that launch runs: the attempt stops
+    there, as a dead participant aborts a collective for its whole group.
+    Carries the identity the rescale path needs
+    (``repro_torch.runtime.elastic.plan_sort_rescale``): the flat PE rank,
+    the phase tag, and the primitive/axis of the launch that observed the
+    failure.  ``psort``'s fault lane also raises it with
+    ``phase="straggler"`` to route a watchdog-flagged PE down the same
+    exclude-and-rescale path.
+    """
+
+    def __init__(self, pe: int, phase: Optional[str] = None,
+                 primitive: Optional[str] = None, axis: Optional[str] = None):
+        self.pe = int(pe)
+        self.phase = phase
+        self.primitive = primitive
+        self.axis = axis
+        super().__init__(
+            f"PE {self.pe} failed during {primitive or 'collective'} "
+            f"(axis={axis!r}, phase={phase!r})")
+
+
+@dataclasses.dataclass(frozen=True)
+class PEFault:
+    """One planned fault: kill or delay PE ``pe``.
+
+    ``tag`` names the phase (:func:`tagged`) whose collectives trigger the
+    fault; ``None`` matches any phase, so the fault fires at the first
+    collective of the run.  ``after`` skips that many matching launches
+    first — the fault fires on the (``after`` + 1)-th.  ``factor`` is the
+    simulated step-time stretch of a ``delay`` fault, the straggler signal
+    ``repro_torch.runtime.failures.flag_stragglers`` thresholds against
+    ``k_mad`` deviations.
+
+    PE indices are flat ranks in the topology of the attempt the fault
+    fires in; after a rescale the fault lane drops plans whose ``pe`` fell off
+    the shrunken mesh.
+    """
+
+    kind: str                       # "kill" | "delay"
+    pe: int
+    tag: Optional[str] = None       # phase tag to fire at; None = any
+    after: int = 0                  # matching launches to let pass first
+    factor: float = 4.0             # step-time stretch of a delay
+
+    def __post_init__(self):
+        if self.kind not in ("kill", "delay"):
+            raise ValueError(f"unknown fault kind {self.kind!r}")
+
+
+def kill_pe(pe: int, tag: Optional[str] = None, after: int = 0) -> PEFault:
+    """A fault that kills PE ``pe`` at phase ``tag``."""
+    return PEFault("kill", int(pe), tag, int(after))
+
+
+def delay_pe(pe: int, factor: float = 4.0, tag: Optional[str] = None,
+             after: int = 0) -> PEFault:
+    """A fault that stretches PE ``pe``'s simulated step time ×``factor``."""
+    return PEFault("delay", int(pe), tag, int(after), float(factor))
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """A deterministic set of :class:`PEFault` to execute during one run."""
+
+    faults: Tuple[PEFault, ...] = ()
+
+    def __bool__(self) -> bool:
+        return bool(self.faults)
+
+    def surviving(self, pe: int, p_new: int) -> "FaultPlan":
+        """The plan after PE ``pe`` was excluded and the topology shrank
+        to ``p_new``: drop its faults and any targeting off-mesh ranks."""
+        return FaultPlan(tuple(f for f in self.faults
+                               if f.pe != pe and f.pe < p_new))
+
+
+class FaultyCollectives:
+    """The state of one :func:`faulty` scope, executing a ``FaultPlan``
+    (the reference's decorator backend of that name, without a backend to
+    wrap).
+
+    Every launch of a reference collective in the scope calls
+    :meth:`_inject` first.  A matching *kill* records a ``fault:kill``
+    event and raises :class:`PEFailure`; a matching *delay* records
+    ``fault:delay`` and keeps the largest stretch factor per PE in
+    :attr:`fired_delays` (read by ``psort``'s fault lane to make the
+    per-PE step times of the watchdog lane).  Injected events go to
+    ``trace``: by default the innermost open :func:`counting` trace, so
+    one :class:`CommTrace` interleaves them with the regular launches.
+    """
+
+    def __init__(self, plan, trace: Optional[CommTrace] = None):
+        self.plan = plan if isinstance(plan, FaultPlan) \
+            else FaultPlan(tuple(plan))
+        if trace is None:
+            traces = _TRACES.get()
+            trace = traces[-1] if traces else CommTrace()
+        self.trace = trace
+        self.fired_delays: Dict[int, float] = {}
+        self._launches: Dict[PEFault, int] = {}
+        self._done: Set[PEFault] = set()
+
+    def _inject(self, primitive: str, axis_name) -> None:
+        tag = _TAG.get()
+        pending = [f for f in self.plan.faults if f not in self._done
+                   and (f.tag is None or f.tag == tag)]
+        # kills outrank delays within one launch: the PE dies before its
+        # slowdown could be observed
+        for f in sorted(pending, key=lambda f: f.kind != "kill"):
+            seen = self._launches.get(f, 0) + 1
+            self._launches[f] = seen
+            if seen <= f.after:
+                continue
+            self._done.add(f)
+            if f.kind == "kill":
+                self.trace.add("fault:kill", 0, axis=str(axis_name),
+                               tag=tag, pe=f.pe)
+                raise PEFailure(f.pe, phase=tag, primitive=primitive,
+                                axis=str(axis_name))
+            self.trace.add("fault:delay", 0, axis=str(axis_name),
+                           tag=tag, pe=f.pe)
+            self.fired_delays[f.pe] = max(self.fired_delays.get(f.pe, 1.0),
+                                          f.factor)
+
+
+_FAULTY: contextvars.ContextVar[Optional[FaultyCollectives]] = \
+    contextvars.ContextVar("repro_torch_comm_faulty", default=None)
+
+
+@contextlib.contextmanager
+def faulty(plan, trace: Optional[CommTrace] = None):
+    """Execute ``plan`` (a :class:`FaultPlan`, or faults) at every launch
+    of a reference collective in this scope, counted or not; yields the
+    :class:`FaultyCollectives` so the caller can read its
+    :attr:`~FaultyCollectives.fired_delays`.  Injected events go to
+    ``trace`` (default: the innermost open :func:`counting` trace, else
+    a trace of their own)."""
+    fc = FaultyCollectives(plan, trace)
+    token = _FAULTY.set(fc)
+    try:
+        yield fc
+    finally:
+        _FAULTY.reset(token)
+
+
+def _inject(primitive: str, axis) -> None:
+    """The open :func:`faulty` scope's check of one launch, if any."""
+    fc = _FAULTY.get()
+    if fc is not None:
+        fc._inject(primitive, axis)
+
+
+@contextlib.contextmanager
+def _unobserved():
+    """Neither record nor inject: the launches inside are parts of one
+    that was recorded and checked as a whole."""
+    traces, fault = _TRACES.set(()), _FAULTY.set(None)
+    try:
+        yield
+    finally:
+        _FAULTY.reset(fault)
+        _TRACES.reset(traces)
 
 
 # ---------------------------------------------------------------------------
@@ -408,8 +607,10 @@ def _split(x: torch.Tensor):
 
 def record(primitive: str, nbytes: int,
            group_size: Optional[int] = None, axis: str = AXIS) -> None:
-    """One collective of the reference, ``nbytes`` per PE, into the open
-    traces (nothing outside a :func:`counting` scope)."""
+    """One launch of a reference collective, ``nbytes`` per PE: checked
+    by the open :func:`faulty` scope, then recorded into the open traces
+    (nothing outside both scopes)."""
+    _inject(primitive, axis)
     for trace in _TRACES.get():
         trace.add(primitive, nbytes, group_size, axis=axis, tag=_TAG.get())
 
@@ -440,8 +641,9 @@ def note(primitive: str, x: torch.Tensor, itemsize: Optional[int] = None,
          axis_index_groups=None, axis: Optional[str] = None) -> None:
     """:func:`record` of a collective on the (P, ...) tensor ``x`` (on the
     sort axis, or the real ``axis``), its bytes read off the shape only
-    when a scope is open; under :func:`nested` the stages of the view."""
-    if _TRACES.get():
+    when a :func:`counting` or :func:`faulty` scope is open; under
+    :func:`nested` the stages of the view."""
+    if _TRACES.get() or _FAULTY.get() is not None:
         nbytes = pe_bytes(x, itemsize)
         for ev in _stages(primitive, nbytes, axis_index_groups, axis):
             record(*ev)
@@ -652,7 +854,8 @@ def alltoall_stream(leaves: Sequence[torch.Tensor], fold, init, gsize: int,
     no streamed path: one :func:`all_to_all` of the leaves, then the blocks
     folded in ascending source order.  The view hands the leaves to the
     inner axis as one collective (one event of their bytes together) and
-    decomposes them leaf by leaf otherwise."""
+    decomposes them leaf by leaf otherwise.  A :func:`faulty` scope checks
+    the stream once (on the flat axis), or each launch the view makes."""
     x0 = leaves[0]
     P, dev = x0.shape[0], x0.device
     if any(v.shape[1] % gsize for v in leaves):
@@ -660,23 +863,21 @@ def alltoall_stream(leaves: Sequence[torch.Tensor], fold, init, gsize: int,
     nest = _VIEW.get().nest
     if nest is not None:
         mode, g = nest.classify_groups(axis_index_groups)
-        token = None
+        scope = contextlib.nullcontext()
         if mode == "inner":
             record("all_to_all", sum(pe_bytes(v) for v in leaves),
                    _group_size(g), nest.inner)
-            token = _TRACES.set(())         # recorded: the leaves as one
-        try:
+            scope = _unobserved()           # recorded: the leaves as one
+        with scope:
             recv = [all_to_all(v, axis_index_groups).reshape(
                 (P, gsize, v.shape[1] // gsize) + tuple(v.shape[2:]))
                 for v in leaves]
-        finally:
-            if token is not None:
-                _TRACES.reset(token)
         acc = init
         for s in range(gsize):
             acc = fold(acc, [r[:, s] for r in recv],
                        torch.full((P,), s, dtype=torch.int64, device=dev))
         return acc
+    _inject("all_to_all", AXIS)             # one launch, one check
     traces = _TRACES.get()
     if traces:
         per_chunk = sum(pe_bytes(v) for v in leaves) // max(gsize, 1)

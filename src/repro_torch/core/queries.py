@@ -373,6 +373,9 @@ def select_rank(data: ResidentData, ranks, *, backend: str = "sim",
         raise ValueError("select_rank on empty resident data")
     if (ranks_np < 1).any() or (ranks_np > data.n).any():
         raise ValueError(f"ranks must lie in [1, n={data.n}]; got {ranks_np}")
+    if ranks_np.size == 0:
+        # the reference's error: its reshape of a batch of 0 divides by 0
+        raise ZeroDivisionError("select_rank of an empty batch of ranks")
     use_window = window and data.bits == 32 and data.p > 1
     host = _read_back(*_select(data, ranks_np, use_window))
     ans = _np_keys(_words_np(data, host[0]), data.orig_dtype)

@@ -21,6 +21,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.policy import (LocalKernelPolicy,  # noqa: F401
+                                        local_kernels, set_local_kernels)
+
 _FLIP = {torch.int32: -(1 << 31), torch.int64: -(1 << 63)}
 _PAD = {torch.int32: (1 << 31) - 1, torch.int64: (1 << 63) - 1}
 _INTERNAL = {torch.int32: torch.int32, torch.uint32: torch.int32,

@@ -4,7 +4,10 @@
 replace the Pallas TPU kernels of ``repro.kernels`` on the RAMS path,
 ``kway`` (the k-way classifier) on the external lane.  Nothing is compiled
 at import: each wrapper builds its CUDA source with ``nvcc`` on first use
-(``_build.py``)."""
+(``_build.py``).  ``policy`` says which kernel families the algorithms
+launch (the reference's ``REPRO_LOCAL_KERNELS`` switch)."""
+from .policy import (LocalKernelPolicy, local_kernels,  # noqa: F401
+                     set_local_kernels)
 
 
 def _counters():

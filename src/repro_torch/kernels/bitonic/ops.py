@@ -11,7 +11,9 @@ prefix, ping-ponging between two buffers; the tile-sort launch copies each
 row's tail once, into the buffer the last merge ends in.
 
 On a CUDA tensor each wrapper launches its kernel (csrc/bitonic.cu) or
-raises; on a CPU tensor it runs the plain version (ref.py).  ``LAUNCHES``
+raises; on a CPU tensor it runs the plain version (ref.py), and so does
+``local_sort_fast`` where the caller turned the ``sort`` kernels off
+(``kernels.policy``).  ``LAUNCHES``
 counts the kernel launches of each wrapper.
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ import functools
 import torch
 
 from .. import _build
+from ..policy import plain
 from . import ref
 
 TILE = 8192                  # must equal TILE in csrc/bitonic.cu
@@ -167,8 +170,9 @@ def merge_runs(keys, vals=None, width: int = TILE, count=None):
 def local_sort_fast(keys, vals=None, count=None, *, max_count=None):
     """Stable sort of every row's valid prefix; returns (keys,
     vals-or-None).  A caller that holds ``max(count)`` on the host passes
-    it as ``max_count``, which saves the read back."""
-    if keys.device.type == "cpu":
+    it as ``max_count``, which saves the read back.  With the ``sort``
+    kernels turned off (``policy``) it runs the plain version."""
+    if plain(keys, "sort"):
         return ref.sort_ref(keys, vals, count)
     _check_args(keys, vals, count)
     cmax = (_max_count(count, keys.shape[1]) if max_count is None

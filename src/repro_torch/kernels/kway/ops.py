@@ -5,7 +5,8 @@
 4-byte planes: pass C of the external lane over the p·budget elements of
 one run index (nb = p), pass D over each run (nb = ⌈total / budget⌉).  On
 a CUDA tensor it launches the kernel (csrc/kway.cu) or raises; on a CPU
-tensor it runs the plain version (ref.py).  ``LAUNCHES`` counts the
+tensor, or with the ``partition`` kernels turned off (``kernels.policy``),
+it runs the plain version (ref.py).  ``LAUNCHES`` counts the
 launches.  Unlike the TPU wrapper it pads nothing: the kernel masks its
 ragged edge, so the histogram needs no correction.  A call is one launch
 and no other device work: the kernel zeroes its own histogram through an
@@ -19,6 +20,7 @@ import functools
 import torch
 
 from .. import _build
+from ..policy import plain
 from . import ref
 
 LAUNCHES = {"kway_classify": 0}
@@ -72,8 +74,10 @@ def _accumulator(dev, stream: int, nb: int) -> torch.Tensor:
 def kway_classify(keys, ties, s_keys, s_ties, *, n_buckets: int):
     """Classify (key, tie) pairs against (S,) splitters: (bucket (C,) int32,
     hist (n_buckets,) int32); same contract as ``ref.kway_classify_ref``.
-    On a CUDA tensor: one kernel launch on the current stream."""
-    if keys.device.type == "cpu":
+    On a CUDA tensor: one kernel launch on the current stream, or the
+    plain version where the ``partition`` kernels are turned off
+    (``policy``)."""
+    if plain(keys, "partition"):
         return ref.kway_classify_ref(keys, ties, s_keys, s_ties,
                                      n_buckets=n_buckets)
     _check(keys, ties, s_keys, s_ties, n_buckets)

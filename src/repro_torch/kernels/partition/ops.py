@@ -8,7 +8,9 @@ for the histogram only.  On a CUDA tensor it launches the classify variant
 that writes just those outputs (``WANTS``) and, for the ranks, threads the
 per-tile histograms into per-tile offsets with one ``torch.cumsum`` over
 the tile axis and launches the rank kernel (csrc/partition.cu); otherwise
-it raises.  On a CPU tensor it runs the plain version (ref.py).
+it raises.  On a CPU tensor it runs the plain version (ref.py), and so
+does it where the caller turned the ``partition`` kernels off
+(``kernels.policy``).
 ``LAUNCHES`` counts the launches of each kernel, and those of each
 classify variant under ``partition_classify:<variant>``.
 """
@@ -20,6 +22,7 @@ import functools
 import torch
 
 from .. import _build
+from ..policy import plain
 from . import ref
 
 PTILE = 1024                 # must equal PTILE in csrc/partition.cu
@@ -140,8 +143,10 @@ def partition_buckets(keys, ties, s_keys, s_ties, *, n_buckets: int, count,
                       want_bucket: bool = True, want_hist: bool = True):
     """Fused classify + rank + histogram over PE-batched shards; same
     contract as :func:`ref.partition_ref`.  Without ``want_pos`` one
-    classify launch writes only the outputs whose ``want_`` flag is set."""
-    if keys.device.type == "cpu":
+    classify launch writes only the outputs whose ``want_`` flag is set.
+    With the ``partition`` kernels turned off (``policy``) it runs the
+    plain version."""
+    if plain(keys, "partition"):
         return ref.partition_ref(keys, ties, s_keys, s_ties,
                                  n_buckets=n_buckets, count=count,
                                  inclusive=inclusive, want_pos=want_pos,

@@ -613,3 +613,64 @@ def test_sort_service_cuda_equals_cpu(dev, policy):
         if torch.is_tensor(va):
             va, vb = va.cpu().numpy(), vb.numpy()
         assert _same_keys(va, vb), a.request
+
+
+def _fault_run(x, cfg_kw, device):
+    """psort under one kill and one straggler: (out, info, policy)."""
+    from repro_torch.core import comm
+    from repro_torch.runtime import FaultPolicy
+    pol = FaultPolicy(plan=comm.FaultPlan((comm.kill_pe(2),
+                                           comm.delay_pe(1, factor=8.0))))
+    out, info = psort(x, SortConfig(fault_policy=pol, **cfg_kw),
+                      return_info=True, device=device)
+    return out, info, pol
+
+
+@pytest.mark.parametrize("algorithm", ["gatherm", "allgatherm", "rfis",
+                                       "rquick", "rams", "bitonic", "ssort"])
+def test_fault_lane_cuda_equals_cpu(dev, algorithm):
+    """The fault lane on the card at p = 8 (attempts 8 → 4 → 2) equals
+    its CPU run: output, counts, perm, overflow, the fault record and every
+    trace event."""
+    x = generate_instance("Uniform", 8, 8 * 256).astype(np.int32)
+    kw = {"p": 8, "algorithm": algorithm}
+    go, gi, gp = _fault_run(x, kw, dev)
+    co, ci, cp = _fault_run(x, kw, "cpu")
+    assert _same_result(go, co)
+    assert torch.equal(gi["perm"].cpu(), ci["perm"])
+    assert torch.equal(gi["counts"].cpu(), ci["counts"])
+    assert gi["overflow"] == ci["overflow"] and gi["fault"] == ci["fault"]
+    assert [a["p"] for a in gp.attempts] == [8, 4, 2]
+    assert [(e.primitive, e.bytes, e.group_size, e.axis, e.tag, e.pe)
+            for e in gp.trace.events] == [
+        (e.primitive, e.bytes, e.group_size, e.axis, e.tag, e.pe)
+        for e in cp.trace.events]
+
+
+@pytest.mark.parametrize("off", ["sort", "partition"])
+def test_kernels_switched_off_raise_on_the_card(dev, off):
+    """With a kernel family turned off (``set_local_kernels``) a sort on
+    the card raises rather than run the plain versions there, and
+    launches nothing of that family; with the policy restored the same
+    sort launches both families."""
+    from repro_torch.core import LocalKernelPolicy, set_local_kernels
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    x = generate_instance("Uniform", 64, 1 << 16).astype(np.uint32)
+    cfg = SortConfig(p=64, algorithm="rams")
+    gated = {"sort": ("tile_sort", "run_merge"),
+             "partition": ("partition_classify", "partition_rank")}[off]
+    prev = set_local_kernels(LocalKernelPolicy(**{
+        "sort": off != "sort", "partition": off != "partition"}))
+    try:
+        reset_launch_counts()
+        with pytest.raises(RuntimeError, match=f"{off!r} kernels are "
+                                               f"switched off"):
+            psort(x, cfg, device=dev)
+        assert not any(launch_counts()[k] for k in gated), launch_counts()
+    finally:
+        set_local_kernels(prev)
+    reset_launch_counts()
+    out = psort(x, cfg, device=dev)
+    assert launch_counts()["tile_sort"] > 0
+    assert launch_counts()["partition_classify"] > 0
+    assert _same_result(out, torch.from_numpy(np.sort(x)))

@@ -172,8 +172,9 @@ def test_external_config_is_validated():
             p=2, algorithm="external"), device="cpu")
     pol = ExternalPolicy(budget=2)
     assert SortConfig(p=2, external=pol, overlap=True).overlap
-    with pytest.raises(NotImplementedError, match="item 8 "):
-        SortConfig(p=2, external=pol, fault_policy=object())
+    # the fault lane takes the external lane (item 8, ported)
+    assert SortConfig(p=2, external=pol,
+                      fault_policy=object()).external == pol
     with pytest.raises(ValueError, match="rams requires uint32"):  # in core
         psort(np.zeros(4, np.int64), SortConfig(p=2, algorithm="rams",
                                                 external=pol),
