@@ -165,6 +165,25 @@ Phases, each fatal on failure (no phase catches its own error):
    released.  The ``kernels`` line gains the ``rams-fault`` rows (the RAMS
    kernels at the rescaled attempt's shapes) with the killed run's
    launches.
+18. the distributed backend (``backend="shard_map"``): (a) eight ranks of
+   one gloo group spawned on the card (p = 8; gloo moves CUDA tensors
+   through the host, so the walls are of eight processes sharing one
+   card, not a multi-GPU figure) sort with each of the ten algorithms on
+   Uniform and Zero at n = 2^26 (RAMS and NTB-AMS at 2^21, their
+   capacity limit; AllGatherM at 2^25, its reckoned peak); (b) on the
+   same ranks batched RQuick (d = 2 rows of 2^24 on a (2, 4) mesh),
+   nested RAMS on (2, 4), ``overlap=True`` for RAMS and SSort,
+   ``shard_data`` of 2^24 keys with a batch of 64 ``select_rank``, and
+   RQuick on ``sort_mesh(p=4, exclude=(3, 5, 6, 7))``, the excluded
+   ranks joining only its making; (c) one NCCL rank (p = 1), the eight
+   algorithms that take 2^24 keys there and RAMS and NTB-AMS at 2^18.
+   Each equal bit for bit to the sim backend on the card at the same p
+   (a digest of keys, perm, counts and overflow on rank 0, every rank's
+   counts, rank 0's trace event for event), with each rank's launches,
+   wall and peak; the ``kernels`` line gains the ``dist-*`` and
+   ``nccl-*`` rows (each kernel at one rank's shapes, the launches summed
+   over the path's ranks).  ``--dist-only`` runs phases 1, 2 and 18
+   alone.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
@@ -305,6 +324,25 @@ FAULT_ALGOS = ("gatherm", "allgatherm", "rfis", "rquick", "rams", "bitonic",
 BUDGET_FAULT_CROSS = 3 << 15
 LOG_N_FAULT = 25
 FAULT_SLACK = 64 << 20
+# phase 18: the distributed backend.  Eight gloo ranks share the card
+# (p = 8) at the RAMS cell's n (2^23 keys a rank); RAMS and NTB-AMS at
+# 2^21, as RAMS's capacity (< 2^20 a PE) allows; AllGatherM cut to 2^25,
+# where a rank's reckoned peak stays under 8 GB (PERF.md section 4); one
+# NCCL rank at p = 1.  Every sort is held against the sim backend on the
+# card at the same p
+DIST_RANKS, DIST_LOG_N = 8, 26
+DIST_LOG_N_CUT = {"rams": 21, "ntb-ams": 21, "allgatherm": 25}
+DIST_INSTANCES = ("Uniform", "Zero")
+DIST_BATCH, DIST_BATCH_ALGO = (2, 4, 24), "rquick"
+DIST_NESTED = ((2, 4), 21)
+DIST_EXCLUDE = (4, (3, 5, 6, 7), 24)
+DIST_SERVE_LOG_N, DIST_SERVE_B = 24, 64
+DIST_NCCL_LOG_N, DIST_NCCL_LOG_N_AMS = 24, 18
+DIST_TIMEOUT_S = 300
+DIST_REQUIRED = {"rams": RAMS_LAUNCHES, "ntb-ams": RAMS_LAUNCHES,
+                 "rquick": RQUICK_KERNELS, "ntb-quick": RQUICK_KERNELS,
+                 "ssort": SSORT_KERNELS, "ns-ssort": SSORT_KERNELS,
+                 "bitonic": ("tile_sort", "run_merge")}
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -2467,6 +2505,410 @@ def timed_fault(torch, psort, SortConfig, x, fault, p, reset_launch_counts,
             "launches": launch_counts()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the distributed backend (backend="shard_map") on the card
+# ---------------------------------------------------------------------------
+
+
+def dist_keys(np, generate_instance, cache, name, p, log_n, rows=1):
+    """The instance ``name`` of 2^log_n keys at p as uint32, made once per
+    process (each rank makes its own: the keys never cross processes);
+    ``rows`` > 1 stacks that many rows, row r seeded r."""
+    key = (name, p, log_n, rows)
+    if key not in cache:
+        xs = [generate_instance(name, p, 1 << log_n, seed=r).astype(
+            np.uint32) for r in range(rows)]
+        cache[key] = xs[0] if rows == 1 else np.stack(xs)
+    return cache[key]
+
+
+def digest(torch, out, info) -> str:
+    """sha256 of a psort result's bits: keys, perm, counts, overflow (a
+    list of rows or a tensor, on any device)."""
+    import hashlib
+    h = hashlib.sha256()
+    for part in (out, info["perm"], info["counts"]):
+        for t in (part if isinstance(part, list) else [part]):
+            t = t.contiguous()
+            signed = {4: torch.int32, 8: torch.int64}[t.element_size()]
+            h.update(str(tuple(t.shape)).encode())
+            h.update(t.view(signed).cpu().numpy().tobytes())
+    h.update(str(info["overflow"]).encode())
+    return h.hexdigest()
+
+
+def trace_events(trace) -> list:
+    return [list(e.__dict__.values()) for e in trace.events]
+
+
+def dist_cases(np):
+    """Phase 18's sorts on the eight gloo ranks: (label, algorithm, cfg
+    keywords, instance, p, log2 n, rows, mesh keywords or None), each held
+    against the sim backend at the same p on the card."""
+    cases = []
+    for algorithm in ALGORITHMS:
+        log_n = DIST_LOG_N_CUT.get(algorithm, DIST_LOG_N)
+        for name in DIST_INSTANCES:
+            cases.append((f"dist-{algorithm}", algorithm, {}, name,
+                          DIST_RANKS, log_n, 1, None))
+    d, p, log_n = DIST_BATCH
+    cases.append(("dist-batched", DIST_BATCH_ALGO, {}, "Uniform", p, log_n,
+                  d, {"p": p, "d": d}))
+    cases.append(("dist-nested", "rams", {"mesh_shape": DIST_NESTED[0]},
+                  "Uniform", DIST_RANKS, DIST_NESTED[1], 1, None))
+    for algorithm in ("rams", "ssort"):
+        cases.append((f"dist-{algorithm}-overlap", algorithm,
+                      {"overlap": True}, "Uniform", DIST_RANKS,
+                      DIST_LOG_N_CUT.get(algorithm, DIST_LOG_N), 1, None))
+    p, excluded, log_n = DIST_EXCLUDE
+    cases.append(("dist-exclude", "rquick", {}, "Uniform", p, log_n, 1,
+                  {"p": p, "exclude": excluded}))
+    return cases
+
+
+def nccl_cases():
+    """(c): every algorithm at p = 1 on one NCCL rank; RAMS and NTB-AMS at
+    the largest n their capacity (< 2^20 a PE) takes at p = 1."""
+    return [(f"nccl-{a}", a, {}, "Uniform", 1,
+             DIST_NCCL_LOG_N_AMS if a in ("rams", "ntb-ams")
+             else DIST_NCCL_LOG_N, 1, None) for a in ALGORITHMS]
+
+
+def dist_rank(rank, world, port, backend, jobs, results):
+    """One rank of phase 18 (spawned; every rank on the card 0): joins the
+    group, then runs each job it is sent and answers with its launches,
+    wall, peak and, on rank 0, the result's digest and trace."""
+    import datetime
+    import traceback
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        from repro_torch import SortConfig, psort
+        from repro_torch.core import comm, queries
+        from repro_torch.data import generate_instance
+        from repro_torch.dist import sort_mesh
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S),
+            **({"device_id": torch.device("cuda", 0)}
+               if backend == "nccl" else {}))
+        results.put((rank, "ready", None))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        return
+    cache = {}
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        try:
+            kind, case = job
+            label, algorithm, kw, name, p, log_n, rows, mesh_kw = case
+            x = dist_keys(np, generate_instance, cache, name, p, log_n, rows)
+            mesh = sort_mesh(**mesh_kw) if mesh_kw is not None else None
+            dist.barrier()                  # every rank, the excluded too
+            if mesh is not None and rank not in mesh.mesh.reshape(
+                    -1).tolist():
+                results.put((rank, "ok", None))      # joined the mesh only
+                continue
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with comm.counting() as trace:
+                if kind == "serve":
+                    data = queries.shard_data(x, p, device="cuda")
+                    ranks = np.linspace(1, x.size, DIST_SERVE_B).astype(
+                        np.int64)
+                    t0 = time.perf_counter()
+                    got = queries.select_rank(data, ranks,
+                                              backend="shard_map")
+                    wall = time.perf_counter() - t0      # answers on host
+                    out = {"answers": [np.asarray(a).tolist() for a in got]}
+                else:
+                    o, info = psort(x, SortConfig(
+                        p=None if "mesh_shape" in kw else p,
+                        algorithm=algorithm, backend="shard_map", mesh=mesh,
+                        **kw), return_info=True, device="cuda")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    out = {"digest": digest(torch, o, info) if rank == 0
+                           else None,
+                           "overflow": info["overflow"],
+                           "counts": info["counts"].tolist(),
+                           "algorithm": info["algorithm"]}
+                    del o, info
+            out.update(wall_s=wall, launches=launch_counts(),
+                       peak=torch.cuda.max_memory_allocated(),
+                       events=trace_events(trace) if rank == 0 else None)
+            results.put((rank, "ok", out))
+        except BaseException:
+            results.put((rank, "error", traceback.format_exc()))
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+class DistRanks:
+    """``world`` spawned ranks on the card in one group of ``backend``;
+    :meth:`run` sends a job to every rank and returns their answers, and
+    any error, silence past the deadline or early exit is fatal."""
+
+    def __init__(self, world, backend):
+        import multiprocessing
+        import socket
+        ctx = multiprocessing.get_context("spawn")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.world = world
+        self.t0 = time.perf_counter()
+        self.results = ctx.Queue()
+        self.jobs = [ctx.Queue() for _ in range(world)]
+        self.procs = [ctx.Process(target=dist_rank, args=(
+            r, world, port, backend, self.jobs[r], self.results))
+            for r in range(world)]
+        for proc in self.procs:
+            proc.start()
+        self.collect("start")
+
+    def collect(self, what):
+        import queue
+        out, errors = {}, []
+        while len(out) < self.world:
+            try:
+                rank, status, value = self.results.get(timeout=10)
+            except queue.Empty:
+                if time.perf_counter() - self.t0 > DIST_TIMEOUT_S or any(
+                        not p.is_alive() for p in self.procs):
+                    self.close()
+                    raise AssertionError(
+                        f"phase 18 {what}: ranks "
+                        f"{sorted(set(range(self.world)) - set(out))} gave "
+                        f"no answer") from None
+                continue
+            if status == "error":
+                errors.append(f"rank {rank}: {value}")
+            out[rank] = value
+        if errors:
+            self.close()
+            raise AssertionError(f"phase 18 {what}:\n" + "\n".join(errors))
+        return [out[r] for r in range(self.world)]
+
+    def run(self, job):
+        for q in self.jobs:
+            q.put(job)
+        self.t0 = time.perf_counter()
+        return self.collect(job[1][0])
+
+    def close(self):
+        for q in self.jobs:
+            q.put(None)
+        for proc in self.procs:
+            proc.join(60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+
+
+def sim_reference(torch, np, psort, SortConfig, generate_instance, case,
+                  cache):
+    """The digest and trace of one phase-18 case on the sim backend on the
+    card, at the same p (its keys kept in ``cache``)."""
+    from repro_torch.core import comm
+    label, algorithm, kw, name, p, log_n, rows, mesh_kw = case
+    x = dist_keys(np, generate_instance, cache, name, p, log_n, rows)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with comm.counting() as trace:
+        out, info = psort(x, SortConfig(
+            p=None if "mesh_shape" in kw else p, algorithm=algorithm, **kw),
+            return_info=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = {"digest": digest(torch, out, info), "overflow": info["overflow"],
+           "counts": info["counts"].tolist(), "wall_s": wall,
+           "peak": torch.cuda.max_memory_allocated(),
+           "events": trace_events(trace)}
+    del out, info
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_dist(label, answers, ref, case):
+    """A case's ranks against its sim run: rank 0's digest and trace, and
+    every sorting rank's counts and overflow."""
+    sorting = [a for a in answers if a is not None]
+    if len(sorting) != case[4] * case[6]:
+        raise AssertionError(f"{label}: {len(sorting)} ranks sorted, not "
+                             f"{case[4] * case[6]}")
+    a0 = answers[0]
+    same = {"digest": a0["digest"] == ref["digest"],
+            "trace": a0["events"] == ref["events"],
+            "counts": all(a["counts"] == ref["counts"]
+                          and a["overflow"] == ref["overflow"]
+                          for a in sorting)}
+    if not all(same.values()):
+        raise AssertionError(f"{label}: the distributed run differs from "
+                             f"the sim run on the card: {same}")
+    return same
+
+
+def dist_phase(torch, np, psort, SortConfig, generate_instance):
+    """Phase 18: the distributed backend on the card.  (a) the ten
+    algorithms on eight gloo ranks sharing the card (p = 8) on Uniform and
+    Zero, (b) batched keys, a nested (2, 4) mesh, ``overlap=True``, the
+    resident query path and a mesh with excluded ranks on the same ranks,
+    (c) every algorithm on one NCCL rank (p = 1); each equal bit for bit to
+    the sim backend on the card at the same p (keys, perm, counts,
+    overflow; rank 0's trace event for event).  Times are of eight
+    processes on one card through gloo over the host: not a multi-GPU
+    figure.  Returns the launches of every path, summed over its ranks."""
+    from repro_torch.core import queries
+    emit({"phase": "dist_transport", "gloo_ranks": DIST_RANKS,
+          "nccl_ranks": 1, "torch": torch.__version__,
+          "note": "eight processes share one card; gloo moves CUDA tensors "
+                  "through the host: times are not multi-GPU figures"})
+    t18 = time.perf_counter()
+    cases, cache = dist_cases(np), {}
+    refs = {c[0] + c[3]: sim_reference(torch, np, psort, SortConfig,
+                                       generate_instance, c, cache)
+            for c in cases}
+    x = dist_keys(np, generate_instance, cache, "Uniform", DIST_RANKS,
+                  DIST_SERVE_LOG_N)
+    data = queries.shard_data(x, DIST_RANKS, device="cuda")
+    ranks = np.linspace(1, x.size, DIST_SERVE_B).astype(np.int64)
+    serve_ref = [np.asarray(a).tolist() for a in queries.select_rank(
+        data, ranks)]
+    del data, x
+    cache.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "dist_sim_refs", "seconds": time.perf_counter() - t18})
+    launches = {}
+
+    def record(label, answers, ref, case):
+        sorting = [a for a in answers if a is not None]
+        same = check_dist(label, answers, ref, case) if ref else {}
+        per_rank = [a["launches"] if a else None for a in answers]
+        total = {}
+        for a in sorting:
+            for k, v in a["launches"].items():
+                total[k] = total.get(k, 0) + v
+        launches.setdefault(label, total)        # the first instance's
+        need = ("tile_sort",) if case[4] == 1 else DIST_REQUIRED.get(
+            case[1], ("tile_sort",))
+        missing = [k for k in need if total.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched on the "
+                                 f"ranks: {missing}")
+        emit({"phase": "dist", "case": label, "instance": case[3],
+              "algorithm": case[1], "p": case[4], "log2_n": case[5],
+              "rows": case[6], "kw": case[2], "mesh": case[7],
+              "identical": same, "overflow": sorting[0].get("overflow"),
+              "wall_s_gloo_over_host": answers[0]["wall_s"],
+              "sim_wall_s": ref["wall_s"] if ref else None,
+              "peak_per_rank": [a["peak"] if a else None for a in answers],
+              "sim_peak": ref["peak"] if ref else None,
+              "launches_per_rank": per_rank})
+
+    ranks8 = DistRanks(DIST_RANKS, "gloo")
+    try:
+        for case in cases:
+            record(case[0], ranks8.run(("sort", case)),
+                   refs[case[0] + case[3]], case)
+        case = ("dist-serve", None, {}, "Uniform", DIST_RANKS,
+                DIST_SERVE_LOG_N, 1, None)
+        answers = ranks8.run(("serve", case))
+        if any(a["answers"] != serve_ref for a in answers):
+            raise AssertionError("dist-serve: select_rank on the ranks "
+                                 "differs from the sim backend")
+        record("dist-serve", answers, None, case)
+    finally:
+        ranks8.close()
+    emit({"phase": "dist_gloo_done", "seconds": time.perf_counter() - t18})
+    ranks1 = DistRanks(1, "nccl")
+    try:
+        for case in nccl_cases():
+            ref = sim_reference(torch, np, psort, SortConfig,
+                                generate_instance, case, cache)
+            record(case[0], ranks1.run(("sort", case)), ref, case)
+    finally:
+        ranks1.close()
+    emit({"phase": "dist_done", "seconds": time.perf_counter() - t18})
+    return launches
+
+
+def dist_kernel_rows(torch):
+    """The kernels of phase 18's paths at one rank's shapes: RAMS's at a
+    rank of the 2^21-key sorts (p = 8, 2^18 keys a rank), ``tile_sort`` and
+    a ``run_merge`` pass at a rank of the 2^26-key sorts ((1, 2^24) with
+    2^23 valid keys) and of the NCCL rank's ((1, 2^25) with 2^24), and the
+    classify of SSort (nb = 8) and RQuick (nb = 2) at a rank's (1, 2^25)
+    with 2^23 valid.  Returns (RAMS rows by launch key, [(row, paths)])."""
+    dev = torch.device("cuda")
+    ams, ams_sort = rams_kernel_rows(torch, 1, DIST_RANKS,
+                                     1 << (DIST_LOG_N_CUT["rams"] - 3),
+                                     "dist-rams", seed=18)
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    per = 1 << (DIST_LOG_N - 3)
+    out = ams_sort + sort_kernel_rows(
+        torch, g, 1, 2 * per, torch.tensor([per], device=dev),
+        ("dist-8",), merge=True)
+    out += sort_kernel_rows(
+        torch, g, 1, 2 << DIST_NCCL_LOG_N,
+        torch.tensor([1 << DIST_NCCL_LOG_N], device=dev), ("nccl",),
+        merge=True)
+    C, count = 4 * per, torch.tensor([per], device=dev)
+    keys = torch.sort(torch.randint(-2 ** 31, 2 ** 31 - 1, (1, C),
+                                    generator=g, device=dev,
+                                    dtype=torch.int32), dim=1)[0]
+    keys = torch.where(torch.arange(C, device=dev)[None, :] < per, keys,
+                       2 ** 31 - 1)
+    ties = torch.zeros_like(keys)
+    for nb, want, path in ((8, "bucket", "dist-ssort"),
+                           (2, "hist", "dist-rquick")):
+        s_keys = torch.sort(keys[:, torch.randint(0, per, (nb - 1,),
+                                                  generator=g, device=dev)],
+                            dim=1)[0].contiguous()
+        rows = partition_rows(torch, keys, ties, s_keys,
+                              torch.zeros_like(s_keys), count, nb,
+                              wants=(want,), path=path)
+        out += [(row, (path,)) for row in rows.values()]
+    del keys, ties
+    torch.cuda.empty_cache()
+    return ams, out
+
+
+def dist_summary_rows(launches, ams, sort_rows):
+    """The ``kernels`` line's rows of phase 18: each kernel row at a rank's
+    shape with the launches of every path of that shape, summed over the
+    path's ranks."""
+    ams_paths = [k for k in launches if k.startswith(
+        ("dist-rams", "dist-ntb-ams", "dist-nested"))]
+    wide = [k for k in launches if k.startswith("dist-")
+            and k not in ams_paths and k != "dist-serve"]
+    by_shape = {"dist-rams": ams_paths, "dist-8": wide,
+                "nccl": [k for k in launches if k.startswith("nccl-")],
+                "dist-ssort": [k for k in wide if "ssort" in k],
+                "dist-rquick": [k for k in wide if "quick" in k
+                                or k in ("dist-batched", "dist-exclude")]}
+    out = []
+    for key, row in ams.items():
+        out += [(row, path, launches[path].get(key, 0)) for path in ams_paths]
+    for row, (shape,) in sort_rows:
+        out += [(row, path, launches[path].get(launch_key(row), 0))
+                for path in by_shape[shape]]
+    return out
+
+
 def check_external(torch, np, x_np, out, info, n):
     """Phase-6 assertions on one external psort result (all on the card):
     the lane ran, nothing overflowed, the output is the sorted input and
@@ -2540,6 +2982,17 @@ def main() -> int:
           "kernels": None if log is None else ptxas_report(log)})
 
     lap("1-2")
+    if "--dist-only" in sys.argv[1:]:           # phase 18 alone
+        dist_launches = dist_phase(torch, np, psort, SortConfig,
+                                   generate_instance)
+        dist_ams, dist_rows = dist_kernel_rows(torch)
+        lap("18")
+        emit_kernels(dist_summary_rows(dist_launches, dist_ams, dist_rows))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # --- 3. kernels against their plain versions -----------------------------
     kernels = kernel_phases(torch)
@@ -2734,6 +3187,12 @@ def main() -> int:
                                  ExternalPolicy, generate_instance,
                                  launch_counts, reset_launch_counts)
     lap("17")
+
+    # --- 18. the distributed backend ----------------------------------------
+    dist_launches = dist_phase(torch, np, psort, SortConfig,
+                               generate_instance)
+    dist_ams, dist_rows = dist_kernel_rows(torch)
+    lap("18")
     emit({"phase": "seconds", "of": "all",
           "seconds": time.perf_counter() - start})
 
@@ -2794,6 +3253,18 @@ def main() -> int:
         rows.append((row, "rams-fault", fault_launches[key]))
     for row, paths in fault_sort_rows:
         rows.append((row, "rams-fault", fault_launches[launch_key(row)]))
+    # phase 18: each kernel at a rank's shapes, with the launches of every
+    # distributed path, summed over its ranks
+    rows += dist_summary_rows(dist_launches, dist_ams, dist_rows)
+    emit_kernels(rows)
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def emit_kernels(rows) -> None:
     emit({"kernels": [
         {"name": row["name"], "variant": row["variant"], "path": path,
          "what": row.get("what"),
@@ -2803,11 +3274,6 @@ def main() -> int:
          "ms": row["ms"], "plain_ms": row["plain_ms"],
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
          "library_ms": row["library_ms"]} for row, path, launches in rows]})
-    print(card, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
 
 
 if __name__ == "__main__":

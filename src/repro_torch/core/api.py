@@ -1,14 +1,20 @@
-"""Public API: ``psort`` on the sim backend with every algorithm of the
-reference, ``"auto"`` selection from a :class:`CostModel`, the external
-lane, the streamed exchange (``overlap=True``), batched (d, n) keys,
-nested (outer × inner) meshes and ``trace_collectives`` (counterpart of
-``repro/core/api.py``).
+"""Public API: ``psort`` on the sim and the distributed backends with
+every algorithm of the reference, ``"auto"`` selection from a
+:class:`CostModel`, the external lane, the streamed exchange
+(``overlap=True``), batched (d, n) keys, nested (outer × inner) meshes and
+``trace_collectives`` (counterpart of ``repro/core/api.py``).
 
 The sim backend runs p PEs on one device; here every PE is a row of a
 (p, C) tensor and the per-PE body of the reference (``_sort_body``) runs
-once over all rows.  A batch of d sorts is d·p rows, sort r's PE i at row
-``r·p + i`` (``comm.batched``), and a nested mesh runs the same body with
-every collective decomposed over the two real axes (``comm.nested``).
+once over all rows.  ``backend="shard_map"`` is the reference's production
+backend on ``torch.distributed``: each rank of a mesh is one PE and runs
+the same body on its one row, its collectives on the process groups of
+the mesh's axes (``comm.distributed``), SPMD (:func:`_psort_distributed`).
+The port's default stays ``"sim"``, where the reference's is
+``"shard_map"``: one card is one device.  A batch of d sorts is d·p rows,
+sort r's PE i at row ``r·p + i`` (``comm.batched``), and a nested mesh runs
+the same body with every collective decomposed over the two real axes
+(``comm.nested``).
 ``SortConfig(external=ExternalPolicy(budget))`` streams shards larger than
 ``budget`` through the device in runs (``external.py``), exactly when the
 reference does.  ``SortConfig(fault_policy=FaultPolicy(...))`` runs the
@@ -51,16 +57,11 @@ from .rquick import rquick
 from .samplesort import samplesort
 from .types import (int_to_key, key_to_int, make_shard, pad_value,
                     resolve_device)
+from ..dist.sharding import make_mesh, mesh_sizes, sort_mesh, world_ranks
 from ..runtime.elastic import plan_sort_rescale
 from ..runtime.failures import flag_stragglers, run_with_restarts
 
-# knobs of the reference's SortConfig that this port does not honour yet:
-# the values it accepts (the reference's defaults) and the ROADMAP item
-# (queue 1) that brings the others
-_UNPORTED = {
-    "mesh": ((None,), "item 7 (torch.distributed backend)"),
-    "axis": (("sort",), "item 7 (torch.distributed backend)"),
-}
+BACKENDS = ("shard_map", "sim")
 # the ported algorithms: each one's function and the keywords it takes
 _RAMS_KW = ("seed", "levels", "level_bits", "oversample", "tie_break",
             "shuffle", "slot_factor", "overlap")
@@ -88,9 +89,11 @@ _OVERLAP_ALGOS = ("rams", "ntb-ams", "ssort", "ns-ssort")
 
 @dataclasses.dataclass(frozen=True, init=False)
 class SortConfig:
-    """The knobs of one sort that the port honours.
+    """The knobs of one sort, the reference's.
 
-    ``p`` (PE count, a power of two), ``backend`` ("sim"), ``algorithm``,
+    ``p`` (PE count, a power of two), ``backend`` (``"sim"``, the default
+    here: p PEs emulated as rows of one device; or ``"shard_map"``: one PE
+    per rank of ``torch.distributed``, see :func:`psort`), ``algorithm``,
     ``capacity_factor`` (slack of the per-PE buffers), ``levels`` (RAMS
     and NTB-AMS level count, also taken with ``"auto"``; any other
     algorithm refuses it) and ``algo_kw`` (the algorithm's keywords, as a
@@ -127,13 +130,16 @@ class SortConfig:
     a batch of 2-D keys, as in the reference (the sim layout reads no
     name).  ``fault_policy`` (a ``repro_torch.runtime.FaultPolicy``, which
     psort writes its trace and attempts back to; it takes no part in
-    equality) runs the fault lane.  The reference's other knobs are taken
-    at their default values (``mesh`` None, ``axis`` "sort"); any other
-    value of one raises ``NotImplementedError`` naming the ROADMAP item
-    that brings it.  :meth:`from_kwargs` builds a config from the flat
-    keywords of the reference's legacy call style."""
+    equality) runs the fault lane (sim only, as in the reference).
+    ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``, shard_map
+    only; no part in equality) and ``axis`` (the name of its sort axis)
+    lay the distributed backend out (``repro_torch.dist.sort_mesh``).
+    :meth:`from_kwargs` builds a config from the flat keywords of the
+    reference's legacy call style."""
 
     p: Optional[int] = None
+    mesh: Optional[object] = dataclasses.field(default=None, compare=False)
+    axis: str = "sort"
     backend: str = "sim"
     algorithm: str = "auto"
     capacity_factor: float = 2.0
@@ -148,27 +154,14 @@ class SortConfig:
     fault_policy: Optional[object] = dataclasses.field(default=None,
                                                        compare=False)
 
-    def __init__(self, p=None, backend="sim", algorithm="auto",
-                 capacity_factor=2.0, levels=None, algo_kw=(), external=None,
-                 cost_model=None, overlap=False, data_axis="data",
-                 mesh_shape=None, mesh_axes=("inter", "intra"),
-                 fault_policy=None, **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"SortConfig got an unexpected keyword "
-                                f"{name!r}")
-            accepted, item = _UNPORTED[name]
-            if isinstance(value, list):
-                value = tuple(value)
-            if not any(value is a or (type(value) is type(a) and value == a)
-                       for a in accepted):
-                raise NotImplementedError(
-                    f"SortConfig({name}=...) is not ported yet: ROADMAP "
-                    f"queue 1 {item}")
-        if backend != "sim":
-            raise NotImplementedError(
-                f"backend={backend!r} is not ported yet: ROADMAP queue 1 "
-                f"{_UNPORTED['mesh'][1]}")
+    def __init__(self, p=None, mesh=None, axis="sort", backend="sim",
+                 algorithm="auto", capacity_factor=2.0, levels=None,
+                 algo_kw=(), external=None, cost_model=None, overlap=False,
+                 data_axis="data", mesh_shape=None,
+                 mesh_axes=("inter", "intra"), fault_policy=None):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected "
+                             f"{BACKENDS}")
         if external is not None and not isinstance(external,
                                                    ExternalPolicy):
             raise TypeError(f"external must be an ExternalPolicy, got "
@@ -196,7 +189,8 @@ class SortConfig:
             raise ValueError(f"unknown {algorithm.upper()} keywords "
                              f"{sorted(unknown)}")
         kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
-        for name, value in (("p", p), ("backend", backend),
+        for name, value in (("p", p), ("mesh", mesh), ("axis", axis),
+                            ("backend", backend),
                             ("algorithm", algorithm),
                             ("capacity_factor", capacity_factor),
                             ("levels", levels),
@@ -222,11 +216,10 @@ class SortConfig:
         return dataclasses.replace(self, **changes)
 
 
-# the reference's field names (the unported ones included): what a legacy
-# keyword call passes as a field rather than as an algorithm keyword
+# the reference's field names: what a legacy keyword call passes as a
+# field rather than as an algorithm keyword
 _CONFIG_FIELDS = frozenset(
-    {f.name for f in dataclasses.fields(SortConfig)} | set(_UNPORTED)
-) - {"algo_kw"}
+    f.name for f in dataclasses.fields(SortConfig)) - {"algo_kw"}
 
 
 def _coerce_config(config, legacy: dict, caller: str) -> SortConfig:
@@ -332,6 +325,15 @@ def psort(keys, config: Optional[SortConfig] = None, *,
     attempts}) and ``comm_trace``, and has no ``external`` or
     ``pass_seconds``, as the reference's.
 
+    ``backend="shard_map"`` sorts on ``torch.distributed``, SPMD: every
+    rank of ``config.mesh`` (a ``DeviceMesh``; by default the first p
+    ranks of the default process group, ``sort_mesh(p, d)`` for 2-D keys
+    and ``sort_mesh(shape=mesh_shape)`` on a nested mesh) calls psort with
+    the same keys, sorts its own slice as one PE and returns the whole
+    result, bit for bit the sim backend's.  Without a process group, or
+    with fewer ranks than p, it raises the reference's ``default_mesh``
+    error; ``external`` and ``fault_policy`` raise its ``ValueError``.
+
     The reference's legacy styles are taken (a bare int for p, or the
     config's fields and algorithm keywords as keywords), each with one
     ``DeprecationWarning``; ``device`` is the port's own keyword."""
@@ -343,6 +345,10 @@ def psort(keys, config: Optional[SortConfig] = None, *,
         raise ValueError(f"keys must be 1-D (one sort) or 2-D (a batch of "
                          f"independent sorts); got shape {tuple(x.shape)}")
     batched = x.dim() == 2
+    if cfg.backend == "shard_map":
+        return _psort_distributed(x, cfg, batched, return_info, device)
+    if cfg.mesh is not None:
+        raise ValueError("backend='sim' runs meshless; drop the mesh arg")
     p, mesh_shape = _topology(cfg, "backend='sim' needs an explicit p")
     external = _resolve_external(cfg.external)
     if external is not None:
@@ -356,16 +362,137 @@ def psort(keys, config: Optional[SortConfig] = None, *,
         raise ValueError("algorithm='external' needs external="
                          "ExternalPolicy(...) (or REPRO_EXTERNAL_BUDGET)")
     n = x.shape[-1]
-    if x.dtype not in _KEY_DTYPES:
-        raise TypeError(f"unsupported key dtype {x.dtype}: psort sorts "
-                        f"int32, uint32, float32, int64, uint64 or float64 "
-                        f"keys")
+    _check_dtype(x)
     if cfg.fault_policy is not None:
         return _psort_faulty(x, n, p, cfg, external, mesh_shape, batched,
                              return_info, dev)
     return _sort_routed(x, {}, _route(cfg, n, p, external, mesh_shape), n,
                         p, mesh_shape, cfg, external, batched, return_info,
                         dev)
+
+
+def _check_dtype(x) -> None:
+    if x.dtype not in _KEY_DTYPES:
+        raise TypeError(f"unsupported key dtype {x.dtype}: psort sorts "
+                        f"int32, uint32, float32, int64, uint64 or float64 "
+                        f"keys")
+
+
+def default_mesh(p: Optional[int] = None, axis: str = "sort"):
+    """The 1-D mesh of the default process group's first p ranks (all of
+    them when p is None), the reference's ``default_mesh`` with ranks for
+    devices; without a process group there are none."""
+    world = world_ranks()
+    p = p or world
+    if not world or p > world:
+        raise ValueError(f"requested p={p} > available devices {world}"
+                         f" (use backend='sim' for emulated PE counts)")
+    return make_mesh(np.arange(p), (axis,))
+
+
+def _mesh_of(cfg: SortConfig, batched: bool, d: int):
+    """(mesh, p, mesh_shape) of a shard_map sort, with the reference's
+    defaults and errors: the nested mesh ``sort_mesh(shape=...)``, for 2-D
+    keys the (data, sort) mesh, else ``default_mesh``; p read off the
+    mesh's sort axis."""
+    mesh, axis, data_axis = cfg.mesh, cfg.axis, cfg.data_axis
+    if cfg.mesh_shape is not None:
+        p, mesh_shape = _topology(cfg, "")
+        if mesh is None:
+            mesh = sort_mesh(shape=mesh_shape, d=d if batched else 1,
+                             data_axis=data_axis, mesh_axes=cfg.mesh_axes)
+        want = dict(zip(cfg.mesh_axes, mesh_shape))
+        if batched:
+            want[data_axis] = d
+        sizes = mesh_sizes(mesh)
+        for a, sz in want.items():
+            if sizes.get(a) != sz:
+                raise ValueError(f"mesh axis {a!r} must have size {sz}; "
+                                 f"mesh has {sizes}")
+        return mesh, p, mesh_shape
+    if batched:
+        if mesh is None:
+            mesh = sort_mesh(cfg.p, d=d, axis=axis, data_axis=data_axis)
+        sizes = mesh_sizes(mesh)
+        for a in (data_axis, axis):
+            if a not in sizes:
+                raise ValueError(f"2-D keys need a mesh with axes "
+                                 f"({data_axis!r}, {axis!r}); mesh has "
+                                 f"{tuple(sizes)}")
+        if sizes[data_axis] != d:
+            raise ValueError(f"keys.shape[0]={d} != mesh.shape"
+                             f"[{data_axis!r}]={sizes[data_axis]}")
+    else:
+        mesh = mesh or default_mesh(cfg.p, axis)
+    p = mesh_sizes(mesh)[axis]
+    if p & (p - 1):
+        raise ValueError(f"p={p} must be a power of two (hypercube layout)")
+    return mesh, p, None
+
+
+def _psort_distributed(x, cfg: SortConfig, batched, return_info, device):
+    """``psort`` on the distributed backend (the reference's shard_map
+    paths ``_psort_jit``, ``_psort2_jit`` and ``_psort_nested_jit``).
+
+    SPMD: every rank of the mesh calls it with the same keys.  A rank is
+    one PE: it takes its slice of its row (the row of its data-axis slice
+    for 2-D keys), runs the per-PE body of the sim backend on that one row
+    inside ``comm.distributed`` (and ``comm.nested`` on a nested mesh),
+    and the sorted result is then reassembled on every rank, as the
+    reference's global output array holds it."""
+    d = x.shape[0] if batched else 1
+    mesh, p, mesh_shape = _mesh_of(cfg, batched, d)
+    _check_dtype(x)
+    if cfg.external is not None:
+        raise ValueError("external= requires backend='sim' (host-streamed "
+                         "shards run on emulated PEs)")
+    if cfg.algorithm == "external":
+        raise ValueError("algorithm='external' needs external="
+                         "ExternalPolicy(...) (or REPRO_EXTERNAL_BUDGET)")
+    if cfg.fault_policy is not None:
+        raise ValueError("fault_policy= requires backend='sim' (the "
+                         "fault-injection lane runs on emulated PEs)")
+    n = x.shape[-1]
+    dev = resolve_device(device)
+    algorithm = _route(cfg, n, p, None, mesh_shape)
+    per, capacity, out_capacity = _capacities(cfg, algorithm, n, p)
+    algo_kw = _algo_kw(cfg, algorithm, mesh_shape)
+    with contextlib.ExitStack() as scopes:
+        layout = scopes.enter_context(comm.distributed(mesh, cfg.axis))
+        if mesh_shape is not None:
+            scopes.enter_context(comm.nested(comm.AXIS, (
+                (cfg.mesh_axes[0], mesh_shape[0]),
+                (cfg.mesh_axes[1], mesh_shape[1]))))
+        me = int(comm.axis_index(p)[0])
+        r = layout.axis(cfg.data_axis).index if batched else 0
+        lo, hi = min(per * me, n), min(per * (me + 1), n)
+        s = key_to_int((x[r] if batched else x)[lo:hi].to(dev))
+        row = torch.full((1, per), pad_value(s.dtype), dtype=s.dtype,
+                         device=dev)
+        row[0, :hi - lo] = s
+        del s
+        keys_out, idx_out, count, overflow = _sort_body(
+            row, torch.tensor([hi - lo], device=dev), p, capacity,
+            out_capacity, algorithm, algo_kw)
+        del row
+        with record_function("reassemble"):
+            axes = (comm.AXIS, cfg.data_axis) if batched else (comm.AXIS,)
+            c = int(count[0])
+            counts = comm.gather_ranks(count, axes).reshape(d, p)
+            overflow = int(comm.gather_ranks(overflow, axes).sum())
+            # AllGatherM's result is PE 0's copy; every PE's perm counts
+            mine = keys_out[0, :c if algorithm != "allgatherm" or me == 0
+                            else 0]
+            pes = 1 if algorithm == "allgatherm" else p
+            result = _rows(int_to_key(comm.gather_ranks(mine, axes),
+                                      x.dtype),
+                           counts[:, :pes].sum(dim=1), batched)
+            if not return_info:
+                return result
+            perm = _rows(comm.gather_ranks(idx_out[0, :c], axes).to(
+                torch.int64) & 0xFFFFFFFF, counts.sum(dim=1), batched)
+    return result, _info(algorithm, "shard_map", mesh_shape, counts,
+                         overflow, perm, n, p, d, batched)
 
 
 def _topology(cfg: SortConfig, missing_p: str):
@@ -432,26 +559,14 @@ def _psort_incore(s, orig_dtype, n, p, cfg, algorithm, return_info, dev,
     of ``mesh_shape``), then the reference's reassembly into
     ``orig_dtype``, d rows where ``batched``, else one."""
     d = s.shape[0]
-    per = -(-max(n, 1) // p)
-    algo_kw = dict(cfg.algo_kw)
-    if cfg.overlap and algorithm in _OVERLAP_ALGOS:
-        algo_kw.setdefault("overlap", True)
-    if algorithm in ("rams", "ntb-ams"):
-        if mesh_shape is not None:
-            algo_kw.setdefault("level_bits", tuple(
-                nested_level_bits(*mesh_shape, cfg.levels)))
-        elif cfg.levels is not None:
-            algo_kw.setdefault("levels", cfg.levels)
-
-    capacity = max(4, int(math.ceil(per * cfg.capacity_factor)))
+    per, capacity, out_capacity = _capacities(cfg, algorithm, n, p)
+    algo_kw = _algo_kw(cfg, algorithm, mesh_shape)
     flat = torch.full((d, p * per), pad_value(s.dtype), dtype=s.dtype,
                       device=dev)
     flat[:, :n] = s
     del s
     row_counts = torch.clamp(n - per * torch.arange(p, device=dev), 0,
                              per).repeat(d)
-    out_capacity = max(1, p * per) if algorithm in _CONCENTRATED \
-        else capacity
     with contextlib.ExitStack() as scopes:
         scopes.enter_context(comm.batched(d))
         if mesh_shape is not None:
@@ -476,18 +591,49 @@ def _psort_incore(s, orig_dtype, n, p, cfg, algorithm, return_info, dev,
             return result
         perm = _rows(idx_out.reshape(d, p, width)[take].to(torch.int64)
                      & 0xFFFFFFFF, counts.sum(dim=1), batched)
-    info = {
+    return result, _info(algorithm, "sim", mesh_shape, counts,
+                         int(overflow.sum()), perm, n, p, d, batched)
+
+
+def _capacities(cfg: SortConfig, algorithm: str, n: int, p: int):
+    """(keys a PE, its shard's capacity, its output capacity): GatherM and
+    AllGatherM concentrate the output, p·⌈n/p⌉ slots a PE."""
+    per = -(-max(n, 1) // p)
+    capacity = max(4, int(math.ceil(per * cfg.capacity_factor)))
+    out_capacity = max(1, p * per) if algorithm in _CONCENTRATED \
+        else capacity
+    return per, capacity, out_capacity
+
+
+def _algo_kw(cfg: SortConfig, algorithm: str, mesh_shape) -> dict:
+    """The algorithm's keywords: ``algo_kw``, ``overlap`` where it
+    streams, and RAMS's levels (the nested schedule on a nested mesh)."""
+    algo_kw = dict(cfg.algo_kw)
+    if cfg.overlap and algorithm in _OVERLAP_ALGOS:
+        algo_kw.setdefault("overlap", True)
+    if algorithm in ("rams", "ntb-ams"):
+        if mesh_shape is not None:
+            algo_kw.setdefault("level_bits", tuple(
+                nested_level_bits(*mesh_shape, cfg.levels)))
+        elif cfg.levels is not None:
+            algo_kw.setdefault("levels", cfg.levels)
+    return algo_kw
+
+
+def _info(algorithm, backend, mesh_shape, counts, overflow, perm, n, p, d,
+          batched) -> dict:
+    """The reference's info dict; ``counts`` (d, p)."""
+    return {
         "algorithm": algorithm,
-        "backend": "sim",
+        "backend": backend,
         "mesh_shape": mesh_shape,
         "counts": counts if batched else counts[0],
-        "overflow": int(overflow.sum()),
-        "balance": float(counts_out.max()) / max(1.0, n / p),
+        "overflow": overflow,
+        "balance": float(counts.max()) / max(1.0, n / p),
         "perm": perm,
         "n": n,
         "d": d,
     }
-    return result, info
 
 
 def _rows(values, lengths, batched):
@@ -526,7 +672,10 @@ def trace_collectives(n: int, config: Optional[SortConfig] = None, *args,
     flat), its ``ext:h2d``/``ext:d2h`` copies included.  ``"auto"`` traces
     the algorithm the cost model picks, and ``overlap=True`` the streamed
     exchanges, recorded as the reference records them (``ovl:<phase>``
-    chunk events; on a nested mesh the barrier exchanges).  The
+    chunk events; on a nested mesh the barrier exchanges).
+    ``backend="shard_map"`` runs the sort on the distributed backend
+    (every rank calls it) and returns this rank's trace: each rank records
+    what an emulated PE records.  The
     reference's legacy ``trace_collectives(n, p, algorithm,
     capacity_factor, ...)`` style works through the same shim as
     :func:`psort`'s."""
@@ -541,13 +690,19 @@ def trace_collectives(n: int, config: Optional[SortConfig] = None, *args,
     if cfg.external is not None and (d > 1 or cfg.mesh_shape is not None):
         raise ValueError("external tracing covers the 1-D flat axis only "
                          "(the external lane's contract)")
-    p, mesh_shape = _topology(cfg, "trace_collectives needs p or "
-                                   "mesh_shape")
-    dev = resolve_device(device)
     rows = d if d > 1 else 1
     rng = np.random.default_rng(0xE87)
     u = rng.integers(0, 2 ** 32, size=(rows, max(n, 1)),
                      dtype=np.int64).astype(np.uint32)
+    if cfg.backend == "shard_map":
+        x = torch.from_numpy(np.ascontiguousarray(u[:, :n]))
+        with comm.counting() as trace:
+            _psort_distributed(x if rows > 1 else x[0], cfg, rows > 1, False,
+                               device)
+        return trace
+    p, mesh_shape = _topology(cfg, "trace_collectives needs p or "
+                                   "mesh_shape")
+    dev = resolve_device(device)
     with comm.counting() as trace:
         if cfg.external is not None:
             _psort_external_once(u[0], n, p=p, policy=cfg.external,

@@ -19,6 +19,23 @@ sort axis as an (outer × inner) pair of real axes (the reference's
 reference's view runs it, stage by stage over the real axes, and the trace
 records those stages with their real axes.
 
+The distributed backend.  Inside :func:`distributed` (the reference's
+``LaxCollectives`` under ``shard_map``) a rank of ``torch.distributed`` is
+one PE: dimension 0 holds its own row, and each collective runs on the
+process group of the mesh axis it names (under :func:`nested` the mesh's
+two real axes).  ``psum`` on integers is an ``all_reduce``, on floats and
+bools a gather summed in group order (the emulated PEs' bits);
+``all_gather`` and ``all_to_all`` are ``all_gather_single`` and
+``all_to_all_single`` over the whole axis, and a grouped variant, a
+``ppermute``, the hypercube exchange (:func:`swap`) and each step of the
+streamed ring are one ``all_to_all_single`` with zero splits to every rank
+outside the group.  No process group is created past the mesh's own, so
+ranks a mesh leaves out never take part after its making.  The few reads
+across PEs that are not collectives of the reference (the samples SSort
+pools, the merge-pass bound of the streamed exchange, the reassembled
+result) go through unrecorded helpers (:func:`sort_rows`,
+:func:`agree_max`, :func:`gather_ranks`, :func:`gather_pes`).
+
 The trace.  The reference counts collectives at trace time, one event per
 call site execution with the per-PE bytes of each pytree leaf read off its
 static shape (``CountingCollectives``).  The port has no backend object:
@@ -27,10 +44,10 @@ while a :func:`counting` scope is open, :func:`ppermute`, :func:`psum`,
 ``all_to_all`` event per delivered block, tagged ``ovl:<phase>``, as the
 reference's counting decorator records it) record into its trace, and so
 does :func:`record`, which the algorithms call where they compute a
-reference collective without one of those (the hypercube exchange is a
-reshape and flip, the sample gather of SSort a reshape).  Each event
-carries the reference's bytes: the port's count is int64 where the
-reference's is int32, so a call site passes ``itemsize``.  Bytes come from
+reference collective without one of those (on emulated PEs the hypercube
+exchange is a reshape and flip, the sample gather of SSort a reshape).
+Each event carries the reference's bytes: the port's count is int64 where
+the reference's is int32, so a call site passes ``itemsize``.  Bytes come from
 shapes only, so recording adds no device-to-host sync; outside a scope
 nothing is recorded.  Tags come from the reference's :func:`tagged`
 scopes only; the axis is the reference's ``"sort"``, or under
@@ -58,6 +75,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 AXIS = "sort"                        # the reference's sort axis name
 
@@ -523,6 +541,7 @@ class NestedAxes:
 class _View:
     d: int = 1                              # independent sorts (rows of p)
     nest: Optional[NestedAxes] = None       # the sort axis's nested view
+    dist: Optional["Distributed"] = None    # one PE per rank (distributed)
 
 
 _VIEW: contextvars.ContextVar[_View] = contextvars.ContextVar(
@@ -598,6 +617,300 @@ def _split(x: torch.Tensor):
     if x.shape[0] % d:
         raise ValueError(f"{x.shape[0]} rows do not split into {d} sorts")
     return d, x.shape[0] // d
+
+
+# ---------------------------------------------------------------------------
+# The distributed backend: one PE per rank of a torch.distributed group
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Axis:
+    """One mesh axis as this rank sees it: the process group of its slice,
+    the global ranks along it in axis order, and this rank's position."""
+    group: object
+    ranks: Tuple[int, ...]
+    index: int
+    slot: Tuple[int, ...]        # group rank of each axis position
+
+    @classmethod
+    def of(cls, group, ranks, index) -> "_Axis":
+        ranks = tuple(int(r) for r in ranks)
+        slot = tuple(tdist.get_group_rank(group, r) for r in ranks)
+        return cls(group, ranks, int(index), slot)
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def members(self, axis_index_groups) -> List[int]:
+        """The axis positions of this rank's group, in group order."""
+        if axis_index_groups is None:
+            return list(range(self.size))
+        for g in axis_index_groups:
+            g = [int(v) for v in g]
+            if self.index in g:
+                return g
+        raise ValueError(f"axis position {self.index} is in no group of "
+                         f"{axis_index_groups}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Distributed:
+    """The ``torch.distributed`` layout of a :func:`distributed` scope: the
+    sort axis (None where a :func:`nested` view makes it virtual) and every
+    named axis of the mesh."""
+    sort: Optional[_Axis]
+    dims: Dict[str, _Axis]
+
+    @classmethod
+    def of(cls, mesh_or_group, axis: str = AXIS) -> "Distributed":
+        """From a ``DeviceMesh`` (its ``axis`` dimension is the sort axis,
+        when it has one) or a ``ProcessGroup`` (the sort axis itself, in
+        group-rank order)."""
+        if not tdist.is_available() or not tdist.is_initialized():
+            raise RuntimeError("the distributed backend needs an initialised "
+                               "torch.distributed process group")
+        if not hasattr(mesh_or_group, "mesh_dim_names"):
+            group = mesh_or_group
+            ranks = tdist.get_process_group_ranks(group)
+            return cls(_Axis.of(group, ranks, tdist.get_rank(group)), {})
+        mesh = mesh_or_group
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError(f"rank {tdist.get_rank()} is not in the mesh "
+                             f"{mesh.mesh.tolist()}")
+        dims = {}
+        for k, name in enumerate(mesh.mesh_dim_names):
+            at = list(coord)
+            at[k] = slice(None)
+            dims[name] = _Axis.of(mesh.get_group(name),
+                                  mesh.mesh[tuple(at)].tolist(), coord[k])
+        return cls(dims.get(axis), dims)
+
+    def axis(self, name: Optional[str]) -> _Axis:
+        if name in (None, AXIS):
+            if self.sort is None:
+                raise ValueError("the sort axis is not a mesh axis: open a "
+                                 "nested view of it")
+            return self.sort
+        if name not in self.dims:
+            raise ValueError(f"no axis {name!r} in the mesh "
+                             f"{sorted(self.dims)}")
+        return self.dims[name]
+
+
+@contextlib.contextmanager
+def distributed(mesh_or_group, axis: str = AXIS):
+    """Run every collective on ``torch.distributed``: this rank is one PE,
+    its tensors hold its own row (dimension 0 of size 1), and each
+    collective runs on the process group of the axis it names, the sort
+    axis being ``mesh_or_group``'s ``axis`` dimension (or the group).  A
+    :func:`nested` view inside it runs on the mesh's two real axes.  The
+    trace records what the emulated PEs record, event for event; the
+    transport's own launches are never recorded."""
+    view = dataclasses.replace(_VIEW.get(),
+                               dist=Distributed.of(mesh_or_group, axis))
+    token = _VIEW.set(view)
+    try:
+        yield view.dist
+    finally:
+        _VIEW.reset(token)
+
+
+def _dist() -> Optional[Distributed]:
+    return _VIEW.get().dist
+
+
+def _one_row(x: torch.Tensor) -> None:
+    if x.shape[0] != 1:
+        raise ValueError(f"a rank holds one PE's row, not {x.shape[0]}")
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous 1-D tensor the transport takes (bool as
+    uint8: NCCL takes no bool)."""
+    x = x.contiguous()
+    return (x.view(torch.uint8) if x.dtype == torch.bool else x).reshape(-1)
+
+
+def _unwire(y: torch.Tensor, dtype) -> torch.Tensor:
+    return y.view(torch.bool) if dtype == torch.bool else y
+
+
+_gather_single = getattr(tdist, "all_gather_single", None) or getattr(
+    tdist, "all_gather_into_tensor", None)
+
+
+def _d_gather(ax: _Axis, members: Sequence[int], x: torch.Tensor
+              ) -> torch.Tensor:
+    """The values of ``members`` (axis positions, this rank among them),
+    stacked in their order: ``(len(members),) + x.shape``."""
+    if list(members) == list(range(ax.size)):
+        src = _wire(x)
+        out = src.new_empty(ax.size * src.numel())
+        _gather_single(out, src, group=ax.group)
+        out = out.view(ax.size, src.numel())[list(ax.slot)]
+        return _unwire(out, x.dtype).reshape((ax.size,) + tuple(x.shape))
+    return _d_alltoall(ax, members, x.expand((len(members),) + tuple(
+        x.shape)))
+
+
+def _d_alltoall(ax: _Axis, members: Sequence[int], blocks: torch.Tensor
+                ) -> torch.Tensor:
+    """Block j of ``blocks`` to member j; returns the blocks the members
+    sent here, in member order."""
+    members = list(members)
+    g = len(members)
+    src = _wire(blocks).view(g, blocks.numel() // g)
+    m = src.shape[1]
+    if members == list(range(ax.size)):
+        inv = [0] * g
+        for k, s in enumerate(ax.slot):
+            inv[s] = k
+        out = torch.empty_like(src)
+        tdist.all_to_all_single(out, src[inv].contiguous(), group=ax.group)
+        out = out[list(ax.slot)]
+    else:
+        got = _d_exchange(ax, dict(zip(members, src)),
+                          {k: m for k in members}, src)
+        out = torch.stack([got[k] for k in members])
+    return _unwire(out, blocks.dtype).reshape(blocks.shape)
+
+
+def _d_exchange(ax: _Axis, sends: Dict[int, torch.Tensor],
+                recv: Dict[int, int], like: torch.Tensor
+                ) -> Dict[int, torch.Tensor]:
+    """Point-to-point through one ``all_to_all_single`` of the axis's
+    group with zero splits to every other rank: ``sends`` maps an axis
+    position to the 1-D wire tensor it gets, ``recv`` a position to the
+    number of elements it sends here; ``like`` gives their dtype and
+    device.  Returns what arrived, by position."""
+    size_in, size_out = [0] * ax.size, [0] * ax.size
+    for k, v in sends.items():
+        size_in[ax.slot[k]] = v.numel()
+    for k, n in recv.items():
+        size_out[ax.slot[k]] = int(n)
+    order = sorted(sends, key=lambda k: ax.slot[k])
+    inp = torch.cat([sends[k] for k in order]) if order else like.new_empty(0)
+    out = like.new_empty(sum(size_out))
+    tdist.all_to_all_single(out, inp, size_out, size_in, group=ax.group)
+    parts = torch.split(out, size_out)
+    return {k: parts[ax.slot[k]] for k in recv}
+
+
+def _d_permute(ax: _Axis, x: torch.Tensor, dst: Optional[int],
+               src: Optional[int]) -> torch.Tensor:
+    """Send ``x`` to axis position ``dst`` and take the value ``src``
+    sends here (None: nothing), zeros where nothing arrives."""
+    w = _wire(x)
+    got = _d_exchange(ax, {} if dst is None else {dst: w},
+                      {} if src is None else {src: w.numel()}, w)
+    if src is None:
+        return torch.zeros_like(x)
+    return _unwire(got[src], x.dtype).view(x.shape)
+
+
+def _d_real(j: int):
+    """(axis, position of this rank's partner) of the hypercube exchange
+    along bit j: on the sort axis, or on the real axis of bit j."""
+    dist_, nest = _dist(), _VIEW.get().nest
+    if nest is None:
+        ax = dist_.axis(AXIS)
+        return ax, ax.index ^ (1 << j)
+    name = nest.bit_axis(j)
+    ax = dist_.axis(name)
+    bit = j if name == nest.inner else j - (nest.p_i.bit_length() - 1)
+    return ax, ax.index ^ (1 << bit)
+
+
+def swap(x: torch.Tensor, j: int) -> torch.Tensor:
+    """Every PE receives the value of its hypercube partner ``i ^ 2^j``
+    (unrecorded: the caller records the reference's exchange).  Emulated
+    PEs swap the halves of every 2^(j+1) block of rows, inside each sort
+    of a batch; a rank exchanges with its partner's rank."""
+    if _dist() is None:
+        rest = tuple(x.shape[1:])
+        return x.reshape((x.shape[0] >> (j + 1), 2, 1 << j) + rest).flip(
+            1).reshape(x.shape)
+    _one_row(x)
+    ax, partner = _d_real(j)
+    return _d_permute(ax, x, partner, partner)
+
+
+def sorts(rows: int, p: int) -> int:
+    """How many sorts the ``rows`` PEs held here belong to: rows / p
+    emulated, one on a rank."""
+    return 1 if _dist() is not None else rows // p
+
+
+def sort_rows(x: torch.Tensor, p: int) -> torch.Tensor:
+    """Each sort's PE values concatenated in PE order, one row per sort
+    held here: (sorts, p·m) of the (P, m) values (unrecorded: the caller
+    records the reference's gather)."""
+    if _dist() is None:
+        return x.reshape(-1, p * x.shape[1])
+    with _unobserved():
+        return all_gather(x, tiled=True)
+
+
+def _sort_axes(names: Sequence[str]) -> List[str]:
+    """The real axes behind ``names``: the sort axis is its inner, then
+    its outer axis under :func:`nested`."""
+    nest = _VIEW.get().nest
+    out = []
+    for name in names:
+        if name in (None, AXIS) and nest is not None:
+            out += [nest.inner, nest.outer]
+        else:
+            out.append(name)
+    return out
+
+
+def gather_ranks(t: torch.Tensor, axes: Sequence[str] = (AXIS,)
+                 ) -> torch.Tensor:
+    """The 1-D ``t`` of every rank across ``axes`` (the sort axis, then
+    e.g. the data axis), concatenated with the first axis varying fastest:
+    PE order, then row order.  Lengths may differ between ranks; each rank
+    broadcasts its part in turn.  Unrecorded: the reassembly of a result,
+    which the reference's global arrays hold without a collective."""
+    dist_ = _dist()
+    for name in _sort_axes(axes):
+        ax = dist_.axis(name)
+        n = torch.tensor([t.numel()], dtype=torch.int64, device=t.device)
+        sizes = _d_gather(ax, list(range(ax.size)), n).reshape(-1).tolist()
+        parts = []
+        for k, size in enumerate(sizes):
+            buf = _wire(t) if k == ax.index else t.new_empty(
+                (size,), dtype=torch.uint8 if t.dtype == torch.bool
+                else t.dtype)
+            tdist.broadcast(buf, src=ax.ranks[k], group=ax.group)
+            parts.append(_unwire(buf, t.dtype))
+        t = torch.cat(parts)
+    return t
+
+
+def gather_pes(x: torch.Tensor) -> torch.Tensor:
+    """(p, ...) of every PE's (1, ...) value on the sort axis, in PE
+    order, unrecorded (emulated PEs hold them all already)."""
+    if _dist() is None:
+        return x
+    with _unobserved():
+        return all_gather(x)[0]
+
+
+def agree_max(x: torch.Tensor) -> int:
+    """The largest value of ``x`` over every PE of the sort, on the host
+    (unrecorded: an agreement the emulated PEs read off their rows)."""
+    dist_ = _dist()
+    local = x.max() if x.numel() else x.new_zeros(())
+    if dist_ is None:
+        return int(local)
+    m = local.reshape(1).to(torch.int64)
+    for name in _sort_axes([AXIS]):
+        tdist.all_reduce(m, op=tdist.ReduceOp.MAX,
+                         group=dist_.axis(name).group)
+    return int(m)
 
 
 # ---------------------------------------------------------------------------
@@ -712,8 +1025,22 @@ def _tables(p: int, axis_index_groups, device):
 
 
 def axis_index(p: int, device=None) -> torch.Tensor:
-    """Every PE's own index within its sort: (d·p,) int64."""
-    return torch.arange(p, device=device).repeat(_VIEW.get().d)
+    """Every PE's own index within its sort: (d·p,) int64, or on a rank
+    (1,), its position on the sort axis (under :func:`nested` ``o·p_i +
+    i`` of its real positions)."""
+    view = _VIEW.get()
+    if view.dist is None:
+        return torch.arange(p, device=device).repeat(view.d)
+    if view.nest is None:
+        ax = view.dist.axis(AXIS)
+        size, me = ax.size, ax.index
+    else:
+        size = view.nest.p
+        me = (view.dist.axis(view.nest.outer).index * view.nest.p_i
+              + view.dist.axis(view.nest.inner).index)
+    if size != p:
+        raise ValueError(f"the sort axis has {size} ranks, not p = {p}")
+    return torch.full((1,), me, dtype=torch.int64, device=device)
 
 
 def ppermute(x: torch.Tensor, perm: Sequence,
@@ -726,6 +1053,13 @@ def ppermute(x: torch.Tensor, perm: Sequence,
     if nest is not None:
         axis, perm = nest.factor_perm(perm)
     note("ppermute", x, axis=axis or AXIS)
+    if _dist() is not None:
+        _one_row(x)
+        ax = _dist().axis(axis)
+        dst = [int(t) for s, t in perm if int(s) == ax.index]
+        src = [int(s) for s, t in perm if int(t) == ax.index]
+        return _d_permute(ax, x, dst[0] if dst else None,
+                          src[0] if src else None)
     if axis not in (None, AXIS):
         perm = _real(axis).flat_perm(axis, perm)
     d, p = _split(x)
@@ -748,6 +1082,19 @@ def psum(x: torch.Tensor, axis_index_groups=None,
             return psum(x, g, axis=nest.inner)
         return psum(psum(x, axis=nest.inner), g, axis=nest.outer)
     note("psum", x, axis_index_groups=axis_index_groups, axis=axis)
+    if _dist() is not None:
+        _one_row(x)
+        ax = _dist().axis(axis)
+        if axis_index_groups is None and not (x.dtype.is_floating_point
+                                              or x.dtype == torch.bool):
+            out = x.clone()
+            tdist.all_reduce(out, group=ax.group)
+            return out
+        # floats and bools: the group's values summed in group order, the
+        # emulated PEs' sum bit for bit
+        g = _d_gather(ax, ax.members(axis_index_groups), x)
+        return g.reshape((1, 1) + tuple(g.shape[:1]) + tuple(
+            x.shape[1:])).sum(dim=2, dtype=x.dtype).reshape(x.shape)
     d, p = _split(x)
     groups = _flat_groups(axis_index_groups, axis)
     rest = tuple(x.shape[1:])
@@ -780,6 +1127,12 @@ def all_gather(x: torch.Tensor, axis_index_groups=None, tiled: bool = False,
     else:
         note("all_gather", x, axis_index_groups=axis_index_groups,
              axis=axis)
+        if _dist() is not None:
+            _one_row(x)
+            ax = _dist().axis(axis)
+            out = _d_gather(ax, ax.members(axis_index_groups), x)
+            return out.reshape((P, -1) + rest[1:] if tiled
+                               else (P, out.shape[0]) + rest)
         d, p = _split(x)
         members, _ = _tables(p, _flat_groups(axis_index_groups, axis),
                              x.device)
@@ -820,6 +1173,15 @@ def all_to_all(x: torch.Tensor, axis_index_groups=None,
         return z.reshape((P, pi, g_out, blk) + rest).transpose(1, 2).reshape(
             x.shape)
     note("all_to_all", x, itemsize, axis_index_groups, axis)
+    if _dist() is not None:
+        _one_row(x)
+        ax = _dist().axis(axis)
+        members = ax.members(axis_index_groups)
+        if x.shape[1] % len(members):
+            raise ValueError(f"dimension 1 ({x.shape[1]}) must split into "
+                             f"{len(members)} blocks")
+        return _d_alltoall(ax, members, x.reshape(
+            (len(members), -1) + rest)).reshape(x.shape)
     d, p = _split(x)
     members, rank = _tables(p, _flat_groups(axis_index_groups, axis),
                             x.device)
@@ -886,6 +1248,8 @@ def alltoall_stream(leaves: Sequence[torch.Tensor], fold, init, gsize: int,
             for _ in range(gsize):
                 trace.add("all_to_all", per_chunk,
                           _group_size(axis_index_groups), axis=AXIS, tag=tag)
+    if _dist() is not None:
+        return _d_stream(leaves, fold, init, gsize, axis_index_groups)
     d, p = _split(x0)
     members, rank = _tables(p, axis_index_groups, dev)
     if members.shape[1] != gsize:
@@ -926,4 +1290,33 @@ def alltoall_stream(leaves: Sequence[torch.Tensor], fold, init, gsize: int,
         if t + 1 < gsize:
             nxt = prefetch(t + 1)           # in flight while step t folds
         acc = fold(acc, chunks, src)
+    return acc
+
+
+def _d_stream(leaves, fold, init, gsize: int, axis_index_groups):
+    """:func:`alltoall_stream` on a rank: the reference's ring, one
+    point-to-point step per source.  At step t this rank sends the block
+    it addressed to group member (rank − t) mod gsize and folds the block
+    member (rank + t) mod gsize addressed to it, the ring's delivery
+    order; each block crosses once."""
+    ax = _dist().axis(AXIS)
+    for v in leaves:
+        _one_row(v)
+    members = ax.members(axis_index_groups)
+    if len(members) != gsize:
+        raise ValueError(f"groups of {len(members)} PEs, not {gsize}")
+    r = members.index(ax.index)
+    blocks = [_wire(v).view(gsize, v.numel() // gsize) for v in leaves]
+    dev = leaves[0].device
+    acc = init
+    for t in range(gsize):
+        to, frm = members[(r - t) % gsize], members[(r + t) % gsize]
+        chunks = []
+        for v, b in zip(leaves, blocks):
+            got = _d_exchange(ax, {to: b[(r - t) % gsize]},
+                              {frm: b.shape[1]}, b)[frm]
+            chunks.append(_unwire(got, v.dtype).view(
+                (1, v.shape[1] // gsize) + tuple(v.shape[2:])))
+        acc = fold(acc, chunks, torch.full((1,), (r + t) % gsize,
+                                           dtype=torch.int64, device=dev))
     return acc

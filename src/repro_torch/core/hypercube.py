@@ -34,22 +34,15 @@ def subcube_groups(p: int, dims: int):
 _COUNT_BYTES = 4                   # the reference's int32 shard count
 
 
-def _swap(x: torch.Tensor, j: int) -> torch.Tensor:
-    """Swap the halves of every 2^(j+1) block of rows: the partner
-    ``i ^ 2^j`` of every row, inside each sort of a batch (2^j < p)."""
-    rest = tuple(x.shape[1:])
-    return x.reshape((x.shape[0] >> (j + 1), 2, 1 << j) + rest).flip(
-        1).reshape(x.shape)
-
-
 def hc_exchange(x: torch.Tensor, p: int, j: int,
                 itemsize: Optional[int] = None) -> torch.Tensor:
-    """Every PE receives its partner ``i ^ 2^j``'s value: a swap of the
-    halves of every 2^(j+1) block of rows, with no index table.  Recorded
-    as one ``ppermute`` (elements of ``itemsize`` bytes in the reference)
-    on the sort axis, or on the real axis of bit j under ``comm.nested``."""
+    """Every PE receives its partner ``i ^ 2^j``'s value (``comm.swap``:
+    emulated PEs swap the halves of every 2^(j+1) block of rows, with no
+    index table).  Recorded as one ``ppermute`` (elements of ``itemsize``
+    bytes in the reference) on the sort axis, or on the real axis of bit j
+    under ``comm.nested``."""
     comm.note("ppermute", x, itemsize, axis=comm.bit_axis(j))
-    return _swap(x, j)
+    return comm.swap(x, j)
 
 
 def exchange_shard(shard: SortShard, p: int, j: int,
@@ -64,7 +57,7 @@ def exchange_shard(shard: SortShard, p: int, j: int,
         for itemsize in ref_vals.values():
             comm.record("ppermute", shard.capacity * itemsize,
                         axis=comm.bit_axis(j))
-        vals = {k: _swap(v, j) for k, v in shard.vals.items()}
+        vals = {k: comm.swap(v, j) for k, v in shard.vals.items()}
     return SortShard(keys=keys, vals=vals,
                      count=hc_exchange(shard.count, p, j, _COUNT_BYTES))
 
@@ -251,9 +244,9 @@ def _stream_route_merge(keys, vals, counts, pad: int, p: int, slot_cap: int,
                          f"not {p}")
     P, dev = keys.shape[0], keys.device
     names = sorted(vals)
-    # every block's sort runs the merge passes the longest block needs:
-    # one read back here instead of one per block
-    cmax = int(counts.max()) if counts.numel() else 0
+    # every block's sort runs the merge passes the longest block of the
+    # sort needs: one read back here instead of one per block
+    cmax = comm.agree_max(counts)
     table = [torch.full((P, p, slot_cap), pad, dtype=keys.dtype,
                         device=dev)]
     table += [torch.zeros((P, p, slot_cap), dtype=vals[k].dtype, device=dev)

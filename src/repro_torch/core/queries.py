@@ -24,6 +24,7 @@ values in int64, 8-byte words as two 32-bit halves.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -324,12 +325,26 @@ def _extract_gt(rows, count, theta, k_cap: int):
 
 
 def _check_backend(backend: str):
-    if backend == "shard_map":
-        raise NotImplementedError(
-            "backend='shard_map' is not ported yet: ROADMAP queue 1 item 7 "
-            "(torch.distributed backend)")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+
+
+@contextlib.contextmanager
+def _pes(data: ResidentData, backend: str, axis: str, mesh):
+    """The (rows, counts) the bodies run on: every PE's row on the sim
+    backend; on ``"shard_map"`` this rank's own row, inside
+    ``comm.distributed`` over ``mesh`` (default: the first p ranks), as
+    the reference's runners shard the resident rows over the mesh."""
+    if backend == "sim":
+        yield data.keys, data.counts.to(torch.int64)
+        return
+    if mesh is None:
+        from .api import default_mesh
+        mesh = default_mesh(data.p, axis)
+    with comm.distributed(mesh, axis):
+        me = int(comm.axis_index(data.p)[0])
+        yield (data.keys[me:me + 1],
+               data.counts[me:me + 1].to(torch.int64))
 
 
 def _as_batch(x, dtype=None):
@@ -338,15 +353,17 @@ def _as_batch(x, dtype=None):
     return np.atleast_1d(a), scalar
 
 
-def _select(data: ResidentData, ranks_np, use_window: bool, *extra):
-    """The selection body on ``data``'s device for host ranks: (ans, n_lt,
-    n_le) and the ``extra`` host arrays, uploaded with the ranks."""
+def _select(data: ResidentData, rows, count, ranks_np, use_window: bool,
+            *extra):
+    """The selection body over ``rows`` (all of ``data``'s, or a rank's)
+    for host ranks: (ans, n_lt, n_le) and the ``extra`` host arrays,
+    uploaded with the ranks."""
     fracs = (ranks_np - 1) / max(data.n - 1, 1)           # float64
     ranks, fracs, *rest = _upload(data.device, np.asarray(ranks_np,
                                                           np.int64),
                                   fracs, *extra)
-    return _select_body(data.keys, data.counts.to(torch.int64), ranks,
-                        fracs, data.p, data.bits, use_window) + tuple(rest)
+    return _select_body(rows, count, ranks, fracs, data.p, data.bits,
+                        use_window) + tuple(rest)
 
 
 def _read_back(*rows) -> np.ndarray:
@@ -365,8 +382,10 @@ def select_rank(data: ResidentData, ranks, *, backend: str = "sim",
 
     Returns ``(values, n_lt, n_le)``: ``values[b]`` is bitwise
     ``np.sort(keys)[ranks[b] - 1]`` and the counts are the elements
-    strictly below / at or below it.  ``axis`` and ``mesh`` name the
-    reference's shard_map layout, which the sim backend does not read."""
+    strictly below / at or below it.  ``backend="shard_map"`` runs on
+    ``torch.distributed``, one PE per rank of ``mesh`` (default: the first
+    p ranks) on the sort axis ``axis``; every rank calls it and gets the
+    answers.  The sim backend reads neither."""
     _check_backend(backend)
     ranks_np, scalar = _as_batch(ranks, np.int64)
     if data.n < 1:
@@ -377,7 +396,9 @@ def select_rank(data: ResidentData, ranks, *, backend: str = "sim",
         # the reference's error: its reshape of a batch of 0 divides by 0
         raise ZeroDivisionError("select_rank of an empty batch of ranks")
     use_window = window and data.bits == 32 and data.p > 1
-    host = _read_back(*_select(data, ranks_np, use_window))
+    with _pes(data, backend, axis, mesh) as (rows, count):
+        host = _read_back(*_select(data, rows, count, ranks_np,
+                                   use_window))
     ans = _np_keys(_words_np(data, host[0]), data.orig_dtype)
     glt, gle = host[1], host[2]
     if scalar:
@@ -393,9 +414,9 @@ def rank_of_key(data: ResidentData, keys, *, backend: str = "sim",
     _check_backend(backend)
     k_np, scalar = _as_batch(keys, data.orig_dtype)
     u = _words_of(k_np, data.device)
-    glt, gle = _counts_body(data.keys, data.counts.to(torch.int64),
-                            u[None].expand(data.p, -1))
-    glt, gle = _read_back(glt, gle)
+    with _pes(data, backend, axis, mesh) as (rows, count):
+        glt, gle = _read_back(*_counts_body(
+            rows, count, u[None].expand(rows.shape[0], -1)))
     if scalar:
         return glt[0], gle[0]
     return glt, gle
@@ -429,9 +450,12 @@ def top_k(data: ResidentData, k, *, backend: str = "sim",
     ranks = data.n - k_np + 1
     k_cap = int(min(data.cap, k_np.max()))
     use_window = data.bits == 32 and data.p > 1
-    count = data.counts.to(torch.int64)
-    ans, _, gle, kk = _select(data, ranks, use_window, k_np)
-    vals, ln = _extract_gt(data.keys, count, ans, k_cap)
+    with _pes(data, backend, axis, mesh) as (rows, count):
+        ans, _, gle, kk = _select(data, rows, count, ranks, use_window,
+                                  k_np)
+        vals, ln = _extract_gt(rows, count, ans, k_cap)
+        # every PE's tail, as the reference's runner returns them
+        vals, ln = comm.gather_pes(vals), comm.gather_pes(ln)
     dev, dt = data.device, data.keys.dtype
     B, kmax = len(k_np), int(k_np.max())
     theta, n_gt = ans[0], data.n - gle[0]                       # (B,)
@@ -471,9 +495,10 @@ def range_query(data: ResidentData, lo, hi, *, backend: str = "sim",
         raise ValueError(f"lo/hi shape mismatch: {lo_np.shape} vs "
                          f"{hi_np.shape}")
     both = _words_of(np.concatenate([lo_np, hi_np]), data.device)
-    glt, _ = _counts_body(data.keys, data.counts.to(torch.int64),
-                          both[None].expand(data.p, -1))
-    glt = _read_back(glt)[0]
+    with _pes(data, backend, axis, mesh) as (rows, count):
+        glt, _ = _counts_body(rows, count,
+                              both[None].expand(rows.shape[0], -1))
+        glt = _read_back(glt)[0]
     b = len(lo_np)
     cnt = np.maximum(glt[b:] - glt[:b], 0)
     return cnt[0] if scalar else cnt

@@ -126,7 +126,7 @@ def _splitters(shard: SortShard, p: int, seed: int, sample_factor: int,
                              f"words, got shape {w.shape}")
         return torch.from_numpy(
             (w ^ np.uint64(1 << 63)).view(np.int64)).to(dev)[None, :].expand(
-            shard.keys.shape[0] // p, p - 1)
+            comm.sorts(shard.keys.shape[0], p), p - 1)
     s_per = max(1, sample_factor * max(1, int(math.log2(max(p, 2)))))
     key = prng.fold_in(prng.PRNGKey(seed, dev), comm.axis_index(p, dev))
     pos = prng.randint(key, s_per, 0, torch.clamp(shard.count, min=1))
@@ -135,4 +135,4 @@ def _splitters(shard: SortShard, p: int, seed: int, sample_factor: int,
         samp = samp.to(torch.int64) + ((1 << 31) + LO)
     samp = torch.where(pos < shard.count[:, None], samp, _INVALID)
     comm.note("all_gather", samp)
-    return quantile_splitters(torch.sort(samp.reshape(-1, p * s_per))[0], p)
+    return quantile_splitters(torch.sort(comm.sort_rows(samp, p))[0], p)

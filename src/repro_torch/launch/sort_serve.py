@@ -20,6 +20,10 @@ Per query kind the service routes between two paths:
 charges a full sort to the batch.  The service runs on the card unless the
 caller passes ``device="cpu"``.  A step's clock stops once its answers are
 on the host, or, for ``sort`` requests, after the device finished.
+``backend="shard_map"`` answers on ``torch.distributed``, one PE per rank:
+every rank runs the service on the same stream (SPMD), and the CLI joins
+the process group ``torchrun`` describes (gloo with ``--device cpu``,
+NCCL on the card).
 
   PYTHONPATH=src python -m repro_torch.launch.sort_serve --smoke
   PYTHONPATH=src python -m repro_torch.launch.sort_serve --smoke \\
@@ -27,12 +31,16 @@ on the host, or, for ``sort`` requests, after the device finished.
   PYTHONPATH=src python -m repro_torch.launch.sort_serve --n 1048576 \\
       --p 64 --queries 200 \\
       --mix top_k=4,percentile=2,rank_of_key=2,range_query=1
+  PYTHONPATH=src torchrun --nproc-per-node=8 -m \
+      repro_torch.launch.sort_serve --smoke --backend shard_map \
+      --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import itertools
+import os
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -323,6 +331,21 @@ def parse_mix(text: str) -> Dict[str, int]:
     return mix
 
 
+def _join_ranks(device) -> None:
+    """Join the process group ``torchrun`` describes in the environment
+    (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), unless one is up: gloo
+    for the CPU, NCCL for the card."""
+    import torch.distributed as dist
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    dist.init_process_group("gloo" if device == "cpu" else "nccl")
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -347,6 +370,8 @@ def main(argv=None):
     if args.queries is None:
         args.queries = 24 if args.smoke else 100
 
+    if args.backend == "shard_map":
+        _join_ranks(args.device)
     rng = np.random.default_rng(args.seed)
     keys = rng.integers(0, 1 << 32, size=args.n).astype(np.int64)
     svc = SortService(keys, config=SortConfig(p=args.p,
@@ -360,6 +385,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     done = svc.drain()
     wall = time.perf_counter() - t0
+    if _rank() != 0:                        # every rank holds the answers
+        return svc
     print(f"[sort_serve] n={args.n} p={args.p} backend={args.backend} "
           f"policy={args.policy} device={svc.device}: {len(done)} queries "
           f"in {wall:.3f}s")

@@ -86,14 +86,41 @@ def test_psort_without_a_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"axis": "rows"}, "item 7 "),
-    ({"fault_policy": object(), "backend": "shard_map"}, "item 7 "),
-    ({"mesh": object()}, "item 7 "), ({"backend": "shard_map"},
-                                      "item 7 ")])
+    ({"axis": "rows"}, None),
+    ({"fault_policy": object(), "backend": "shard_map"}, "backend='sim'"),
+    ({"mesh": object()}, "runs meshless; drop the mesh arg"),
+    ({"backend": "shard_map"}, "backend='sim'")])
 def test_unported_knobs_raise_not_implemented(kw, match):
-    """Each names its item of the re-anchored ROADMAP queue 1."""
-    with pytest.raises(NotImplementedError, match=match):
-        SortConfig(p=4, **kw)
+    """The knobs this port refused until the distributed backend came
+    behave as the reference's: ``axis`` builds a config that sorts as the
+    reference's, a mesh on the sim backend raises its ``ValueError``, and
+    ``backend="shard_map"`` without a process group raises its
+    default-mesh error, which points at the sim backend (the reference
+    raises it for p past its devices; with them it would sort there).
+    The distributed runs themselves are ``tests/test_torch_dist.py``'s."""
+    x = np.arange(64, dtype=np.uint32)[::-1].copy()
+    cfg = SortConfig(p=4, algorithm="rquick", **kw)
+    if match is None:
+        want = j_psort(x, config=JConfig(p=4, algorithm="rquick",
+                                         backend="sim", **kw))
+        got = psort(x, cfg, device="cpu")
+        assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32),
+                              np.asarray(want))
+        return
+    with pytest.raises(ValueError, match=match) as got:
+        psort(x, cfg, device="cpu")
+    if "backend" in kw:
+        # the reference's error where the mesh cannot hold p
+        with pytest.raises(ValueError, match=match) as want:
+            j_psort(x, config=JConfig(p=16, algorithm="rquick", **kw))
+        tail = "(use backend='sim' for emulated PE counts)"
+        assert str(got.value).endswith(tail) and str(want.value).endswith(
+            tail)
+        return
+    with pytest.raises(ValueError) as want:
+        j_psort(x, config=JConfig(p=4, algorithm="rquick", backend="sim",
+                                  **kw))
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kw", [
@@ -170,18 +197,18 @@ def test_knobs_of_selection_and_overlap_sort_as_the_reference(kw, ref_kw):
 
 
 @pytest.mark.parametrize("knob,default,other,item", [
-    ("axis", "sort", "rows", "item 7 "),
+    ("axis", "sort", "rows", None),
     ("data_axis", "data", "batch", None),
     ("mesh_axes", ("inter", "intra"), ("intra", "inter"), None),
     ("mesh_axes", ["inter", "intra"], ["inter"], None),
-    ("mesh", None, object(), "item 7 ")])
+    ("mesh", None, object(), "runs meshless")])
 def test_reference_defaults_of_unported_knobs_are_accepted(knob, default,
                                                            other, item):
     """The reference's own defaults (``repro/core/api.py``) build a config
-    that sorts as the plain one does.  Any other value of a knob still to
-    port (``item``) raises; the others sort as the reference does with
-    that value (the names are the sim layout's, which reads them only on
-    a nested mesh)."""
+    that sorts as the plain one does.  Another value sorts as the
+    reference does with it (the names are the sim layout's, which reads
+    them only on a nested mesh), or raises the reference's error
+    (``item``: a mesh on the sim backend)."""
     cfg = SortConfig(p=4, algorithm="rquick", **{knob: default})
     assert cfg == SortConfig(p=4, algorithm="rquick")
     x = np.arange(64, dtype=np.uint32)[::-1].copy()
@@ -189,8 +216,11 @@ def test_reference_defaults_of_unported_knobs_are_accepted(knob, default,
         psort(x, cfg, device="cpu").view(torch.int32).numpy(),
         np.arange(64, dtype=np.int32))
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            SortConfig(p=4, **{knob: other})
+        with pytest.raises(ValueError, match=item) as got:
+            psort(x, SortConfig(p=4, **{knob: other}), device="cpu")
+        with pytest.raises(ValueError, match=item) as want:
+            j_psort(x, config=JConfig(p=4, backend="sim", **{knob: other}))
+        assert str(got.value) == str(want.value)
         return
     got = psort(x, SortConfig(p=4, algorithm="rquick", **{knob: other}),
                 device="cpu")

@@ -227,8 +227,13 @@ def test_fault_policy_takes_no_part_in_equality():
     a = SortConfig(p=8, fault_policy=FaultPolicy())
     assert a == SortConfig(p=8) and hash(a) == hash(SortConfig(p=8))
     assert a.replace(algorithm="rams").fault_policy is a.fault_policy
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SortConfig(p=8, backend="shard_map", fault_policy=FaultPolicy())
+    # on the distributed backend the fault lane is refused, as by the
+    # reference (without a process group the default mesh refuses first;
+    # both errors point at the sim backend)
+    b = SortConfig(p=8, backend="shard_map", fault_policy=FaultPolicy())
+    assert b == SortConfig(p=8, backend="shard_map")
+    with pytest.raises(ValueError, match="backend='sim'"):
+        psort(np.arange(64, dtype=np.int32), b, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.uint8, np.float16])

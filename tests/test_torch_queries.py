@@ -376,7 +376,9 @@ def _error(fn):
 
 def test_validation_errors_equal_reference():
     """Each misuse raises the reference's exception type and message;
-    ``backend="shard_map"`` is not ported (queue 1 item 7)."""
+    on ``backend="shard_map"`` without a process group every kind raises
+    the reference's default-mesh error (its error where the mesh cannot
+    hold p), which points at the sim backend."""
     x = np.arange(16, dtype=np.int32)
     jd, td = JQ.shard_data(x, 4), TQ.shard_data(x, 4, device="cpu")
     jempty, tempty = JQ.shard_data(x[:0], 4), TQ.shard_data(
@@ -418,13 +420,18 @@ def test_validation_errors_equal_reference():
 
     for case in cases:
         assert _error(lambda: case(T)) == _error(lambda: case(J))
-    for fn in (TQ.select_rank, TQ.top_k, TQ.rank_of_key):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn(td, 1, backend="shard_map")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TQ.range_query(td, 1, 2, backend="shard_map")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TQ.percentile(td, 5.0, backend="shard_map")
+    x16 = np.arange(64, dtype=np.int32)
+    j16, t16 = JQ.shard_data(x16, 16), TQ.shard_data(x16, 16, device="cpu")
+    tail = r"requested p=16 > available devices \d+ \(use backend='sim' " \
+        r"for emulated PE counts\)"
+    for M, d in ((JQ, j16), (TQ, t16)):
+        for fn in (M.select_rank, M.top_k, M.rank_of_key):
+            with pytest.raises(ValueError, match=tail):
+                fn(d, 1, backend="shard_map")
+        with pytest.raises(ValueError, match=tail):
+            M.range_query(d, 1, 2, backend="shard_map")
+        with pytest.raises(ValueError, match=tail):
+            M.percentile(d, 5.0, backend="shard_map")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

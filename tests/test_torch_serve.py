@@ -221,8 +221,21 @@ def test_validation_equals_reference():
         assert str(got.value) == str(want.value)
     assert TS.parse_mix("top_k=4,sort") == JS.parse_mix("top_k=4,sort") \
         == {"top_k": 4, "sort": 1}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TS.SortService(keys, P, backend="shard_map", device="cpu")
+    # on the distributed backend a service builds as the reference's does
+    # (its resident data is the same); without a process group its first
+    # selection batch raises the reference's default-mesh error, the one
+    # it gives where the mesh cannot hold p, which points at the sim
+    # backend.  Services on ranks: tests/test_torch_dist_queries.py
+    svc = TS.SortService(keys, 16, backend="shard_map", device="cpu",
+                         policy="selection")
+    ref = JS.SortService(keys, 16, backend="shard_map", policy="selection")
+    assert svc.backend == ref.backend == "shard_map"
+    tail = r"requested p=16 > available devices \d+ \(use backend='sim' " \
+        r"for emulated PE counts\)"
+    for s in (svc, ref):
+        s.submit("top_k", 3)
+        with pytest.raises(ValueError, match=tail):
+            s.drain()
 
 
 def test_cli_smoke(capsys):

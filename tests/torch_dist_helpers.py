@@ -1,0 +1,347 @@
+"""Ranks of ``torch.distributed`` for the port's distributed tests.
+
+:class:`RankPool` spawns ``world`` processes once (``spawn``, never
+``fork``: the test process has JAX initialised), each joins a gloo group
+on the CPU, and then runs the jobs it is sent: :meth:`RankPool.run` sends
+one module-level function to every rank and returns their results in
+rank order.  Every group has a timeout and every job a deadline, so a
+hung collective fails its test within two minutes.  The jobs below run in
+the ranks; this module imports no JAX, so a rank never loads it.
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+import queue
+import socket
+import traceback
+
+import numpy as np
+
+TIMEOUT_S = 60          # a collective that waits longer raises
+DEADLINE_S = 110        # a job that takes longer fails its test
+START_S = 90            # the ranks must be up by then
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _serve(rank, world, port, jobs, results):
+    os.environ["OMP_NUM_THREADS"] = "1"
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        results.put((rank, "ready", None))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        fn, args = job
+        try:
+            results.put((rank, "ok", fn(*args)))
+        except BaseException:
+            results.put((rank, "error", traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+class RankPool:
+    """``world`` spawned ranks in one gloo group, reused across jobs."""
+
+    def __init__(self, world: int = 8):
+        ctx = multiprocessing.get_context("spawn")
+        self.world = world
+        self.results = ctx.Queue()
+        self.jobs = [ctx.Queue() for _ in range(world)]
+        port = _free_port()
+        self.procs = [ctx.Process(target=_serve, daemon=True, args=(
+            r, world, port, self.jobs[r], self.results))
+            for r in range(world)]
+        for proc in self.procs:
+            proc.start()
+        self.broken = None
+        self._collect(START_S, "start")
+
+    def _collect(self, deadline, what):
+        out, errors = {}, []
+        try:
+            for _ in range(self.world):
+                rank, status, value = self.results.get(timeout=deadline)
+                if status == "error":
+                    errors.append(f"rank {rank}:\n{value}")
+                out[rank] = value
+        except queue.Empty:
+            silent = sorted(set(range(self.world)) - set(out))
+            self.broken = (f"{what}: ranks {silent} gave no answer within "
+                           f"{deadline} s")
+            self.close()
+            raise TimeoutError(self.broken) from None
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [out[r] for r in range(self.world)]
+
+    def run(self, fn, *args):
+        """``fn(*args)`` on every rank; its results in rank order."""
+        if self.broken:
+            raise RuntimeError(f"the rank pool is broken ({self.broken})")
+        for q in self.jobs:
+            q.put((fn, args))
+        return self._collect(DEADLINE_S, fn.__name__)
+
+    def close(self):
+        for q in self.jobs:
+            q.put(None)
+        for proc in self.procs:
+            proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5)
+
+
+# ---------------------------------------------------------------------------
+# Jobs (run in the ranks)
+# ---------------------------------------------------------------------------
+
+
+def _events(trace):
+    return [tuple(e.__dict__.values()) for e in trace.events]
+
+
+def _bits(t):
+    signed = {4: "int32", 8: "int64"}[t.element_size()]
+    import torch
+    return t.view(getattr(torch, signed)).numpy().copy()
+
+
+def _mesh(keys, cfg_kw, mesh_kw):
+    """``sort_mesh(**mesh_kw)``, or the mesh psort makes by default for
+    these keys and keywords (made here on every rank, as making it is
+    collective; psort then finds it made)."""
+    from repro_torch import SortConfig
+    from repro_torch.core.api import _mesh_of
+    from repro_torch.dist import sort_mesh
+    if mesh_kw is not None:
+        return sort_mesh(**mesh_kw)
+    keys = np.asarray(keys)
+    return _mesh_of(SortConfig(backend="shard_map", **cfg_kw),
+                    keys.ndim == 2, keys.shape[0] if keys.ndim == 2 else 1)[0]
+
+
+def sort_job(keys, cfg_kw, mesh_kw=None):
+    """psort on the distributed backend: the result's bits, perm, counts,
+    overflow, algorithm, backend and the trace's events, on every rank of
+    the mesh (None on the others).  ``mesh_kw`` builds the mesh with
+    ``sort_mesh`` first, else the default mesh of ``cfg_kw["p"]`` ranks
+    is made; on every rank, since making a mesh is collective."""
+    import torch.distributed as dist
+    from repro_torch import SortConfig, psort
+    from repro_torch.core import comm
+    mesh = _mesh(keys, cfg_kw, mesh_kw)
+    if dist.get_rank() not in mesh.mesh.reshape(-1).tolist():
+        return None
+    cfg = SortConfig(backend="shard_map", **cfg_kw,
+                     mesh=mesh if mesh_kw is not None else None)
+    with comm.counting() as trace:
+        out, info = psort(keys, cfg, return_info=True, device="cpu")
+    perm = info["perm"]
+    as_list = isinstance(out, list)
+    return {"out": [_bits(o) for o in out] if as_list else _bits(out),
+            "perm": [q.numpy() for q in perm] if as_list else perm.numpy(),
+            "counts": info["counts"].numpy(), "overflow": info["overflow"],
+            "algorithm": info["algorithm"], "backend": info["backend"],
+            "events": _events(trace)}
+
+
+def sim_job(keys, cfg_kw):
+    """The same psort on the sim backend, in a rank (no collective)."""
+    from repro_torch import SortConfig, psort
+    from repro_torch.core import comm
+    with comm.counting() as trace:
+        out, info = psort(keys, SortConfig(**cfg_kw), return_info=True,
+                          device="cpu")
+    return {"out": _bits(out), "perm": info["perm"].numpy(),
+            "counts": info["counts"].numpy(), "overflow": info["overflow"],
+            "events": _events(trace)}
+
+
+def query_job(keys, p, backend, ranks, qs, ks, probes, lo, hi):
+    """Every query kind over ``shard_data(keys, p)`` on ``backend``, with
+    the trace of a ``select_rank``: on every rank of the default mesh of
+    p ranks (None on the others, which only join its making)."""
+    import torch.distributed as dist
+    from repro_torch.core import comm, queries as Q
+    from repro_torch.core.api import default_mesh
+    if backend == "shard_map":
+        mesh = default_mesh(p)
+        if dist.get_rank() not in mesh.mesh.reshape(-1).tolist():
+            return None
+    data = Q.shard_data(keys, p, device="cpu")
+    kw = {"backend": backend}
+    with comm.counting() as trace:
+        sel = Q.select_rank(data, ranks, **kw)
+    return {"select": [np.asarray(a) for a in sel],
+            "percentile": np.asarray(Q.percentile(data, qs, **kw)),
+            "top_k": [np.asarray(a) for a in Q.top_k(data, ks, **kw)],
+            "rank_of_key": [np.asarray(a)
+                            for a in Q.rank_of_key(data, probes, **kw)],
+            "range_query": np.asarray(Q.range_query(data, lo, hi, **kw)),
+            "events": _events(trace)}
+
+
+def collectives(comm, x, groups, perm):
+    """The port's collectives on the (P, ...) values ``x`` (P = p emulated
+    PEs, or a rank's one row): grouped and whole-axis psum (ints, floats,
+    bools), all_gather, all_to_all, a partial ppermute, the hypercube swap
+    and a streamed exchange folded in delivery order."""
+    import torch
+    out = {"psum": comm.psum(x), "psum_g": comm.psum(x, groups),
+           "psum_f": comm.psum(x.to(torch.float32) / 7),
+           "psum_fg": comm.psum(x.to(torch.float64) / 3, groups),
+           "psum_b": comm.psum((x % 3) == 0, groups),
+           "gather": comm.all_gather(x), "gather_g": comm.all_gather(
+               x, groups, tiled=True),
+           "a2a": comm.all_to_all(x), "a2a_g": comm.all_to_all(
+               x[:, :len(groups[0]) * 2], groups),
+           "perm": comm.ppermute(x, perm), "swap": comm.swap(x, 1)}
+
+    def fold(acc, chunks, src):
+        return acc + [chunks[0] * 10 + src[:, None]]
+    g = len(groups[0])
+    out["stream"] = torch.cat(comm.alltoall_stream(
+        [x[:, :g * 2]], fold, [], g, groups), dim=1)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def collectives_job(rows, groups, perm, mesh_ranks):
+    """:func:`collectives` on this rank's row of ``rows`` (PE i of the
+    sort axis holds row i) inside ``comm.distributed``: over the default
+    group when ``mesh_ranks`` is None, else over the 1-D mesh of those
+    global ranks in that order."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.dist.sharding import make_mesh
+    where = dist.group.WORLD if mesh_ranks is None else make_mesh(
+        np.asarray(mesh_ranks), ("sort",))
+    with comm.distributed(where) as layout:
+        me = layout.axis(comm.AXIS).index
+        x = torch.from_numpy(np.asarray(rows[me:me + 1]))
+        return me, collectives(comm, x, groups, perm)
+
+
+def mesh_job(calls):
+    """``sort_mesh(**kw)`` for each kw of ``calls`` (every rank makes each
+    mesh): its axis sizes and its ranks, or the error's type and
+    message."""
+    from repro_torch.dist import sort_mesh
+    from repro_torch.dist.sharding import mesh_sizes
+    out = []
+    for kw in calls:
+        try:
+            m = sort_mesh(**kw)
+            out.append((mesh_sizes(m), m.mesh.reshape(-1).tolist()))
+        except Exception as e:                  # noqa: BLE001
+            out.append((type(e).__name__, str(e)))
+    return out
+
+
+def trace_job(n, cfg_kw):
+    """``trace_collectives`` on the distributed backend: this rank's events
+    (None off the default mesh of ``cfg_kw["p"]`` ranks)."""
+    import torch.distributed as dist
+    from repro_torch import SortConfig, trace_collectives
+    from repro_torch.core.api import default_mesh
+    mesh = default_mesh(cfg_kw.get("p"))
+    if dist.get_rank() not in mesh.mesh.reshape(-1).tolist():
+        return None
+    trace = trace_collectives(n, SortConfig(backend="shard_map", **cfg_kw),
+                              device="cpu")
+    return _events(trace)
+
+
+def service_job(keys, p, stream):
+    """A ``SortService`` on the distributed backend over ``keys`` at p,
+    draining ``stream`` ((kind, arg) pairs) under the selection policy:
+    the answers in submission order."""
+    from repro_torch.launch.sort_serve import SortService
+    svc = SortService(keys, p, backend="shard_map", policy="selection",
+                      device="cpu")
+    for kind, arg in stream:
+        svc.submit(kind, arg)
+    done = sorted(svc.drain(), key=lambda r: r.request.id)
+    return [np.asarray(r.value).tolist() for r in done]
+
+
+def cli_job(argv):
+    """The serving CLI on this rank: its completed answers in order."""
+    from repro_torch.launch.sort_serve import main
+    svc = main(argv)
+    done = sorted(svc.completed, key=lambda r: r.request.id)
+    return [np.asarray(r.value).tolist() for r in done]
+
+
+def error_job(keys, cfg_kw, mesh_kw=None):
+    """The exception type and message of a psort, or None; ``mesh_kw``
+    makes its mesh (``{"p": p}`` alone: the default mesh of p ranks)."""
+    from repro_torch import SortConfig, psort
+    from repro_torch.core.api import default_mesh
+    from repro_torch.dist import sort_mesh
+    if mesh_kw is not None:
+        cfg_kw = dict(cfg_kw, mesh=default_mesh(mesh_kw["p"])
+                      if list(mesh_kw) == ["p"] else sort_mesh(**mesh_kw))
+    try:
+        psort(keys, SortConfig(**cfg_kw), device="cpu")
+    except Exception as e:                      # noqa: BLE001
+        return type(e).__name__, str(e)
+    return None
+
+
+def same(a, b) -> bool:
+    """Two results of :func:`sort_job` / :func:`sim_job` equal bit for
+    bit (events too, where both have them)."""
+    for k in ("out", "perm", "counts"):
+        x, y = a[k], b[k]
+        if isinstance(x, list) != isinstance(y, list):
+            return False
+        pairs = zip(x, y) if isinstance(x, list) else [(x, y)]
+        if not all(np.array_equal(np.asarray(u), np.asarray(v))
+                   for u, v in pairs):
+            return False
+    return a["overflow"] == b["overflow"] and a["events"] == b["events"]
+
+
+def np_bits(a):
+    a = np.asarray(a)
+    return a.view({4: np.int32, 8: np.int64}[a.itemsize])
+
+
+def on_ranks(results, want):
+    """Every rank of the mesh got ``want`` (a :func:`sim_job` result);
+    returns the sorting ranks' results."""
+    sorting = [r for r in results if r is not None]
+    assert sorting
+    for r in sorting:
+        assert r["backend"] == "shard_map"
+        assert same(r, want)
+    return sorting
+
+
+def as_reference(r, out, info):
+    """A rank's result bit for bit the reference's (keys, perm, counts,
+    overflow)."""
+    assert np.array_equal(np.asarray(r["out"]), np_bits(out))
+    assert np.array_equal(np.asarray(r["perm"]),
+                          np.asarray(info["perm"]).astype(np.int64))
+    assert np.array_equal(np.asarray(r["counts"]), np.asarray(info["counts"]))
+    assert r["overflow"] == info["overflow"]
+    assert r["algorithm"] == info["algorithm"]
