@@ -184,6 +184,29 @@ Phases, each fatal on failure (no phase catches its own error):
    ``nccl-*`` rows (each kernel at one rank's shapes, the launches summed
    over the path's ranks).  ``--dist-only`` runs phases 1, 2 and 18
    alone.
+19. the model-serving stack (``repro_torch.models``, ``launch.serve``,
+   ``data.pipeline``): (a) ``serve`` of granite-moe-1b-a400m at full size
+   (batch 32, 64 steps over a 1024-slot bf16 cache: p50/p99 step ms,
+   tok/s, peak), one step under ``torch.profiler`` (device busy time and
+   operations, idle share, host syncs), and the card against the CPU at
+   full width and depth 2 in float32 (tokens equal, logits within the CPU
+   tests' 1e-4/1e-5); (b) every architecture at full width, its depth cut
+   where weights and cache reckon past 40 GB: one forward over (2, 2048)
+   and 8 decode steps, logits finite with the reference's shapes;
+   llama3.2-1b's teacher-forced decode against prefill in float32 at full
+   size; the serving CLI's default architecture in a subprocess; (c) one
+   granite MoE layer on x (8, 2048, 1024): ``moe_local`` and
+   ``moe_ep_sim`` at (1, 8) and (1, 32) against ``moe_dense`` in float32
+   with nothing dropped, the skewed router's drops, each layout's wall,
+   peak and host syncs in bf16; (d) four gloo ranks on a (data 2, model
+   2) mesh: ``moe_ep_shardmap`` equal bit for bit to ``moe_ep_sim(d=2,
+   ep=2)``, ``moe_tp_shardmap`` against ``moe_local``; (e)
+   ``length_balanced_batches`` on 2^26 lengths at p = 256 with
+   ``"auto"``, ``"rams"`` (RAMS drops keys there, so the batching
+   refuses as the reference's does) and ``"bitonic"``, and the card
+   against the CPU at p = 64, n = 2^20.  The ``kernels`` line gains the
+   ``lbb`` rows (RAMS's kernels with the batching's launches).
+   ``--model-only`` runs phases 1, 2 and 19 alone.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
@@ -191,8 +214,9 @@ Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 ``bitonic`` and ``ntb-ams`` (10; ``ssort`` also 14), all but the AMS
 family on 8-byte keys (11), ``"auto"`` (13), every in-core one on
 batched keys and nested meshes (15), and the query path with its ingest
-(the local sort) and bitonic behind the service's sorted copy (16), and
-the fault lane over seven algorithms and the external lane (17).  Before
+(the local sort) and bitonic behind the service's sorted copy (16),
+the fault lane over seven algorithms and the external lane (17), and
+RAMS and bitonic behind length-balanced batching (19).  Before
 phase 1 the script checks that the kernels are switched on
 (``local_kernels()``).  Each phase prints its seconds.
 
@@ -343,6 +367,28 @@ DIST_REQUIRED = {"rams": RAMS_LAUNCHES, "ntb-ams": RAMS_LAUNCHES,
                  "rquick": RQUICK_KERNELS, "ntb-quick": RQUICK_KERNELS,
                  "ssort": SSORT_KERNELS, "ns-ssort": SSORT_KERNELS,
                  "bitonic": ("tile_sort", "run_merge")}
+# phase 19: the model-serving stack.  granite-moe-1b-a400m served at full
+# size (batch 32, 64 steps over a 1024-slot cache), checked against the
+# CPU at full width and depth 2 in float32 within the CPU tests'
+# tolerance; every architecture at full width, its depth cut where its
+# reckoned weights and cache pass 40 GB; llama3.2-1b's teacher-forced
+# decode against prefill in float32 at full size; one granite MoE layer
+# on x (8, 2048, 1024); four gloo ranks on a (data 2, model 2) mesh;
+# length-balanced batching at the RAMS cell, card vs CPU at p = 64
+MODEL_ARCH = "granite-moe-1b-a400m"
+MODEL_BATCH, MODEL_TOKENS, MODEL_CACHE = 32, 64, 1024
+MODEL_CHECK_DEPTH, MODEL_CHECK_STEPS = 2, 8
+MODEL_F32_TOL = {"rtol": 1e-4, "atol": 1e-5}
+MODEL_ARCH_B, MODEL_ARCH_S, MODEL_ARCH_STEPS = 2, 2048, 8
+MODEL_BYTES_LIMIT = 40e9
+MODEL_TF_S, MODEL_TF_TOL = 64, {"rtol": 1e-3, "atol": 1e-3}
+MODEL_CLI_TIMEOUT_S = 300
+MODEL_MOE_X = (8, 2048, 1024)
+MODEL_MOE_EPS = (8, 32)
+MODEL_DIST_RANKS = 4
+MODEL_LBB_LOG_N, MODEL_LBB_P, MODEL_LBB_BATCH = 26, 256, 64
+MODEL_LBB_CHECK = (64, 20)
+MODEL_DEV = "cuda"          # phase 19 runs here (a CPU rehearsal sets "cpu")
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -2659,7 +2705,7 @@ class DistRanks:
     :meth:`run` sends a job to every rank and returns their answers, and
     any error, silence past the deadline or early exit is fatal."""
 
-    def __init__(self, world, backend):
+    def __init__(self, world, backend, target=None):
         import multiprocessing
         import socket
         ctx = multiprocessing.get_context("spawn")
@@ -2670,7 +2716,7 @@ class DistRanks:
         self.t0 = time.perf_counter()
         self.results = ctx.Queue()
         self.jobs = [ctx.Queue() for _ in range(world)]
-        self.procs = [ctx.Process(target=dist_rank, args=(
+        self.procs = [ctx.Process(target=target or dist_rank, args=(
             r, world, port, backend, self.jobs[r], self.results))
             for r in range(world)]
         for proc in self.procs:
@@ -2688,7 +2734,7 @@ class DistRanks:
                         not p.is_alive() for p in self.procs):
                     self.close()
                     raise AssertionError(
-                        f"phase 18 {what}: ranks "
+                        f"phase 18/19 {what}: ranks "
                         f"{sorted(set(range(self.world)) - set(out))} gave "
                         f"no answer") from None
                 continue
@@ -2697,7 +2743,8 @@ class DistRanks:
             out[rank] = value
         if errors:
             self.close()
-            raise AssertionError(f"phase 18 {what}:\n" + "\n".join(errors))
+            raise AssertionError(f"phase 18/19 {what}:\n"
+                                 + "\n".join(errors))
         return [out[r] for r in range(self.world)]
 
     def run(self, job):
@@ -2930,6 +2977,600 @@ def check_external(torch, np, x_np, out, info, n):
         raise AssertionError("input[perm] != output")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the model-serving stack
+# ---------------------------------------------------------------------------
+
+
+def model_bytes(cfg, L: int, cache_slots: int, batch: int) -> int:
+    """The reckoned device bytes of ``cfg`` cut to L layers: its weights
+    (``param_count``, norms and routers counted in the model's dtype) and
+    the decode state of ``batch`` sequences over ``cache_slots`` slots
+    (bf16 KV caches, float32 recurrent states)."""
+    import dataclasses
+    c = dataclasses.replace(cfg, n_layers=L)
+    weights = c.param_count() * 2
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
+        slots = min(cache_slots, cfg.sliding_window or cache_slots)
+        cache = L * 2 * batch * slots * cfg.n_kv_heads * cfg.head_dim * 2
+    elif cfg.family == "ssm":
+        hd = cfg.d_model // cfg.n_heads
+        cache = L * batch * (cfg.n_heads * hd * hd + cfg.d_model) * 4
+    else:
+        di = 2 * cfg.d_model
+        cache = L * batch * (di * cfg.ssm_state + 3 * (di + 2 * cfg.ssm_state)
+                             ) * 4 + (L // cfg.attn_every) * 2 * batch \
+            * cache_slots * cfg.n_kv_heads * cfg.head_dim * 2
+    return weights + cache
+
+
+def model_depth(cfg, cache_slots: int, batch: int) -> int:
+    """The most layers (at most the config's; zamba2 in whole groups of
+    ``attn_every``) whose reckoned bytes stay under MODEL_BYTES_LIMIT."""
+    step = cfg.attn_every if cfg.family == "hybrid" else 1
+    L = cfg.n_layers
+    while L > step and model_bytes(cfg, L, cache_slots, batch) \
+            > MODEL_BYTES_LIMIT:
+        L -= step
+    return L
+
+
+def decode_inputs(torch, np, cfg, batch, seed, device):
+    r = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"embeds": torch.from_numpy(r.normal(
+            size=(batch, 1, cfg.d_model))).to(device, torch.bfloat16)}
+    return {"tokens": torch.from_numpy(r.integers(
+        0, cfg.vocab, size=(batch, 1))).to(device)}
+
+
+def serve_card_vs_cpu(torch, np, cfg):
+    """Phase 19a's check: the served architecture at full width, depth
+    MODEL_CHECK_DEPTH, in float32 with float32 caches, on the CPU and on
+    the card from the same weights; over MODEL_CHECK_STEPS greedy steps
+    the tokens equal and the logits within MODEL_F32_TOL."""
+    import copy
+    import dataclasses
+    from repro_torch.models import transformer as T
+    c = dataclasses.replace(cfg, n_layers=MODEL_CHECK_DEPTH, dtype="float32")
+    cpu = T.init_params(c, torch.Generator().manual_seed(19), device="cpu")
+    gpu = copy.deepcopy(cpu).to(MODEL_DEV)
+    st_c = T.init_decode_state(c, MODEL_BATCH, MODEL_CACHE, torch.float32,
+                               device="cpu")
+    st_g = T.init_decode_state(c, MODEL_BATCH, MODEL_CACHE, torch.float32,
+                               device=MODEL_DEV)
+    inp = decode_inputs(torch, np, c, MODEL_BATCH, 19, "cpu")
+    err, same = 0.0, True
+    with torch.inference_mode():
+        for _ in range(MODEL_CHECK_STEPS):
+            lc, st_c = T.decode_step(cpu, st_c, inp, c)
+            lg, st_g = T.decode_step(gpu, st_g, {k: v.to(MODEL_DEV) for k, v
+                                                 in inp.items()}, c)
+            lg = lg.cpu()
+            err = max(err, float((lg - lc).abs().max()))
+            if not torch.allclose(lg, lc, **MODEL_F32_TOL):
+                raise AssertionError(f"19a: card logits differ from the "
+                                     f"CPU's by {err}")
+            tc, tg = lc[:, -1].argmax(-1), lg[:, -1].argmax(-1)
+            same &= bool(torch.equal(tc, tg))
+            if not same:
+                raise AssertionError("19a: card tokens differ from the CPU's")
+            inp = {"tokens": tc[:, None]}
+    del cpu, gpu, st_c, st_g
+    torch.cuda.empty_cache()
+    return {"depth": MODEL_CHECK_DEPTH, "steps": MODEL_CHECK_STEPS,
+            "batch": MODEL_BATCH, "tokens_equal": same,
+            "max_abs_logit_err": err, "tol": MODEL_F32_TOL}
+
+
+def model_serve_phase(torch, np, card):
+    """19a: ``serve`` of granite-moe-1b-a400m at full size through the
+    port's entry point (bf16 weights and caches, ``moe_local`` on every
+    decode step), then its card-vs-CPU check."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    cfg = get_config(MODEL_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks, stats = serve(cfg, None, batch=MODEL_BATCH, tokens=MODEL_TOKENS,
+                        cache_len=MODEL_CACHE, logger=lambda s: None,
+                        device=MODEL_DEV)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if toks.shape != (MODEL_TOKENS * MODEL_BATCH,) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab or stats["p50_ms"] is None:
+        raise AssertionError(f"19a: tokens {toks.shape} in "
+                             f"[{toks.min()}, {toks.max()}], stats {stats}")
+    row = {"phase": "model_serve", "arch": MODEL_ARCH, "card": card,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": cfg.n_experts, "top_k": cfg.top_k, "vocab": cfg.vocab,
+           "dtype": cfg.dtype, "batch": MODEL_BATCH, "tokens": MODEL_TOKENS,
+           "cache_len": MODEL_CACHE, "params": cfg.param_count(),
+           "cache_bytes": model_bytes(cfg, cfg.n_layers, MODEL_CACHE,
+                                      MODEL_BATCH) - cfg.param_count() * 2,
+           "max_memory_allocated": peak, "wall_s": wall,
+           "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+           "tok_per_s": stats["tok_per_s"], "steps_timed": stats["n"]}
+    emit(row)
+    emit({"phase": "model_serve_profile", "arch": MODEL_ARCH, "card": card,
+          **decode_profile(torch, np, cfg)})
+    check = serve_card_vs_cpu(torch, np, cfg)
+    emit({"phase": "model_serve_cuda_vs_cpu", "arch": MODEL_ARCH, **check})
+    return row
+
+
+def decode_profile(torch, np, cfg):
+    """Where one serve step of the full model spends its time, after three
+    warm-up steps: its wall (tokens on the host), the device's busy time
+    and operations under ``torch.profiler``, the idle share, and its
+    synchronising host calls."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    model = T.init_params(cfg, torch.Generator(device=MODEL_DEV).manual_seed(
+        0), device=MODEL_DEV)
+    state = [T.init_decode_state(cfg, MODEL_BATCH, MODEL_CACHE,
+                                 torch.bfloat16, device=MODEL_DEV)]
+    step = S.make_serve_step(cfg, None)
+    inp = decode_inputs(torch, np, cfg, MODEL_BATCH, 0, MODEL_DEV)
+
+    def one():
+        nxt, state[0] = step(model, state[0], inp)
+        nxt.cpu()
+    with torch.inference_mode():
+        for _ in range(3):
+            one()
+        brk = device_breakdown(torch, one)
+        syncs = host_syncs(torch, one)
+    del model, state
+    torch.cuda.empty_cache()
+    return {"batch": MODEL_BATCH, "cache_len": MODEL_CACHE, **brk,
+            "idle_share": 1.0 - brk["device_busy_ms"] / brk["wall_ms"],
+            "host_syncs": syncs}
+
+
+def arch_phase(torch, np, card):
+    """19b: every architecture at full width and its reckoned depth: one
+    ``forward`` over (B, S) = (MODEL_ARCH_B, MODEL_ARCH_S) (past one
+    attention block and many SSD/WKV chunks), then MODEL_ARCH_STEPS decode
+    steps; logits finite with the reference's shapes.  Then llama3.2-1b's
+    teacher-forced decode against prefill in float32 at full size, and the
+    CLI's default architecture through ``python -m
+    repro_torch.launch.serve``."""
+    import dataclasses
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import transformer as T
+    rows = []
+    for arch in list_archs():
+        full = get_config(arch)
+        L = model_depth(full, MODEL_ARCH_S, MODEL_ARCH_B)
+        cfg = dataclasses.replace(full, n_layers=L)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, torch.Generator(
+            device=MODEL_DEV).manual_seed(19), device=MODEL_DEV)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        r = np.random.default_rng(19)
+        if cfg.family == "audio":
+            inp = {"embeds": torch.from_numpy(r.normal(size=(
+                MODEL_ARCH_B, MODEL_ARCH_S, cfg.d_model))).to(
+                    MODEL_DEV, torch.bfloat16)}
+        else:
+            inp = {"tokens": torch.from_numpy(r.integers(
+                0, cfg.vocab, size=(MODEL_ARCH_B, MODEL_ARCH_S))).to(
+                    MODEL_DEV)}
+        tail = (cfg.n_codebooks, cfg.vocab) if cfg.family == "audio" \
+            else (cfg.vocab,)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, _ = T.forward(model, inp, cfg)
+            ok = bool(torch.isfinite(logits).all())
+            fwd_s = time.perf_counter() - t0
+            shape = tuple(logits.shape)
+            del logits
+            st = T.init_decode_state(cfg, MODEL_ARCH_B, MODEL_ARCH_S,
+                                     torch.bfloat16, device=MODEL_DEV)
+            dec = []
+            for t in range(MODEL_ARCH_STEPS):
+                step_in = decode_inputs(torch, np, cfg, MODEL_ARCH_B, 100 + t,
+                                        MODEL_DEV)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, st = T.decode_step(model, st, step_in, cfg)
+                ok &= bool(torch.isfinite(lg).all())
+                dec.append(time.perf_counter() - t0)
+            dshape = tuple(lg.shape)
+        row = {"phase": "model_arch", "arch": arch, "card": card,
+               "family": cfg.family, "layers": L,
+               "layers_published": full.n_layers, "d_model": cfg.d_model,
+               "reckoned_bytes": model_bytes(cfg, L, MODEL_ARCH_S,
+                                             MODEL_ARCH_B),
+               "params": cfg.param_count(), "init_s": t_init,
+               "forward_shape": list(shape), "forward_s": fwd_s,
+               "decode_shape": list(dshape),
+               "decode_step_ms": [1e3 * d for d in dec],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "finite": ok}
+        emit(row)
+        rows.append(row)
+        if not ok or shape != (MODEL_ARCH_B, MODEL_ARCH_S) + tail \
+                or dshape != (MODEL_ARCH_B, 1) + tail:
+            raise AssertionError(f"19b {arch}: finite {ok}, shapes {shape}, "
+                                 f"{dshape}")
+        del model, st, lg
+        torch.cuda.empty_cache()
+    rows.append(prefill_vs_decode(torch, np, card))
+    rows.append(serve_cli(card))
+    return rows
+
+
+def prefill_vs_decode(torch, np, card):
+    """llama3.2-1b at full size in float32 with float32 caches: the
+    logits of MODEL_TF_S teacher-forced decode steps against one prefill
+    of the same tokens, within MODEL_TF_TOL."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32")
+    torch.cuda.empty_cache()
+    model = T.init_params(cfg, torch.Generator(device=MODEL_DEV).manual_seed(
+        19), device=MODEL_DEV)
+    tok = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab, size=(1, MODEL_TF_S))).to(MODEL_DEV)
+    with torch.inference_mode():
+        full, _ = T.forward(model, {"tokens": tok}, cfg)
+        st = T.init_decode_state(cfg, 1, MODEL_TF_S, torch.float32,
+                                 device=MODEL_DEV)
+        dec = []
+        for t in range(MODEL_TF_S):
+            lg, st = T.decode_step(model, st, {"tokens": tok[:, t:t + 1]},
+                                   cfg)
+            dec.append(lg[:, 0])
+        dec = torch.stack(dec, dim=1)
+    err = float((dec - full).abs().max())
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    row = {"phase": "model_prefill_vs_decode", "arch": "llama3.2-1b",
+           "card": card, "dtype": "float32", "layers": cfg.n_layers,
+           "tokens": MODEL_TF_S, "max_abs_err": err, "argmax_agree": agree,
+           "tol": MODEL_TF_TOL, "logit_scale": float(full.abs().max())}
+    emit(row)
+    if not torch.allclose(dec, full, **MODEL_TF_TOL):
+        raise AssertionError(f"19b: decode differs from prefill by {err}")
+    del model, st, full, dec
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_cli(card):
+    """The serving CLI's default architecture (rwkv6-1.6b, full size) in
+    a subprocess of its own, as a user runs it."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=MODEL_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    line = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+    row = {"phase": "model_serve_cli", "command":
+           "python -m repro_torch.launch.serve", "card": card,
+           "returncode": run.returncode, "wall_s": wall, "stdout": line}
+    emit(row)
+    if run.returncode != 0 or not line.startswith("[serve] rwkv6-1.6b:"):
+        raise AssertionError(f"19b: the serving CLI failed: "
+                             f"{run.stderr[-2000:]}")
+    return row
+
+
+def moe_layer(torch, np, dtype, skewed=False, dev=None):
+    """One granite layer's MoE weights drawn on the card (float32 router,
+    experts in ``dtype``), the skewed router (everything to expert 0)
+    when asked, and x (MODEL_MOE_X) in ``dtype``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE
+    cfg = get_config(MODEL_ARCH)
+    dev = dev or MODEL_DEV
+    g = torch.Generator(device=dev).manual_seed(19)
+    p = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, dtype, dev, g)
+    if skewed:
+        p.router.data.zero_()
+        p.router.data[:, 0] = 10.0
+    x = torch.randn(MODEL_MOE_X, generator=g, device=dev, dtype=dtype)
+    return cfg, p, x
+
+
+def moe_phase(torch, np, card):
+    """19c: the MoE dispatch of one granite layer at full width, x (8,
+    2048, 1024).  In float32 with factors that drop nothing (16, the
+    expert buffers' at least 2·ep) ``moe_local``, ``moe_ep_sim`` at (1,
+    ep) for ep in MODEL_MOE_EPS against
+    ``moe_dense`` within MODEL_F32_TOL; under the skewed router at the
+    default factors each EP layout's exchange drops and a finite y; in
+    bf16 at the default factors each call's wall (the median of 3 ending in
+    a synchronise), peak and host syncs."""
+    import dataclasses
+    from repro_torch.models import moe as M
+    cfg, p, x = moe_layer(torch, np, torch.float32)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+
+    def no_drop(ep):
+        """Factors 16, the expert buffers' at least 2·ep: an expert's
+        buffer holds capacity_factor·k·T/E items and receives from all ep
+        PEs, ep·k·T/E on average (T the tokens of one PE), so factor 16
+        drops at ep = 32 in the reference's formula too."""
+        return dict(capacity_factor=max(16.0, 2.0 * ep), slot_factor=16.0)
+    with torch.inference_mode():
+        dense, _ = M.moe_dense(x, p, cfg)
+        errs = {}
+        for name, fn in (
+                ("moe_local", lambda: M.moe_local(x, p, cfg,
+                                                  capacity_factor=16.0)),
+                *[(f"moe_ep_sim(1,{ep})", lambda ep=ep: M.moe_ep_sim(
+                    x, p, cfg, d=1, ep=ep, **no_drop(ep)))
+                  for ep in MODEL_MOE_EPS]):
+            y, _ = fn()
+            errs[name] = float((y - dense).abs().max())
+            if not torch.allclose(y, dense, **MODEL_F32_TOL):
+                raise AssertionError(f"19c: {name} differs from moe_dense by "
+                                     f"{errs[name]}")
+            del y
+        del dense, x, p
+        torch.cuda.empty_cache()
+        emit({"phase": "model_moe_check", "card": card, "dtype": "float32",
+              "x": list(MODEL_MOE_X), "factors": {
+                  "moe_local": 16.0, **{f"moe_ep_sim(1,{ep})": no_drop(ep)
+                                        for ep in MODEL_MOE_EPS}},
+              "max_abs_err_vs_dense": errs, "tol": MODEL_F32_TOL})
+        cfg, p, x = moe_layer(torch, np, torch.float32, skewed=True)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        skew = {}
+        for ep in MODEL_MOE_EPS:
+            y, _, drops = M._ep_sim(x, p, cfg, 1, ep, 2.0, 2.0)
+            skew[ep] = {"drops": int(drops.sum()),
+                        "drops_per_pe": drops.tolist(),
+                        "finite": bool(torch.isfinite(y).all())}
+            if not skew[ep]["finite"]:
+                raise AssertionError(f"19c: skewed y not finite at ep={ep}")
+            del y
+        emit({"phase": "model_moe_skewed", "card": card, "router":
+              "all to expert 0", "factors": 2.0, "by_ep": skew})
+        del x, p
+        torch.cuda.empty_cache()
+        cfg, p, x = moe_layer(torch, np, torch.bfloat16)
+        times = {}
+        for name, fn in (("moe_local", lambda: M.moe_local(x, p, cfg)),
+                         ("moe_dense", lambda: M.moe_dense(x, p, cfg)),
+                         *[(f"moe_ep_sim(1,{ep})", lambda ep=ep: M.moe_ep_sim(
+                             x, p, cfg, d=1, ep=ep)) for ep in MODEL_MOE_EPS]):
+            wall, peak, syncs = time_batch(
+                torch, lambda fn=fn: (fn(), torch.cuda.synchronize()), reps=3)
+            times[name] = {"ms": 1e3 * wall, "max_memory_allocated": peak,
+                           "host_syncs": syncs}
+        emit({"phase": "model_moe_times", "card": card, "dtype": "bfloat16",
+              "x": list(MODEL_MOE_X), "factors": 2.0, "calls": times})
+    del x, p
+    torch.cuda.empty_cache()
+    return {"errs": errs, "skewed": skew, "times": times}
+
+
+def moe_rank(rank, world, port, backend, jobs, results):
+    """One rank of phase 19d (spawned; every rank on the card 0): joins
+    the gloo group, makes the (data 2, model 2) mesh, then for each dtype
+    runs ``moe_ep_shardmap`` and ``moe_tp_shardmap`` on the granite layer;
+    rank 0 also runs ``moe_ep_sim(d=2, ep=2)`` and ``moe_local`` on the
+    card and compares."""
+    import dataclasses
+    import datetime
+    import traceback
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        from repro_torch.dist.sharding import make_mesh
+        from repro_torch.models import moe as M
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        mesh = make_mesh(np.arange(world).reshape(2, world // 2),
+                         ("data", "model"))
+        results.put((rank, "ready", None))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        try:
+            kind, (dtype_name, dev) = job
+            dtype = getattr(torch, dtype_name)
+            cfg, p, x = moe_layer(torch, np, dtype, dev=dev)
+            cfg = dataclasses.replace(cfg, dtype=dtype_name)
+            out = {}
+            with torch.inference_mode():
+                for name, fn in (
+                        ("ep", lambda: M.moe_ep_shardmap(
+                            x, p, cfg, mesh, data_axes=("data",))),
+                        ("tp", lambda: M.moe_tp_shardmap(
+                            x, p, cfg, mesh, data_axes=("data",)))):
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y, _ = fn()
+                    torch.cuda.synchronize()
+                    out[name + "_wall_s"] = time.perf_counter() - t0
+                    out[name] = y
+                out["peak"] = torch.cuda.max_memory_allocated()
+                if rank == 0:
+                    sim, _ = M.moe_ep_sim(x, p, cfg, d=2, ep=world // 2)
+                    local, _ = M.moe_local(x, p, cfg)
+                    out["ep_equal_sim"] = bool(torch.equal(out["ep"], sim))
+                    out["tp_err"] = float((out["tp"].float()
+                                           - local.float()).abs().max())
+                    out["tp_scale"] = float(local.float().abs().max())
+                    if dtype == torch.float32:
+                        out["tp_close"] = bool(torch.allclose(
+                            out["tp"], local, **MODEL_F32_TOL))
+                    del sim, local
+            ep_bits = out.pop("ep").view(torch.int16 if dtype == torch.bfloat16
+                                         else torch.int32)
+            out["ep_digest"] = int(ep_bits.to(torch.int64).sum())
+            out.pop("tp")
+            results.put((rank, "ok", out))
+            del p, x, ep_bits
+            torch.cuda.empty_cache()
+        except BaseException:
+            results.put((rank, "error", traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+def moe_dist_phase(torch, card):
+    """19d: the distributed dispatch on four gloo ranks sharing the card,
+    a (data 2, model 2) ``DeviceMesh``: ``moe_ep_shardmap`` equal bit for
+    bit to ``moe_ep_sim(d=2, ep=2)`` on the card, ``moe_tp_shardmap``
+    against ``moe_local`` (float32: within MODEL_F32_TOL); walls of four
+    processes sharing one card through the host, not a multi-GPU speed."""
+    ranks = DistRanks(MODEL_DIST_RANKS, "gloo", target=moe_rank)
+    rows = []
+    try:
+        for dtype in ("bfloat16", "float32"):
+            answers = ranks.run(("moe", (dtype, MODEL_DEV)))
+            a0 = answers[0]
+            row = {"phase": "model_moe_dist", "card": card, "dtype": dtype,
+                   "ranks": MODEL_DIST_RANKS, "mesh": {"data": 2, "model": 2},
+                   "transport": "gloo through the host, four processes "
+                                "sharing one card",
+                   "ep_equal_sim": a0["ep_equal_sim"],
+                   "ep_same_on_every_rank": len({a["ep_digest"]
+                                                 for a in answers}) == 1,
+                   "tp_max_abs_err_vs_local": a0["tp_err"],
+                   "tp_scale": a0["tp_scale"],
+                   "tp_close": a0.get("tp_close"),
+                   "ep_wall_s": [a["ep_wall_s"] for a in answers],
+                   "tp_wall_s": [a["tp_wall_s"] for a in answers],
+                   "peak_per_rank": [a["peak"] for a in answers]}
+            emit(row)
+            rows.append(row)
+            if not (row["ep_equal_sim"] and row["ep_same_on_every_rank"]) \
+                    or row["tp_close"] is False:
+                raise AssertionError(f"19d: {row}")
+    finally:
+        ranks.close()
+    return rows
+
+
+def lbb_lengths(np, n, seed):
+    """The reference test's law of example lengths: min(32 + zipf(1.5) %
+    992, 1024)."""
+    rng = np.random.default_rng(seed)
+    return np.minimum(32 + (rng.zipf(1.5, size=n) % 992), 1024)
+
+
+def lbb_phase(torch, np, card, psort, SortConfig, launch_counts,
+              reset_launch_counts):
+    """19e: ``length_balanced_batches`` on 2^26 lengths at p = 256, batch
+    64, with ``"auto"``, ``"rams"`` and ``"bitonic"``: the algorithm and
+    overflow of its sort, the waste before and after, the wall and the
+    kernels launched.  RAMS drops keys at its second level at this n/p
+    (ROADMAP §3), so where the sort overflows the batching must refuse
+    as the reference's does (its reshape raises ``ValueError``); bitonic
+    sorts exactly.  Then the card against the CPU at p = 64, n = 2^20, bit
+    for bit.  Returns the launches of each run by algorithm."""
+    from repro_torch.data.pipeline import length_balanced_batches
+    n = 1 << MODEL_LBB_LOG_N
+    lengths = lbb_lengths(np, n, 19)
+    out = {}
+    for algorithm in ("auto", "rams", "bitonic"):
+        _, info = psort(lengths.astype(np.int32), SortConfig(
+            p=MODEL_LBB_P, algorithm=algorithm), return_info=True,
+            device=MODEL_DEV)
+        chosen, overflow = info["algorithm"], info["overflow"]
+        del info
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row = {"phase": "model_lbb", "card": card, "n": n,
+               "p": MODEL_LBB_P, "batch": MODEL_LBB_BATCH,
+               "algorithm": algorithm, "chosen": chosen,
+               "overflow": overflow}
+        if overflow:
+            refusal = expect_refusal(lambda: length_balanced_batches(
+                lengths, MODEL_LBB_BATCH, p=MODEL_LBB_P, algorithm=algorithm,
+                device=MODEL_DEV))
+            row.update(wall_s=time.perf_counter() - t0, refused=refusal)
+        else:
+            batches, before, after = length_balanced_batches(
+                lengths, MODEL_LBB_BATCH, p=MODEL_LBB_P, algorithm=algorithm,
+                device=MODEL_DEV)
+            wall = time.perf_counter() - t0
+            ls = lengths[batches.reshape(-1)]
+            ok = (batches.shape == (n // MODEL_LBB_BATCH, MODEL_LBB_BATCH)
+                  and bool((np.diff(ls) >= 0).all()) and after < before)
+            row.update(wall_s=wall, waste_before=before, waste_after=after,
+                       sorted_batches=ok)
+            del batches, ls
+            if not ok:
+                raise AssertionError(f"19e: {row}")
+        row["launches"] = launch_counts()
+        emit(row)
+        want = RAMS_LAUNCHES if chosen == "rams" else ("tile_sort",
+                                                       "run_merge")
+        missing = [k for k in want if row["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"19e: kernels never launched: {missing}")
+        out[algorithm] = row["launches"]
+    del lengths
+    p, log_n = MODEL_LBB_CHECK
+    lengths = lbb_lengths(np, 1 << log_n, 20)
+    runs = [length_balanced_batches(lengths, MODEL_LBB_BATCH, p=p,
+                                    algorithm="rams", device=dev)
+            for dev in (MODEL_DEV, "cpu")]
+    same = bool(np.array_equal(runs[0][0], runs[1][0])
+                and runs[0][1:] == runs[1][1:])
+    emit({"phase": "model_lbb_cuda_vs_cpu", "card": card, "p": p,
+          "n": 1 << log_n, "algorithm": "rams", "identical": same,
+          "waste_before": runs[0][1], "waste_after": runs[0][2]})
+    if not same:
+        raise AssertionError("19e: card batches differ from the CPU's")
+    return out
+
+
+def expect_refusal(fn) -> str:
+    """The message of the ``ValueError`` ``fn()`` must raise (the
+    reference's reshape of a perm shorter than the batches); fails if it
+    returns."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    raise AssertionError("19e: the batching of an overflowed sort returned "
+                         "where the reference's raises")
+
+
+def model_phase(torch, np, card, psort, SortConfig, launch_counts,
+                reset_launch_counts):
+    """Phase 19: (a) serving, (b) every architecture, (c) the MoE
+    dispatch, (d) the distributed dispatch, (e) length-balanced batching.
+    Returns the launches of (e)'s RAMS run."""
+    t0 = time.perf_counter()
+    model_serve_phase(torch, np, card)
+    arch_phase(torch, np, card)
+    moe_phase(torch, np, card)
+    moe_dist_phase(torch, card)
+    lbb = lbb_phase(torch, np, card, psort, SortConfig, launch_counts,
+                    reset_launch_counts)
+    emit({"phase": "model_done", "seconds": time.perf_counter() - t0})
+    return lbb
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2982,6 +3623,15 @@ def main() -> int:
           "kernels": None if log is None else ptxas_report(log)})
 
     lap("1-2")
+    if "--model-only" in sys.argv[1:]:          # phase 19 alone
+        model_phase(torch, np, card, psort, SortConfig, launch_counts,
+                    reset_launch_counts)
+        lap("19")
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--dist-only" in sys.argv[1:]:           # phase 18 alone
         dist_launches = dist_phase(torch, np, psort, SortConfig,
                                    generate_instance)
@@ -3193,6 +3843,11 @@ def main() -> int:
                                generate_instance)
     dist_ams, dist_rows = dist_kernel_rows(torch)
     lap("18")
+
+    # --- 19. the model-serving stack -----------------------------------------
+    lbb_launches = model_phase(torch, np, card, psort, SortConfig,
+                               launch_counts, reset_launch_counts)
+    lap("19")
     emit({"phase": "seconds", "of": "all",
           "seconds": time.perf_counter() - start})
 
@@ -3256,6 +3911,10 @@ def main() -> int:
     # phase 18: each kernel at a rank's shapes, with the launches of every
     # distributed path, summed over its ranks
     rows += dist_summary_rows(dist_launches, dist_ams, dist_rows)
+    # phase 19: length-balanced batching sorts 2^26 lengths at p = 256 with
+    # RAMS, the main path's shapes, with its own launches
+    for key, row in kernels.items():
+        rows.append((row, "lbb", lbb_launches["rams"][key]))
     emit_kernels(rows)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,11 @@
+"""granite-moe-1b-a400m [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]
+32 experts top-8 — true expert parallelism: the paper's distributed
+sort-based dispatch runs over the model axis (32 % 16 == 0)."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m", family="moe",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=8,
+    d_ff=512, vocab=49155, n_experts=32, top_k=8,
+    act="silu", tie_embeddings=True,
+)

@@ -21,8 +21,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import comm, prng
-from .types import (SortShard, compact, local_sort, merge_shards,
-                    merge_sorted_shards, resize)
+from .types import (SortShard, along_rows, compact, local_sort,
+                    merge_shards, merge_sorted_shards, resize)
 
 
 def subcube_groups(p: int, dims: int):
@@ -176,7 +176,9 @@ def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
     overflow (P,)): on the barrier path unsorted and compacted; with
     ``stream`` sorted, equal bit for bit to the barrier path followed by
     ``local_sort`` (:func:`_stream_route_merge`), so callers skip their
-    sort."""
+    sort.  On the barrier path a payload may carry trailing dimensions,
+    (P, C, …), as the reference's ``scatter`` takes them; the streamed
+    path takes (P, C) payloads."""
     P, C = dest.shape
     dev = dest.device
     sorted_dest, order = torch.sort(dest, dim=1, stable=True)
@@ -196,9 +198,9 @@ def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
     flat = torch.where(ok, dest * slot_cap + slot, p * slot_cap)
     del ok, slot
 
-    def slots(v, fill):                     # the (P, p·slot_cap) send slots
-        buf = v.new_full((P, p * slot_cap + 1), fill)
-        return buf.scatter_(1, flat, v)[:, :-1]
+    def slots(v, fill):                # the (P, p·slot_cap, …) send slots
+        buf = v.new_full((P, p * slot_cap + 1) + tuple(v.shape[2:]), fill)
+        return buf.scatter_(1, along_rows(flat, v), v)[:, :-1]
 
     if stream:
         keys = slots(shard.keys, shard.pad)
@@ -209,8 +211,10 @@ def _alltoall_route(shard: SortShard, dest: torch.Tensor, p: int,
                                    slot_cap, groups), overflow
 
     def scatter(v, fill):
-        return comm.all_to_all(slots(v, fill).reshape(P, p, slot_cap),
-                               groups).reshape(P, p * slot_cap)
+        trail = tuple(v.shape[2:])
+        return comm.all_to_all(
+            slots(v, fill).reshape((P, p, slot_cap) + trail),
+            groups).reshape((P, p * slot_cap) + trail)
 
     keys = scatter(shard.keys, shard.pad)
     vals = {k: scatter(v, 0) for k, v in shard.vals.items()}

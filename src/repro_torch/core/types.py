@@ -11,7 +11,10 @@ internal word (flipped twice).
 
 A shard holds all p PEs at once: ``keys`` (p, C), ``vals`` {name: (p, C)},
 ``count`` (p,) int64.  Every function here is a plain function over those
-tensors; ``keys[i, count[i]:]`` is padding.
+tensors; ``keys[i, count[i]:]`` is padding.  A payload may carry trailing
+dimensions, (p, C, …) (the MoE dispatch sends feature vectors), where
+:func:`compact` and the barrier path of ``hypercube._alltoall_route``
+take it, as the reference's payloads do.
 """
 from __future__ import annotations
 
@@ -64,9 +67,10 @@ def resolve_device(device) -> torch.device:
     """``device``, or CUDA when it is None; never the CPU on its own."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("psort runs on CUDA by default and no CUDA "
-                               "device is available; pass device='cpu' to "
-                               "run the plain versions of the kernels")
+            raise RuntimeError("the port runs on CUDA by default and no "
+                               "CUDA device is available; pass "
+                               "device='cpu' to run the plain versions of "
+                               "the kernels")
         return torch.device("cuda")
     return torch.device(device)
 
@@ -82,7 +86,7 @@ class SortShard:
     ascending up to ``count`` and padded after it."""
 
     keys: torch.Tensor                  # (p, C) int32 / int64
-    vals: Dict[str, torch.Tensor]       # each (p, C)
+    vals: Dict[str, torch.Tensor]       # each (p, C) or (p, C, …)
     count: torch.Tensor                 # (p,) int64
 
     @property
@@ -176,10 +180,20 @@ def resize(shard: SortShard, capacity: int):
         overflow
 
 
+def along_rows(idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The (P, C) index ``idx`` of a dim-1 scatter or gather, expanded over
+    the trailing dimensions of the payload ``v`` (P, C, …)."""
+    if v.dim() == 2:
+        return idx
+    return idx.reshape(tuple(idx.shape) + (1,) * (v.dim() - 2)).expand(
+        tuple(idx.shape) + tuple(v.shape[2:]))
+
+
 def compact(shard: SortShard, keep_mask: torch.Tensor) -> SortShard:
     """Keep only elements where ``keep_mask`` (and valid); kept elements
     move to the front in order, the rest follow in order (the reference's
-    stable argsort of the keep flag, done as one scatter)."""
+    stable argsort of the keep flag, done as one scatter).  Payloads may
+    carry trailing dimensions."""
     keep = keep_mask & shard.valid_mask()
     keys = torch.where(keep, shard.keys, shard.pad)
     kept = torch.cumsum(keep, dim=1)                 # kept up to and incl.
@@ -189,7 +203,7 @@ def compact(shard: SortShard, keep_mask: torch.Tensor) -> SortShard:
     del kept
     out_k = torch.empty_like(keys).scatter_(1, dst, keys)
     del keys
-    vals = {k: torch.empty_like(v).scatter_(1, dst, v)
+    vals = {k: torch.empty_like(v).scatter_(1, along_rows(dst, v), v)
             for k, v in shard.vals.items()}
     return SortShard(out_k, vals, n_keep[:, 0].clone())
 

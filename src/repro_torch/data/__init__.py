@@ -1,2 +1,3 @@
-"""Input instances of the paper, in numpy (no torch, no jax)."""
+"""Input instances of the paper, in numpy (no torch, no jax), and the
+token pipeline with its length-balanced batching (``pipeline``)."""
 from .distributions import INSTANCES, generate_instance  # noqa: F401

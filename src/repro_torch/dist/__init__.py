@@ -1,4 +1,4 @@
 """repro_torch.dist — the sorting meshes of the distributed backend
-(``sharding.sort_mesh``).  The model stack's sharding rules come with the
-integration stack, ROADMAP queue 1 item 10."""
+(``sharding.sort_mesh``).  The model stack's sharding rules are ROADMAP
+queue 1 item 10c (serving on a mesh)."""
 from .sharding import sort_mesh  # noqa: F401

@@ -1,0 +1,201 @@
+"""GQA attention (counterpart of ``repro/models/attention.py``): the
+chunked prefill (online softmax over 1024-key blocks), sliding window,
+qk-norm, and single-token decode against a KV cache.
+
+The chunked path keeps a (B, H, block, block) score block instead of the
+(B, H, S, S) one: queries run block by block, each scanning the key
+blocks at or before it with a running (max, denominator), as the
+reference's ``lax.map`` over query blocks and ``lax.scan`` over key blocks
+do, masked steps included.  ``banded`` scans only the key blocks of the
+sliding-window band.  Plain torch, as the reference is plain ``jnp``; the
+context-parallel path needs a mesh (ROADMAP item 10c).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from .layers import apply_rope, init_rms, normal, rms_norm
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """``wq`` (d, H·hd), ``wk``/``wv`` (d, KV·hd), ``wo`` (H·hd, d), and
+    with qk-norm ``q_norm``/``k_norm`` (hd,)."""
+
+    def __init__(self, d: int, n_heads: int, n_kv: int, head_dim: int,
+                 qk_norm: bool, dtype, device,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        s = 1.0 / math.sqrt(d)
+        self.wq = normal(gen, (d, n_heads * head_dim), dtype, s, device)
+        self.wk = normal(gen, (d, n_kv * head_dim), dtype, s, device)
+        self.wv = normal(gen, (d, n_kv * head_dim), dtype, s, device)
+        self.wo = normal(gen, (n_heads * head_dim, d), dtype,
+                         1.0 / math.sqrt(n_heads * head_dim), device)
+        self.q_norm = init_rms(head_dim, device) if qk_norm else None
+        self.k_norm = init_rms(head_dim, device) if qk_norm else None
+
+
+def _qkv(x, p, cfg, positions):
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(B, S, H, hd)
+    k = (x @ p.wk).reshape(B, S, KV, hd)
+    v = (x @ p.wv).reshape(B, S, KV, hd)
+    if getattr(p, "q_norm", None) is not None:
+        q = rms_norm(q, p.q_norm)
+        k = rms_norm(k, p.k_norm)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    return k.repeat_interleave(n_rep, dim=2)
+
+
+def attention(x: torch.Tensor, p, cfg, *, block: int = 1024,
+              banded: Optional[bool] = None, mesh=None) -> torch.Tensor:
+    """Causal self-attention for prefill.  x: (B, S, D)."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(x, p, cfg, positions)
+    window = cfg.sliding_window
+    if banded is None:
+        banded = bool(window) and getattr(cfg, "swa_banded", False)
+
+    if getattr(cfg, "attn_context_parallel", False) and mesh is not None \
+            and S > block:
+        raise NotImplementedError(
+            "context-parallel attention (_attend_cp) shards query blocks "
+            "over a mesh: ROADMAP item 10c")
+    if S <= block:
+        out = _attend_dense(q, k, v, H // KV, window)
+    else:
+        out = _attend_chunked(q, k, v, H // KV, window, block, banded)
+    return out.reshape(B, S, H * hd) @ p.wo
+
+
+def _attend_dense(q, k, v, n_rep, window):
+    B, S, H, hd = q.shape
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    scores = scores * (1.0 / math.sqrt(hd))
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = ki <= qi
+    if window:
+        mask &= ki > qi - window
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _attend_chunked(q, k, v, n_rep, window, block, banded):
+    """Online softmax over key blocks; with ``banded`` (and a window) each
+    query block scans only the ``window // block + 2`` blocks of its band,
+    the leading ones clamped to block 0 and masked out, as the
+    reference's scan runs them."""
+    B, S, H, hd = q.shape
+    nq = S // block
+    qs = q.reshape(B, nq, block, H, hd)
+    band = bool(banded and window)
+    nkv = min(nq, window // block + 2) if band else nq
+    ar = torch.arange(block, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qb = qs[:, qi]                                  # (B, block, H, hd)
+        acc = torch.zeros((B, H, block, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, H, block), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        denom = torch.zeros((B, H, block), dtype=torch.float32,
+                            device=q.device)
+        # the reference scans nq steps and keeps the carry past qi: those
+        # steps change nothing, so they are not run
+        for kj in range(nkv if band else qi + 1):
+            kb_idx = qi - (nkv - 1) + kj if band else kj
+            c = min(max(kb_idx, 0), nq - 1)
+            kb = _repeat_kv(k[:, c * block:(c + 1) * block], n_rep)
+            vb = _repeat_kv(v[:, c * block:(c + 1) * block], n_rep)
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb).float()
+            s = s * (1.0 / math.sqrt(hd))
+            qpos = qi * block + ar[:, None]
+            kpos = c * block + ar[None, :]
+            mask = (kpos <= qpos) & (kb_idx >= 0)
+            if window:
+                mask &= kpos > qpos - window
+            s = torch.where(mask[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            scale = torch.exp(m - m_new)
+            pr = torch.exp(s - m_new[..., None])
+            denom = denom * scale + pr.sum(dim=-1)
+            acc = acc * scale[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", pr.to(qb.dtype), vb).float()
+            m = m_new
+        out = acc / torch.clamp(denom[..., None], min=1e-30)
+        outs.append(out.transpose(1, 2).to(qb.dtype))   # (B, block, H, hd)
+    return torch.stack(outs, dim=1).reshape(B, S, H, hd)
+
+
+# --- decode ----------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_max, KV, hd)
+    v: torch.Tensor
+    pos: int              # next write position (same for the batch)
+
+
+def init_cache(B: int, S_max: int, cfg, dtype, device) -> KVCache:
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return KVCache(k=torch.zeros((B, S_max, KV, hd), dtype=dtype,
+                                 device=device),
+                   v=torch.zeros((B, S_max, KV, hd), dtype=dtype,
+                                 device=device),
+                   pos=0)
+
+
+def decode_attention(x: torch.Tensor, p, cfg, cache: KVCache):
+    """One-token decode: x (B, 1, D); returns (out (B, 1, D), new cache).
+
+    The new key and value are written into the cache's buffers in place
+    (the reference donates them to its step), at the absolute position, or
+    for a sliding window at its slot in the ring; like the reference's
+    ``dynamic_update_slice`` a write past the end lands on the last slot,
+    and keys of another dtype than the cache's are refused."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S_max = cache.k.shape[1]
+    window = cfg.sliding_window
+    abs_pos = int(cache.pos)
+    slot = min(abs_pos % S_max if window else abs_pos, S_max - 1)
+    q, k, v = _qkv(x, p, cfg, torch.full((B, 1), abs_pos, device=x.device))
+    if k.dtype != cache.k.dtype:
+        raise TypeError(f"lax.dynamic_update_slice requires arguments to "
+                        f"have the same dtypes, got {cache.k.dtype}, "
+                        f"{k.dtype}")
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    kk = _repeat_kv(cache.k, H // KV)
+    vv = _repeat_kv(cache.v, H // KV)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * (1.0 / math.sqrt(hd))
+    kpos = torch.arange(S_max, device=x.device)
+    if window:                      # ring: every filled slot is in window
+        valid = kpos < min(abs_pos + 1, S_max)
+    else:
+        valid = kpos <= abs_pos
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", pr, vv)
+    out = out.reshape(B, 1, H * hd) @ p.wo
+    return out, KVCache(cache.k, cache.v, abs_pos + 1)

@@ -1,0 +1,108 @@
+"""The reference's parameters and decode state, given as numpy arrays, in
+the port's model (for the differential tests and for loading weights the
+JAX package made).
+
+``params_from_jax(cfg, tree)`` takes the tree of ``repro.models.
+transformer.init_params`` with its leaves as numpy arrays (bfloat16 from
+``ml_dtypes`` included) and loads it into a :class:`Transformer`: the
+reference stacks each block leaf over the layers as (L, …), so
+``blocks/attn/wq`` becomes ``blocks.0.attn.wq`` … ``blocks.{L-1}.attn.wq``;
+zamba2's ``shared`` block, musicgen's ``heads`` and a tied embedding (no
+``head``) map by name.  ``decode_state_from_jax`` does the same for a
+``DecodeState``.  Both check that every weight and layer is covered, with
+its shape, and keep each weight's dtype (float32 norms and routers, the
+model's dtype elsewhere).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import resolve_device
+
+from .attention import KVCache
+from .ssm import MambaState, RWKVState
+from .transformer import DecodeState, Transformer
+
+
+def as_tensor(a) -> torch.Tensor:
+    """A numpy array (``ml_dtypes.bfloat16`` included) as a CPU tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def params_from_jax(cfg, tree, device=None) -> Transformer:
+    """A :class:`Transformer` of ``cfg`` holding the reference's weights
+    ``tree`` (nested dicts of numpy arrays), on ``device`` (the card
+    unless ``device="cpu"``)."""
+    model = Transformer(cfg, resolve_device(device))
+    flat = {}
+    for name, a in _flatten(tree).items():
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: {a.shape[0]} layers, not "
+                                 f"{cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                flat[f"blocks.{i}.{rest}"] = a[i]
+        else:
+            flat[name] = a
+    params = dict(model.named_parameters())
+    if set(flat) != set(params):
+        raise KeyError(f"weights the model lacks: "
+                       f"{sorted(set(flat) - set(params))}; weights the "
+                       f"tree lacks: {sorted(set(params) - set(flat))}")
+    for name, t in params.items():
+        src = as_tensor(flat[name])
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)}, the model's "
+                             f"{tuple(t.shape)}")
+        t.data.copy_(src.to(t.dtype))
+    return model
+
+
+def decode_state_from_jax(cfg, state, device=None) -> DecodeState:
+    """The port's :class:`DecodeState` of the reference's (its leaves as
+    numpy arrays, the per-layer caches stacked over the layers)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return as_tensor(a).to(dev)
+
+    def layers(stacked, n):
+        return [{k: np.asarray(v)[i] for k, v in stacked._asdict().items()}
+                for i in range(n)]
+
+    pos = int(np.asarray(state.pos))
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
+        caches = [KVCache(t(c["k"]), t(c["v"]), pos)
+                  for c in layers(state.caches, cfg.n_layers)]
+        return DecodeState(caches, None, pos)
+    if cfg.family == "ssm":
+        caches = [RWKVState(t(c["wkv"]), t(c["last"]))
+                  for c in layers(state.caches, cfg.n_layers)]
+        return DecodeState(caches, None, pos)
+    if cfg.family == "hybrid":
+        caches = [MambaState(t(c["ssm"]), t(c["conv"]))
+                  for c in layers(state.caches, cfg.n_layers)]
+        n_sh = cfg.n_layers // cfg.attn_every
+        shared = [KVCache(t(c["k"]), t(c["v"]), pos)
+                  for c in layers(state.shared_caches, n_sh)]
+        return DecodeState(caches, shared, pos)
+    raise ValueError(cfg.family)

@@ -1,0 +1,364 @@
+"""Mixture-of-Experts with sort-based token dispatch (counterpart of
+``repro/models/moe.py``).
+
+Token routing gives n keys drawn from E ≤ 64 distinct values, the paper's
+DeterDupl instance.  The expert-parallel dispatch exchanges items by
+expert ownership (exact splitters: expert e lives on PE e // e_per) with
+the port's slotted all-to-all (``core.hypercube._alltoall_route``, its
+feature vectors a (P, C, D) payload), groups them by local expert,
+computes, and routes them back; items past a capacity are dropped, as in
+the reference.  Layouts:
+
+  * ``moe_local`` — the one-device layout: group per batch row, run every
+    expert on its capacity buffer (what ``moe_apply`` runs without a mesh,
+    and what serving runs on one card);
+  * ``moe_dense`` — the one-hot baseline: every expert on every token;
+  * ``moe_ep_sim`` — the expert-parallel body over an emulated (d, ep)
+    mesh, d·ep PEs as rows under ``comm.batched(d)``;
+  * ``moe_ep_shardmap`` / ``moe_tp_shardmap`` — the same on the ranks of
+    a ``DeviceMesh`` with ``data`` and ``model`` dimensions
+    (``comm.distributed``): every rank passes the whole x, takes its
+    block, and gets y back whole, as the port's ``psort`` does.
+
+Floats are computed PE by PE in both expert-parallel layouts (the
+router, each PE's experts on its (e_per, cap, D) buffer, the route-back
+sum), so the emulated and the distributed runs are equal bit for bit: a
+matmul batched over the PEs may take another algorithm than one PE's.
+The route-back adds each token's items in a fixed order, their arrival
+order, never by atomics, so repeated runs are equal too.  Router ties go
+to the lower expert, as ``jax.lax.top_k``'s do.  The grouping is the
+reference's one-hot scan in plain torch; it reaches no kernel, as in the
+reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import comm
+from repro_torch.core.hypercube import _alltoall_route
+from repro_torch.core.types import SortShard, along_rows
+
+from .layers import normal
+
+_FLIP = -(1 << 31)          # uint32 expert id ↔ the port's sign-flipped key
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) float32, ``up``/``gate`` (E, d, f), ``down``
+    (E, f, d)."""
+
+    def __init__(self, d: int, f: int, n_experts: int, dtype, device,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+        self.router = normal(gen, (d, n_experts), torch.float32, s_in,
+                             device)
+        self.up = normal(gen, (n_experts, d, f), dtype, s_in, device)
+        self.gate = normal(gen, (n_experts, d, f), dtype, s_in, device)
+        self.down = normal(gen, (n_experts, f, d), dtype, s_out, device)
+
+
+def _router(x, w, top_k: int):
+    """x: (..., D) → (probs (..., k) f32, ids (..., k) int64, aux loss).
+    A stable descending sort picks the top k: equal probabilities go to
+    the lower expert, as ``jax.lax.top_k`` orders them."""
+    logits = x.float() @ w
+    probs = torch.softmax(logits, dim=-1)
+    srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = srt[..., :top_k], idx[..., :top_k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    # load-balancing aux loss (Switch): E · Σ_e f_e · p_e
+    E = w.shape[1]
+    me = probs.reshape(-1, E).mean(dim=0)
+    fr = (top_i[..., None] == torch.arange(E, device=x.device)).reshape(
+        -1, E).float().mean(dim=0)
+    aux = E * (me * fr).sum()
+    return top_p, top_i, aux
+
+
+def _expert_ffn(buf, up, gate, down):
+    """buf: (E, C, D); weights (E, D, F)/(E, F, D)."""
+    h = torch.bmm(buf, up)
+    g = torch.bmm(buf, gate)
+    h = F.silu(g) * h
+    return torch.bmm(h, down)
+
+
+def _group_by_expert(eids, n_experts: int, capacity: int):
+    """One-hot scan grouping along the last dimension: eids (..., N) →
+    (slot (..., N), kept (..., N) bool); slot is the item's position in
+    its expert's capacity buffer (ids outside [0, n_experts) get 0)."""
+    onehot = eids[..., None] == torch.arange(n_experts, device=eids.device)
+    pos = torch.cumsum(onehot, dim=-2) - 1
+    slot = torch.where(onehot, pos, 0).sum(dim=-1)
+    return slot, slot < capacity
+
+
+def moe_local(x, p, cfg, *, capacity_factor: float = 2.0):
+    """Group locally per batch row, run every expert on its buffer."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    w, ids, aux = _router(x, p.router, k)              # (B, S, k)
+    N = S * k
+    cap = int(capacity_factor * N / E) + 1
+    ids2 = ids.reshape(B, N)
+    slot, kept = _group_by_expert(ids2, E, cap)
+    xrep = x.repeat_interleave(k, dim=1)                # item i ← token i//k
+    flat = torch.where(kept, ids2 * cap + slot, E * cap)
+    # dropped items all land in one dump slot, sliced off
+    buf = x.new_zeros((B, E * cap + 1, D)).scatter_(
+        1, along_rows(flat, xrep), xrep)
+    buf = buf[:, :-1].reshape(B, E, cap, D)
+    out = _expert_ffn(buf.transpose(0, 1).reshape(E, B * cap, D),
+                      p.up, p.gate, p.down)
+    out = out.reshape(E, B, cap, D).transpose(0, 1).reshape(B, E * cap, D)
+    gathered = torch.gather(out, 1, along_rows(flat.clamp(max=E * cap - 1),
+                                               out))
+    gathered = torch.where(kept[..., None], gathered, 0.0)
+    y = (gathered.reshape(B, S, k, D) * w.to(x.dtype)[..., None]).sum(dim=2)
+    return y, aux
+
+
+def moe_dense(x, p, cfg):
+    """Dense one-hot dispatch baseline: every expert on every token, a
+    masked combine — simple, robust, E× the FLOPs."""
+    E, k = cfg.n_experts, cfg.top_k
+    w, ids, aux = _router(x, p.router, k)
+    onehot = F.one_hot(ids, E).float()                          # (B,S,k,E)
+    cw = (onehot * w[..., None]).sum(dim=2)                     # (B,S,E)
+    h = torch.einsum("bsd,edf->bsef", x, p.up)
+    g = torch.einsum("bsd,edf->bsef", x, p.gate)
+    h = F.silu(g) * h
+    y = torch.einsum("bsef,efd->bsed", h, p.down)
+    y = (y * cw[..., None].to(x.dtype)).sum(dim=2)
+    return y, aux
+
+
+def _ep_dispatch(x_blk, p, cfg, ep: int, capacity_factor: float,
+                 slot_factor: float):
+    """The expert-parallel dispatch of every PE held here (the reference's
+    ``_ep_dispatch_body``): x_blk (P, B, S_loc, D), PE r's model-axis
+    index from ``comm.axis_index``; PE r holds the experts ``[i·e_per,
+    (i+1)·e_per)`` of its index i.  Every collective runs on the sort
+    axis of the open scope: the ep PEs of one data row.  Returns (y (P,
+    B, S_loc, D), aux (P,), drops (P,))."""
+    E, k = cfg.n_experts, cfg.top_k
+    e_per = E // ep
+    P, B, S_loc, D = x_blk.shape
+    dev = x_blk.device
+    T = B * S_loc
+    me_host = comm.axis_index(ep).tolist()              # no device read
+    me = torch.as_tensor(me_host, device=dev)
+    xt = x_blk.reshape(P, T, D)
+    routed = [_router(xt[r], p.router, k) for r in range(P)]
+    w = torch.stack([a[0] for a in routed])             # (P, T, k)
+    ids = torch.stack([a[1] for a in routed])
+    aux = torch.stack([a[2] for a in routed])
+    N = T * k
+    eids = ids.reshape(P, N)
+    shard = SortShard(
+        keys=(eids.to(torch.int32) ^ _FLIP),
+        vals={"feat": xt.repeat_interleave(k, dim=1),
+              "src": (torch.arange(N, device=dev) // k).expand(P, N),
+              "w": w.reshape(P, N),
+              "org": me[:, None].expand(P, N)},
+        count=torch.full((P,), N, dtype=torch.int64, device=dev))
+    dest = eids // e_per                                # exact splitters
+    slot_cap = int(slot_factor * N / ep) + 8
+    recv, drop1 = _alltoall_route(shard, dest, ep, slot_cap)
+    del shard
+    # group received items by local expert (the SSSS partition step)
+    valid = recv.valid_mask()
+    leid = (recv.keys ^ _FLIP).to(torch.int64) - me[:, None] * e_per
+    leid = torch.where(valid, leid.clamp(0, e_per - 1), e_per)
+    cap_e = int(capacity_factor * k * T / E) + 8
+    slot, kept = _group_by_expert(leid, e_per, cap_e)
+    kept &= valid
+    flat = torch.where(kept, leid * cap_e + slot, e_per * cap_e)
+    feat = recv.vals["feat"]
+    # items not kept all land in one dump slot, sliced off
+    buf = feat.new_zeros((P, e_per * cap_e + 1, D)).scatter_(
+        1, along_rows(flat, feat), feat)
+    buf = buf[:, :-1].reshape(P, e_per, cap_e, D)
+    up = p.up.reshape((ep, e_per) + tuple(p.up.shape[1:]))
+    gate = p.gate.reshape((ep, e_per) + tuple(p.gate.shape[1:]))
+    down = p.down.reshape((ep, e_per) + tuple(p.down.shape[1:]))
+    out = torch.stack([_expert_ffn(buf[r], up[i], gate[i], down[i])
+                       for r, i in enumerate(me_host)])
+    del buf
+    out = out.reshape(P, e_per * cap_e, D)
+    yitem = torch.gather(out, 1, along_rows(
+        flat.clamp(max=e_per * cap_e - 1), out))
+    yitem.masked_fill_(~kept[..., None], 0)
+    del out
+    # route items back to their origin PE
+    back = SortShard(keys=recv.keys,
+                     vals={"feat": yitem, "src": recv.vals["src"],
+                           "w": recv.vals["w"]},
+                     count=recv.count)
+    back_dest = torch.where(valid, recv.vals["org"], ep)
+    del recv
+    ret, drop2 = _alltoall_route(back, back_dest, ep, slot_cap)
+    del back
+    y = _combine(ret, T, k).to(x_blk.dtype).reshape(P, B, S_loc, D)
+    return y, aux, drop1 + drop2
+
+
+def _combine(ret, T: int, k: int) -> torch.Tensor:
+    """``y[t] = Σ feat · w`` over token t's returned items, in float32, in
+    the items' arrival order (the reference's ``y.at[src].add``): each
+    token's at most k items are ranked by arrival and added rank by rank,
+    starting from zero.  (P, T, D)."""
+    P, D = ret.keys.shape[0], ret.vals["feat"].shape[-1]
+    n = min(ret.capacity, T * k)            # the valid prefix is ≤ T·k long
+    valid = ret.valid_mask()[:, :n]
+    src = torch.where(valid, ret.vals["src"][:, :n], T)
+    contrib = ret.vals["feat"][:, :n].float() * ret.vals["w"][:, :n, None]
+    srt, order = torch.sort(src, dim=1, stable=True)
+    first = torch.searchsorted(srt, srt)
+    rank = torch.arange(n, device=src.device) - first
+    at = torch.where(srt < T, srt * k + rank, T * k)
+    items = contrib.new_zeros((P, T * k + 1, D)).scatter_(
+        1, along_rows(at, contrib),
+        torch.gather(contrib, 1, along_rows(order, contrib)))
+    items = items[:, :-1].reshape(P, T, k, D)
+    y = contrib.new_zeros((P, T, D))
+    for j in range(k):
+        y = y + items[:, :, j]
+    return y
+
+
+def _ep_layout(x, cfg, d: int, ep: int):
+    B, S, D = x.shape
+    E = cfg.n_experts
+    if B % d or S % ep or E % ep:
+        raise ValueError(f"B={B} S={S} E={E} not divisible by (d={d}, "
+                         f"ep={ep})")
+    return B, S, D
+
+
+def _ep_sim(x, p, cfg, d: int, ep: int, capacity_factor: float,
+            slot_factor: float):
+    """:func:`moe_ep_sim` with its per-PE results: (y (B, S, D), aux
+    (d·ep,), drops (d·ep,))."""
+    B, S, D = _ep_layout(x, cfg, d, ep)
+    # (B, S, D) → (d, ep, B/d, S/ep, D): batch over data rows, sequence
+    # over expert-parallel blocks, PE i of data row r at row r·ep + i
+    xb = x.reshape(d, B // d, ep, S // ep, D).movedim(2, 1)
+    xb = xb.reshape(d * ep, B // d, S // ep, D)
+    with comm.batched(d):
+        y, aux, drops = _ep_dispatch(xb, p, cfg, ep, capacity_factor,
+                                     slot_factor)
+    y = y.reshape(d, ep, B // d, S // ep, D).movedim(1, 2).reshape(B, S, D)
+    return y, aux, drops
+
+
+def moe_ep_sim(x, p, cfg, *, d: int = 1, ep: Optional[int] = None,
+               capacity_factor: float = 2.0, slot_factor: float = 2.0):
+    """EP dispatch over an emulated (d, ep) mesh: the batch splits into d
+    data rows, the sequence into ep expert-parallel blocks, and each row's
+    dispatch exchanges within its own ep PEs (``comm.batched(d)``).
+    Returns (y, aux) like the distributed path."""
+    ep = ep or cfg.n_experts
+    y, aux, _ = _ep_sim(x, p, cfg, d, ep, capacity_factor, slot_factor)
+    return y, aux.mean()
+
+
+def _mesh_block(mesh, data_axes, model_axis: str):
+    """(d, ep, this rank's data index, its model index) of a mesh whose
+    batch splits over ``data_axes`` (the first major)."""
+    from repro_torch.dist.sharding import mesh_sizes
+    sizes = mesh_sizes(mesh)
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    di = 0
+    for a in data_axes:
+        di = di * sizes[a] + coord[names.index(a)]
+    d = int(np.prod([sizes[a] for a in data_axes]))
+    return d, sizes[model_axis], di, coord[names.index(model_axis)]
+
+
+def _gather_whole(t, mesh, axes):
+    """Every rank's block ``t`` over ``axes`` (the first varying fastest),
+    concatenated: the whole result on every rank."""
+    with comm.distributed(mesh, axis=axes[0]):
+        return comm.gather_ranks(t.reshape(-1), axes)
+
+
+def moe_ep_shardmap(x, p, cfg, mesh, *, data_axes, model_axis="model",
+                    capacity_factor: float = 2.0, slot_factor: float = 2.0):
+    """EP dispatch on the ranks of ``mesh`` (a ``DeviceMesh``), SPMD: each
+    rank takes its block of x (batch over ``data_axes``, sequence over
+    ``model_axis``) and the experts of its model index, exchanges items
+    with the ranks of its model-axis slice, and returns the whole y.  Bit
+    for bit :func:`moe_ep_sim` at the mesh's (d, ep).  aux is the mean
+    over the model axis of data row 0 (the reference's ``out_specs
+    P(model_axis)`` reads one data slice)."""
+    data_axes = tuple([data_axes] if isinstance(data_axes, str)
+                      else data_axes)
+    d, ep, di, mi = _mesh_block(mesh, data_axes, model_axis)
+    B, S, D = _ep_layout(x, cfg, d, ep)
+    x_blk = x.reshape(d, B // d, ep, S // ep, D)[di, :, mi][None]
+    with comm.distributed(mesh, axis=model_axis):
+        y, aux, _ = _ep_dispatch(x_blk, p, cfg, ep, capacity_factor,
+                                 slot_factor)
+    axes = (model_axis,) + data_axes[::-1]
+    y = _gather_whole(y, mesh, axes).reshape(d, ep, B // d, S // ep, D)
+    aux = _gather_whole(aux, mesh, axes).reshape(d, ep)[0]
+    return y.movedim(1, 2).reshape(B, S, D), aux.mean()
+
+
+def moe_tp_shardmap(x, p, cfg, mesh, *, data_axes,
+                    capacity_factor: float = 2.0):
+    """TP layout: experts replicated with the FFN hidden dim split over
+    the ``model`` axis; each rank groups its data block locally, runs its
+    slice of every expert and the model axis sums the combined tokens
+    (B, S, D) (``comm.psum``, in rank order).  Returns the whole y on
+    every rank, and aux as :func:`moe_ep_shardmap` does."""
+    from types import SimpleNamespace
+    data_axes = tuple([data_axes] if isinstance(data_axes, str)
+                      else data_axes)
+    d, m, di, mi = _mesh_block(mesh, data_axes, "model")
+    B, S, D = x.shape
+    f = cfg.d_ff // m
+    if B % d or cfg.d_ff % m:
+        raise ValueError(f"B={B} d_ff={cfg.d_ff} not divisible by "
+                         f"(d={d}, model={m})")
+    cols = slice(mi * f, (mi + 1) * f)
+    part = SimpleNamespace(router=p.router, up=p.up[:, :, cols],
+                           gate=p.gate[:, :, cols], down=p.down[:, cols])
+    y, aux = moe_local(x.reshape(d, B // d, S, D)[di], part, cfg,
+                       capacity_factor=capacity_factor)
+    with comm.distributed(mesh, axis="model"):
+        y = comm.psum(y[None])[0]
+    axes = ("model",) + data_axes[::-1]
+    y = _gather_whole(y, mesh, data_axes[::-1]).reshape(B, S, D)
+    aux = _gather_whole(aux.reshape(1), mesh, axes).reshape(d, m)[0]
+    return y, aux.mean()
+
+
+def moe_apply(x, p, cfg, mesh=None, *, data_axes=("data",),
+              impl: Optional[str] = None):
+    impl = impl or cfg.moe_impl
+    if impl == "dense":
+        return moe_dense(x, p, cfg)
+    sizes = {}
+    if mesh is not None:
+        from repro_torch.dist.sharding import mesh_sizes
+        sizes = mesh_sizes(mesh)
+    if (impl == "sort" and "model" in sizes
+            and cfg.n_experts % sizes["model"] == 0
+            and x.shape[1] % sizes["model"] == 0):   # decode: S=1 →
+        return moe_ep_shardmap(x, p, cfg, mesh, data_axes=data_axes)
+    if (impl == "sort" and getattr(cfg, "moe_tp_fused", False)
+            and "model" in sizes):
+        return moe_tp_shardmap(x, p, cfg, mesh, data_axes=data_axes)
+    return moe_local(x, p, cfg)                          # local grouping

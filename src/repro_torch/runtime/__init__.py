@@ -6,7 +6,7 @@ the restart loop, the straggler watchdog and the fault policy
 
 The reference's training-stack runtime (``CheckpointManager``,
 ``plan_rescale``, ``RescalePlan``, ``rescale_state``) comes with the
-integration stack, ROADMAP queue 1 item 10."""
+training slice, ROADMAP queue 1 item 10b."""
 from .elastic import SortRescalePlan, plan_sort_rescale  # noqa: F401
 from .failures import (FaultPolicy, StepWatchdog,  # noqa: F401
                        flag_stragglers, run_with_restarts)

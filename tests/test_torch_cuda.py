@@ -674,3 +674,85 @@ def test_kernels_switched_off_raise_on_the_card(dev, off):
     assert launch_counts()["tile_sort"] > 0
     assert launch_counts()["partition_classify"] > 0
     assert _same_result(out, torch.from_numpy(np.sort(x)))
+
+
+# --- the model-serving stack (no kernel of its own: the card against the
+# port's CPU run, and length-balanced batching through the sort kernels) --
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llama3.2-1b",
+                                  "rwkv6-1.6b", "zamba2-2.7b",
+                                  "musicgen-large"])
+def test_model_decode_cuda_equals_cpu(dev, arch):
+    """Smoke variants in float32 (float32 caches): forward and four
+    decode steps on the card within 1e-4/1e-5 of the CPU's, tokens
+    equal."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)),
+                              dtype="float32")
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    r = np.random.default_rng(2)
+    if cfg.family == "audio":
+        x = {"embeds": torch.from_numpy(r.normal(size=(2, 256, cfg.d_model))
+                                        .astype(np.float32))}
+    else:
+        x = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab, (2, 256)))}
+    with torch.inference_mode():
+        lc, _ = T.forward(cpu, x, cfg)
+        lg, _ = T.forward(gpu, {k: v.to(dev) for k, v in x.items()}, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-5)
+        sc = T.init_decode_state(cfg, 2, 8, torch.float32, device="cpu")
+        sg = T.init_decode_state(cfg, 2, 8, torch.float32, device=dev)
+        inp = {k: v[:, :1] for k, v in x.items()}
+        for _ in range(4):
+            lc, sc = T.decode_step(cpu, sc, inp, cfg)
+            lg, sg = T.decode_step(gpu, sg, {k: v.to(dev)
+                                             for k, v in inp.items()}, cfg)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-5)
+            if cfg.family != "audio":
+                assert torch.equal(lg.cpu().argmax(-1), lc.argmax(-1))
+                inp = {"tokens": lc[:, -1].argmax(-1)[:, None]}
+
+
+def test_moe_ep_sim_on_the_card_is_deterministic(dev):
+    """The expert-parallel dispatch adds each token's items in a fixed
+    order (no atomics): two runs on the card are equal bit for bit, and
+    within 1e-4/1e-5 of the CPU's in float32."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.moe import MoE, moe_ep_sim
+    cfg = dataclasses.replace(smoke_variant(get_config(
+        "granite-moe-1b-a400m")), dtype="float32")
+    p = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, torch.float32, "cpu",
+            torch.Generator().manual_seed(3))
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(4))
+    want, _ = moe_ep_sim(x, p, cfg, d=2, ep=2)
+    pg = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, torch.float32, dev)
+    for name, t in p.named_parameters():
+        dict(pg.named_parameters())[name].data.copy_(t.data)
+    a, _ = moe_ep_sim(x.to(dev), pg, cfg, d=2, ep=2)
+    b, _ = moe_ep_sim(x.to(dev), pg, cfg, d=2, ep=2)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_length_balanced_batches_cuda_equals_cpu(dev):
+    """The batching's sort on the card launches the RAMS kernels and gives
+    the CPU's batches and waste bit for bit."""
+    from repro_torch.data.pipeline import length_balanced_batches
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(3)
+    lengths = np.minimum(32 + (rng.zipf(1.5, size=1 << 16) % 992), 1024)
+    reset_launch_counts()
+    got = length_balanced_batches(lengths, 64, p=16, algorithm="rams",
+                                  device=dev)
+    assert launch_counts()["tile_sort"] > 0
+    assert launch_counts()["partition_rank"] > 0
+    want = length_balanced_batches(lengths, 64, p=16, algorithm="rams",
+                                   device="cpu")
+    assert np.array_equal(got[0], want[0]) and got[1:] == want[1:]

@@ -345,3 +345,39 @@ def as_reference(r, out, info):
     assert np.array_equal(np.asarray(r["counts"]), np.asarray(info["counts"]))
     assert r["overflow"] == info["overflow"]
     assert r["algorithm"] == info["algorithm"]
+
+
+def moe_job(arch, dtype, x, params, layout, kw):
+    """The MoE dispatch on a (data, model) mesh of ``layout`` = (d, m)
+    ranks: ``moe_ep_shardmap`` and ``moe_tp_shardmap`` on the smoke
+    config of ``arch`` in ``dtype``, on every rank of the mesh (None on
+    the others): (y_ep, aux_ep, y_tp, aux_tp) as float32 numpy arrays and
+    the bits of y_ep."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), dtype=dtype)
+    dt = getattr(torch, dtype)
+    d, m = layout
+    mesh = make_mesh(np.arange(d * m).reshape(d, m), ("data", "model"))
+    if dist.get_rank() >= d * m:
+        return None
+    p = SimpleNamespace(**{k: torch.from_numpy(v).to(
+        torch.float32 if k == "router" else dt) for k, v in params.items()})
+    xt = torch.from_numpy(x).to(dt)
+    y_ep, aux_ep = moe.moe_ep_shardmap(xt, p, cfg, mesh, data_axes=("data",),
+                                       **kw)
+    y_tp, aux_tp = moe.moe_tp_shardmap(xt, p, cfg, mesh, data_axes=("data",))
+    # moe_apply on a mesh whose model axis divides E and S: the EP path
+    applied, _ = moe.moe_apply(xt, p, cfg, mesh)
+    default, _ = moe.moe_ep_shardmap(xt, p, cfg, mesh, data_axes=("data",))
+    return {"y_ep": y_ep.float().numpy(), "aux_ep": float(aux_ep),
+            "y_tp": y_tp.float().numpy(), "aux_tp": float(aux_tp),
+            "ep_bits": y_ep.view(torch.int16 if dt == torch.bfloat16
+                                 else torch.int32).numpy(),
+            "applied_is_ep": torch.equal(applied, default)}
