@@ -207,6 +207,26 @@ Phases, each fatal on failure (no phase catches its own error):
    against the CPU at p = 64, n = 2^20.  The ``kernels`` line gains the
    ``lbb`` rows (RAMS's kernels with the batching's launches).
    ``--model-only`` runs phases 1, 2 and 19 alone.
+20. the training stack (``repro_torch.launch.train``, ``optim``,
+   ``runtime.checkpoint``): (a) ``train`` of granite-moe-1b-a400m at full
+   size (bf16, remat ``full``, AdamW, batch 8 × seq 2048 from
+   ``TokenPipeline``) for 20 steps, a checkpoint every 10 and a crash
+   injected at step 15: each step's loss (finite), p50/p99 step ms
+   (host walls of an eager step), tokens/s and peak, the restart from
+   step 10 and ``latest_step()`` 20, the restored state equal bit for bit
+   to the saved leaves, and one step under ``torch.profiler`` (device
+   busy time, top operations, idle share); (b) the card against the CPU,
+   granite at full width and depth 2 in float32, batch 2 × seq 256, 3
+   steps: loss, lr, grad_norm and every leaf of the state within the CPU
+   tests' 1e-4/1e-5; (c) mixtral-8x22b at full width with Adafactor, its
+   depth cut where weights, gradients and optimizer state reckon past
+   40 GB, batch 1 × seq 4096, 3 steps: losses finite, peak, step ms; (d)
+   ``compressed_psum`` on the gradients of one full-width granite layer
+   (a row per PE, each from its own batch): the sim backend at p = 8 and
+   at p = 4 with the trace's wire bytes against float32's, and four gloo
+   ranks sharing the card equal to the sim at p = 4 bit for bit (the
+   chunks, and so the bits, depend on p).  Each part prints its seconds.
+   ``--train-only`` runs phases 1, 2 and 20 alone.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
@@ -389,6 +409,22 @@ MODEL_DIST_RANKS = 4
 MODEL_LBB_LOG_N, MODEL_LBB_P, MODEL_LBB_BATCH = 26, 256, 64
 MODEL_LBB_CHECK = (64, 20)
 MODEL_DEV = "cuda"          # phase 19 runs here (a CPU rehearsal sets "cpu")
+# phase 20: the training stack.  granite-moe-1b-a400m trained at full size
+# through a crash and a restart; the card against the CPU at full width
+# and depth 2 in float32; mixtral-8x22b's Adafactor at full width, its
+# depth cut where weights, gradients and optimizer state pass 40 GB; the
+# compressed gradient mean of one full-width granite layer, sim against
+# gloo ranks sharing the card
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
+TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 10, 15
+TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
+TRAIN_CHECK_STEPS = 3
+TRAIN_ADAFACTOR_ARCH = "mixtral-8x22b"
+TRAIN_ADAFACTOR_BATCH, TRAIN_ADAFACTOR_SEQ, TRAIN_ADAFACTOR_STEPS = 1, 4096, 3
+TRAIN_BYTES_LIMIT = 40e9
+TRAIN_COMPRESS_P, TRAIN_COMPRESS_RANKS, TRAIN_COMPRESS_SEQ = (8, 4), 4, 256
+TRAIN_DEV = "cuda"          # phase 20 runs here (a CPU rehearsal sets "cpu")
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -3571,6 +3607,429 @@ def model_phase(torch, np, card, psort, SortConfig, launch_counts,
     return lbb
 
 
+def train_bytes(cfg, L: int) -> int:
+    """The reckoned device bytes of ``cfg`` cut to L layers for training:
+    weights and gradients in the model's dtype (``param_count``, norms and
+    routers counted in it), and the optimizer state: AdamW's two float32
+    moments, or Adafactor's factored statistics (under 1 % of the
+    weights: each leaf's rows plus columns, reckoned as 1 % here)."""
+    import dataclasses
+    n = dataclasses.replace(cfg, n_layers=L).param_count()
+    opt = 8 * n if cfg.optimizer == "adamw" else n // 100
+    return 4 * n + opt
+
+
+def train_depth(cfg) -> int:
+    """The most layers whose reckoned training bytes stay under
+    TRAIN_BYTES_LIMIT (phase 19b's rule, for training)."""
+    L = cfg.n_layers
+    while L > 1 and train_bytes(cfg, L) > TRAIN_BYTES_LIMIT:
+        L -= 1
+    return L
+
+
+def train_log(lines):
+    """(step rows, restored steps) from ``train``'s log lines: each step's
+    loss, lr, grad norm and host ms, in the order they ran."""
+    rows, restored = [], []
+    for ln in lines:
+        m = re.match(r"\[train\] step (\d+) loss (\S+) lr (\S+) gnorm (\S+) "
+                     r"ms (\S+)", ln)
+        if m:
+            rows.append({"step": int(m[1]), "loss": float(m[2]),
+                         "lr": float(m[3]), "grad_norm": float(m[4]),
+                         "ms": float(m[5])})
+        m = re.match(r"\[train\] restored step (\d+)", ln)
+        if m:
+            restored.append(int(m[1]))
+    return rows, restored
+
+
+def step_stats(rows, tokens: int) -> dict:
+    """p50/p99 step ms and tokens/s over the steps after each attempt's
+    first (its warm-up)."""
+    import numpy as np
+    ms, prev = [], None
+    for r in rows:
+        if prev is not None and r["step"] == prev + 1:
+            ms.append(r["ms"])
+        prev = r["step"]
+    p50 = float(np.percentile(ms, 50))
+    return {"steps_timed": len(ms), "p50_ms": p50,
+            "p99_ms": float(np.percentile(ms, 99)),
+            "tok_per_s": tokens / (p50 / 1e3)}
+
+
+KERNEL_KINDS = (("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("scan", ("scan",)), ("reduction", ("reduce",)),
+                ("scatter/gather/index", ("scatter", "gather", "index")),
+                ("copy/cast", ("copy",)), ("elementwise", ("elementwise",)))
+
+
+def kernel_kinds(top) -> dict:
+    """Device time and launches of a profile's operations by kind (the
+    first kind whose word the kernel's name holds; "other" if none)."""
+    out = {}
+    for row in top:
+        kind = next((k for k, words in KERNEL_KINDS
+                     if any(w in row["name"] for w in words)), "other")
+        n, ms = out.get(kind, (0, 0.0))
+        out[kind] = (n + row["launches"], ms + row["ms"])
+    return {k: {"launches": n, "ms": ms} for k, (n, ms) in
+            sorted(out.items(), key=lambda kv: -kv[1][1])}
+
+
+def restored_equals_saved(torch, np, mgr, state, step) -> int:
+    """Restore checkpoint ``step`` into ``state`` and compare every leaf,
+    read back from the card, with the saved file bit for bit; returns the
+    leaves compared."""
+    from repro_torch.optim import tree as tr
+    state = mgr.restore(state, step=step)
+    d = mgr.dir / f"step_{step:09d}"
+    leaves = tr.leaves(state)
+    for k, leaf in enumerate(leaves):
+        arr, _ = tr.host_leaf(leaf)
+        saved = np.load(d / f"leaf_{k}.npy")
+        if arr.dtype != saved.dtype or not np.array_equal(arr, saved):
+            raise AssertionError(f"20a: restored leaf_{k} differs from the "
+                                 f"saved one")
+    return len(leaves)
+
+
+def train_full_phase(torch, np, card):
+    """20a: ``train`` of the full model through a crash and a restart,
+    then the restored state against the saved leaves and one step under
+    the profiler."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TR
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.data.pipeline import TokenPipeline
+    cfg = get_config(TRAIN_ARCH)
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final, losses = TR.train(
+            cfg, None, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
+            crash_at=TRAIN_CRASH_AT, logger=lines.append, device=TRAIN_DEV)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rows, restored = train_log(lines)
+        mgr = CheckpointManager(ckpt)
+        latest = mgr.latest_step()
+        ran = [r["step"] for r in rows]
+        want = list(range(TRAIN_CRASH_AT)) + list(range(
+            TRAIN_CKPT_EVERY, TRAIN_STEPS))
+        if final != TRAIN_STEPS or latest != TRAIN_STEPS \
+                or restored != [TRAIN_CKPT_EVERY] or ran != want \
+                or not all(math.isfinite(r["loss"]) for r in rows):
+            raise AssertionError(f"20a: final {final}, latest {latest}, "
+                                 f"restored {restored}, steps {ran}, "
+                                 f"losses {[r['loss'] for r in rows]}")
+        row = {"phase": "train_full", "arch": TRAIN_ARCH, "card": card,
+               "layers": cfg.n_layers, "params": cfg.param_count(),
+               "dtype": cfg.dtype, "remat": cfg.remat,
+               "optimizer": cfg.optimizer, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+               "ckpt_every": TRAIN_CKPT_EVERY, "crash_at": TRAIN_CRASH_AT,
+               "restored_from": restored, "latest_step": latest,
+               "reckoned_state_bytes": train_bytes(cfg, cfg.n_layers),
+               "max_memory_allocated": peak, "wall_s": wall,
+               **step_stats(rows, TRAIN_BATCH * TRAIN_SEQ),
+               "losses": [r["loss"] for r in rows],
+               "lr": [r["lr"] for r in rows],
+               "grad_norm": [r["grad_norm"] for r in rows],
+               "step_ms": [r["ms"] for r in rows],
+               "what": "host walls of eager steps, each ending with its "
+                       "loss on the host"}
+        emit(row)
+        torch.cuda.empty_cache()
+        state, step_fn, _ = TR.build_everything(cfg, None, TRAIN_BATCH,
+                                                TRAIN_SEQ, device=TRAIN_DEV)
+        t0 = time.perf_counter()
+        n_leaves = restored_equals_saved(torch, np, mgr, state,
+                                         TRAIN_STEPS)
+        restore_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in (
+            mgr.dir / f"step_{TRAIN_STEPS:09d}").glob("leaf_*.npy"))
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    box = [state]
+
+    def one():
+        box[0], metrics = step_fn(box[0], pipe.batch_at(int(box[0].step)))
+        float(metrics["loss"])
+    one()                                          # warm-up after restore
+    brk = device_breakdown(torch, one, top=1 << 20)
+    emit({"phase": "train_full_restore", "card": card,
+          "leaves_bit_for_bit": n_leaves, "checkpoint_bytes": ckpt_bytes,
+          "restore_and_compare_s": restore_s})
+    emit({"phase": "train_full_profile", "arch": TRAIN_ARCH, "card": card,
+          **brk, "top": brk["top"][:12], "by_kind": kernel_kinds(brk["top"]),
+          "idle_share": 1.0 - brk["device_busy_ms"] / brk["wall_ms"]})
+    del state, box, step_fn
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_card_vs_cpu(torch, np, card):
+    """20b: the full-width model at depth TRAIN_CHECK_DEPTH in float32,
+    built once on the CPU and copied to the card, TRAIN_CHECK_STEPS steps
+    on each from the same batches: metrics and every leaf of the state
+    within MODEL_F32_TOL."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.models.convert import train_state_leaves
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK_DEPTH, dtype="float32")
+    cpu, step, _ = TR.build_everything(cfg, None, TRAIN_CHECK_BATCH,
+                                       TRAIN_CHECK_SEQ, seed=20,
+                                       device="cpu")
+    model = copy.deepcopy(cpu.params).to(TRAIN_DEV)
+    gpu = S.TrainState(model, S.make_train_step(cfg, None)[1](model), 0)
+    pipe = TokenPipeline(cfg.vocab, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ)
+    metrics = []
+    for i in range(TRAIN_CHECK_STEPS):
+        batch = pipe.batch_at(i)
+        cpu, mc = step(cpu, batch)
+        gpu, mg = step(gpu, batch)
+        for k in ("loss", "lr", "grad_norm"):
+            c, g = float(mc[k]), float(mg[k])
+            metrics.append({"step": i, "metric": k, "cpu": c, "card": g})
+            if not math.isclose(g, c, rel_tol=MODEL_F32_TOL["rtol"],
+                                abs_tol=MODEL_F32_TOL["atol"]):
+                raise AssertionError(f"20b: step {i} {k}: card {g}, cpu {c}")
+    err, n = 0.0, 0
+    for a, b in zip(train_state_leaves(gpu), train_state_leaves(cpu)):
+        n += 1
+        if not np.allclose(a, b, **MODEL_F32_TOL):
+            raise AssertionError(f"20b: leaf {n - 1} of the state differs "
+                                 f"by {float(np.abs(a - b).max())}")
+        err = max(err, float(np.abs(a - b).max()))
+    row = {"phase": "train_cuda_vs_cpu", "arch": TRAIN_ARCH, "card": card,
+           "depth": TRAIN_CHECK_DEPTH, "dtype": "float32",
+           "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_CHECK_SEQ,
+           "steps": TRAIN_CHECK_STEPS, "leaves": n,
+           "max_abs_leaf_err": err, "metrics": metrics,
+           "tol": MODEL_F32_TOL}
+    emit(row)
+    del cpu, gpu, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_adafactor_phase(torch, np, card):
+    """20c: mixtral-8x22b at full width with Adafactor, its depth cut by
+    ``train_depth``, through ``train``: losses finite, peak, step ms."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TR
+    full = get_config(TRAIN_ADAFACTOR_ARCH)
+    L = train_depth(full)
+    cfg = dataclasses.replace(full, n_layers=L)
+    lines = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    TR.train(cfg, None, steps=TRAIN_ADAFACTOR_STEPS,
+             batch=TRAIN_ADAFACTOR_BATCH, seq=TRAIN_ADAFACTOR_SEQ,
+             log_every=1, logger=lines.append, device=TRAIN_DEV)
+    wall = time.perf_counter() - t0
+    rows, _ = train_log(lines)
+    if len(rows) != TRAIN_ADAFACTOR_STEPS or not all(
+            math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"20c: {lines}")
+    row = {"phase": "train_adafactor", "arch": TRAIN_ADAFACTOR_ARCH,
+           "card": card, "layers": L, "layers_published": full.n_layers,
+           "optimizer": cfg.optimizer, "dtype": cfg.dtype,
+           "remat": cfg.remat, "batch": TRAIN_ADAFACTOR_BATCH,
+           "seq": TRAIN_ADAFACTOR_SEQ, "params": cfg.param_count(),
+           "reckoned_bytes": train_bytes(full, L),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "wall_s": wall, "losses": [r["loss"] for r in rows],
+           "grad_norm": [r["grad_norm"] for r in rows],
+           "step_ms": [r["ms"] for r in rows],
+           "what": "host walls of eager steps; the first holds the "
+                   "warm-up"}
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def layer_grads(torch, np, p: int, directory, ranks: int):
+    """The gradients of block 0 of the full-width granite model cut to one
+    layer, one row per PE, each from its own batch: (p, …) tensors on the
+    card by leaf name; the first ``ranks`` rows are also saved as
+    ``<name>.npy`` in ``directory`` for the ranks."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import batch_on
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=1)
+    model = T.init_params(cfg, torch.Generator(device=TRAIN_DEV).manual_seed(
+        21), device=TRAIN_DEV).requires_grad_(True)
+    pipe = TokenPipeline(cfg.vocab, 1, TRAIN_COMPRESS_SEQ)
+    rows = {}
+    for pe in range(p):
+        model.zero_grad(set_to_none=True)
+        T.loss_fn(model, batch_on(pipe.batch_at(pe), TRAIN_DEV),
+                  cfg).backward()
+        for name, w in model.blocks[0].named_parameters():
+            rows.setdefault(name, []).append(w.grad.detach().clone())
+    del model
+    grads = {k: torch.stack(v) for k, v in rows.items()}
+    for k, v in grads.items():
+        np.save(Path(directory) / f"{k}.npy",
+                v[:ranks].float().cpu().numpy())
+    return grads
+
+
+def digests(np, tensors) -> dict:
+    """sha256 of each tensor's bytes, row by row (bit-for-bit identity)."""
+    import hashlib
+    out = {}
+    for k, t in tensors.items():
+        a = t.detach().cpu().contiguous().numpy()
+        out[k] = [hashlib.sha256(a[r].tobytes()).hexdigest()
+                  for r in range(a.shape[0])]
+    return out
+
+
+def compress_rank(rank, world, port, backend, jobs, results):
+    """One rank of phase 20d (spawned; every rank on the card): joins the
+    gloo group; for each job ("compress", (directory,)) runs
+    ``compressed_psum`` at p = world on its rows of the saved gradients
+    and answers the digests of its mean and residual rows, its wall and
+    peak."""
+    import datetime
+    import traceback
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        from repro_torch.core import comm
+        from repro_torch.optim import compressed_psum, init_error_feedback
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        results.put((rank, "ready", None))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        try:
+            _, (directory,) = job
+            grads = {f.stem: torch.from_numpy(np.load(f, mmap_mode="r")[
+                rank:rank + 1].copy()).to(TRAIN_DEV)
+                for f in sorted(Path(directory).glob("*.npy"))}
+            err = init_error_feedback(grads)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with comm.distributed(dist.group.WORLD):
+                out, new = compressed_psum(grads, err, "data", world)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            results.put((rank, "ok", {
+                "out": digests(np, out), "err": digests(np, new),
+                "wall_s": wall, "peak": torch.cuda.max_memory_allocated()}))
+            del grads, err, out, new
+            torch.cuda.empty_cache()
+        except BaseException:
+            results.put((rank, "error", traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+def train_compress_phase(torch, np, card):
+    """20d: ``compressed_psum`` of one full-width granite layer's
+    gradients: the sim backend at each p of TRAIN_COMPRESS_P on the card,
+    its wire bytes against an f32 all-reduce's and its error against the
+    exact mean; TRAIN_COMPRESS_RANKS gloo ranks sharing the card equal to
+    the sim at their p bit for bit."""
+    import tempfile
+    from repro_torch.core import comm
+    from repro_torch.optim import compressed_psum, init_error_feedback
+    world = TRAIN_COMPRESS_RANKS
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="train_grads_") as directory:
+        grads = layer_grads(torch, np, max(TRAIN_COMPRESS_P), directory,
+                            world)
+        numel = sum(v[0].numel() for v in grads.values())
+        ranks = DistRanks(world, "gloo", target=compress_rank)
+        try:
+            for p in TRAIN_COMPRESS_P:
+                g = {k: v[:p] for k, v in grads.items()}
+                err = init_error_feedback(g)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with comm.counting() as trace:
+                    out, new = compressed_psum(g, err, "data", p)
+                torch.cuda.synchronize()
+                sim_s = time.perf_counter() - t0
+                worst = max(float((out[k][0] - g[k].float().mean(0)).abs()
+                                  .max() / g[k].float().abs().max())
+                            for k in g)
+                row = {"phase": "train_compress", "card": card, "p": p,
+                       "leaves": len(g), "elements": numel,
+                       "wire_bytes_per_pe": trace.wire_bytes(),
+                       "f32_allreduce_bytes_per_pe": 4 * numel,
+                       "wire_ratio": trace.wire_bytes() / (4 * numel),
+                       "max_err_vs_exact_mean_rel": worst,
+                       "sim_wall_s": sim_s}
+                if p == world:
+                    answers = ranks.run(("compress", (directory,)))
+                    want_out, want_err = digests(np, out), digests(np, new)
+                    same = all(a["out"][k] == [want_out[k][r]]
+                               and a["err"][k] == [want_err[k][r]]
+                               for r, a in enumerate(answers) for k in g)
+                    row.update({
+                        "ranks": world, "gloo_equal_sim": same,
+                        "transport": "gloo through the host, processes "
+                                     "sharing one card",
+                        "rank_wall_s": [a["wall_s"] for a in answers],
+                        "rank_peak": [a["peak"] for a in answers]})
+                    if not same:
+                        raise AssertionError(f"20d: gloo ranks differ from "
+                                             f"the sim at p = {p}")
+                emit(row)
+                rows.append(row)
+                del out, new, err
+        finally:
+            ranks.close()
+    del grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_phase(torch, np, card):
+    """Phase 20: (a) full-size training through a crash, (b) card against
+    CPU, (c) Adafactor, (d) gradient compression; each part's seconds."""
+    t0 = time.perf_counter()
+    parts = {}
+    for part, fn in (("a", train_full_phase), ("b", train_card_vs_cpu),
+                     ("c", train_adafactor_phase),
+                     ("d", train_compress_phase)):
+        t = time.perf_counter()
+        fn(torch, np, card)
+        parts[part] = time.perf_counter() - t
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t0,
+          "part_seconds": parts})
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3623,6 +4082,14 @@ def main() -> int:
           "kernels": None if log is None else ptxas_report(log)})
 
     lap("1-2")
+    if "--train-only" in sys.argv[1:]:          # phase 20 alone
+        train_phase(torch, np, card)
+        lap("20")
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--model-only" in sys.argv[1:]:          # phase 19 alone
         model_phase(torch, np, card, psort, SortConfig, launch_counts,
                     reset_launch_counts)
@@ -3848,6 +4315,10 @@ def main() -> int:
     lbb_launches = model_phase(torch, np, card, psort, SortConfig,
                                launch_counts, reset_launch_counts)
     lap("19")
+
+    # --- 20. the training stack --------------------------------------------
+    train_phase(torch, np, card)
+    lap("20")
     emit({"phase": "seconds", "of": "all",
           "seconds": time.perf_counter() - start})
 

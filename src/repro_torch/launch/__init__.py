@@ -1,3 +1,3 @@
 """repro_torch.launch — entry points of the port: the sort service
-(``sort_serve``), the model-serving driver (``serve``) and its steps
-(``steps``)."""
+(``sort_serve``), model serving (``serve``), training (``train``) and
+their steps (``steps``)."""

@@ -12,6 +12,12 @@ zamba2's ``shared`` block, musicgen's ``heads`` and a tied embedding (no
 ``DecodeState``.  Both check that every weight and layer is covered, with
 its shape, and keep each weight's dtype (float32 norms and routers, the
 model's dtype elsewhere).
+
+``train_state_from_jax`` carries a whole training state across: the
+reference's ``TrainState`` (weights, AdamW or Adafactor state, step) as
+the port's, the model taking gradients and the moments of a stacked leaf
+held per layer (``optim.tree.Stacked``).  ``train_state_leaves`` is its
+inverse: the port's state as the reference's ``jax.tree.leaves``.
 """
 from __future__ import annotations
 
@@ -21,6 +27,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
+
+from repro_torch.launch.steps import TrainState
+from repro_torch.optim import AdafactorState, AdamWState
+from repro_torch.optim import tree as tr
 
 from .attention import KVCache
 from .ssm import MambaState, RWKVState
@@ -106,3 +116,46 @@ def decode_state_from_jax(cfg, state, device=None) -> DecodeState:
                   for c in layers(state.shared_caches, n_sh)]
         return DecodeState(caches, shared, pos)
     raise ValueError(cfg.family)
+
+
+def train_state_from_jax(cfg, tree, device=None):
+    """The port's ``TrainState`` of the reference's (its leaves as numpy
+    arrays): the model (``params_from_jax``, taking gradients), the
+    optimizer state over its ``param_tree`` and the step, on ``device``
+    (the card unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    model = params_from_jax(cfg, tree.params, device=dev).requires_grad_(True)
+    params = tr.param_tree(model)
+
+    def moments(sub, per_layer: bool):
+        flat = {tuple(k.split(".")): v for k, v in _flatten(sub).items()}
+        if set(flat) != set(params):
+            raise KeyError(f"optimizer leaves {sorted(set(flat) ^ set(params))}"
+                           f" differ from the weights'")
+        out = {}
+        for path in params:
+            t = as_tensor(flat[path]).to(dev)
+            out[path] = tr.Stacked(t.unbind(0)) if per_layer and isinstance(
+                params[path], tr.Stacked) else t
+        return out
+
+    opt = tree.opt
+    step = int(np.asarray(opt.step))
+    if hasattr(opt, "mu"):
+        opt = AdamWState(moments(opt.mu, True), moments(opt.nu, True), step)
+    else:
+        opt = AdafactorState(moments(opt.vr, False), moments(opt.vc, False),
+                             step)
+    return TrainState(model, opt, int(np.asarray(tree.step)))
+
+
+def train_state_leaves(state) -> list:
+    """The port's training state as the reference's ``jax.tree.leaves`` of
+    its ``TrainState``, numpy arrays on the host (block leaves stacked as
+    (L, …); bfloat16 given as float32, which holds it exactly)."""
+    out = []
+    for leaf in tr.leaves(state):
+        arr, logical = tr.host_leaf(leaf)
+        out.append(tr.as_tensor(arr, logical).float().numpy()
+                   if logical == "bfloat16" else arr)
+    return out

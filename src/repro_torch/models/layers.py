@@ -4,8 +4,8 @@ RoPE, MLPs, embeddings, and the random initialisation of weights.
 Plain functions on tensors; a module's weights are read by name (``p.up``,
 ``p.gate``, …), the keys of the reference's parameter dicts.  Dtypes
 follow the reference: norms in float32, activations and weights in the
-model's dtype.  ``cross_entropy`` comes with the training slice (ROADMAP
-item 10b)."""
+model's dtype.  Weights are made without gradients (serving); training
+turns them on (``model.requires_grad_(True)``)."""
 from __future__ import annotations
 
 import functools
@@ -78,12 +78,25 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token CE; logits (..., V) f32-accumulated, labels int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss.mean()
+
+
 # --- Initialisation ----------------------------------------------------------
 
 
 def weight(t: torch.Tensor) -> nn.Parameter:
-    """A weight of the serving stack (no gradient: training is item
-    10b)."""
+    """A weight, made without a gradient: serving runs under
+    ``torch.inference_mode()``, and training asks for gradients with
+    ``requires_grad_(True)``."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -15,10 +15,16 @@ A :class:`Transformer` holds an ``nn.ModuleList`` of blocks where the
 reference stacks (L, …) leaves and scans them; its weights carry the
 reference's parameter names (``blocks.3.attn.wq``, ``shared.mlp.up``,
 …), which ``convert.params_from_jax`` relies on.  Entry points run on the
-card unless the caller passes ``device="cpu"``.  ``loss_fn`` comes with the
-training slice (ROADMAP item 10b); a mesh reaches the MoE layers
-(``moe.moe_apply``) and is otherwise a layout hint the port does not need
-on one device.
+card unless the caller passes ``device="cpu"``.  A mesh reaches the MoE
+layers (``moe.moe_apply``) and is otherwise a layout hint the port does
+not need on one device.
+
+``cfg.remat`` applies where gradients are taken: ``"full"`` recomputes
+each block in the backward pass (``torch.utils.checkpoint``, hybrid's
+shared block included), as the reference's ``jax.checkpoint`` of its scan
+body saves nothing; ``"none"`` keeps every activation.  ``"dots"`` (save
+the matmuls' outputs) is set only by the reference's dry-run variants,
+which are not ported.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 
@@ -33,7 +40,8 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .attention import (Attention, KVCache, attention, decode_attention,
                         init_cache)
-from .layers import MLP, embed, init_rms, mlp, normal, rms_norm
+from .layers import MLP, cross_entropy, embed, init_rms, mlp, normal, \
+    rms_norm
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -162,18 +170,38 @@ def _inputs(model, inputs, cfg):
     return embed(inputs["tokens"], model.embed)
 
 
+def _remat(fn, mode: str):
+    """``fn`` recomputed in the backward pass under ``"full"`` (only where
+    autograd records it), as it is under ``"none"``."""
+    if mode == "dots":
+        raise NotImplementedError(
+            'remat="dots" is set by the dry-run variants '
+            "(repro/launch/dryrun.py), which are not ported")
+    if mode != "full":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
 def forward(model: Transformer, inputs: Dict[str, torch.Tensor], cfg,
             mesh=None, data_axes=("data",), last_only: bool = False):
     """Returns (logits, aux_loss).  inputs: {'tokens'} or {'embeds'}."""
     x = _inputs(model, inputs, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "audio", "moe"):
+        block = _remat(lambda h, p: _apply_attn_block(h, p, cfg, mesh,
+                                                      data_axes), cfg.remat)
         for p in model.blocks:
-            x, a = _apply_attn_block(x, p, cfg, mesh, data_axes)
+            x, a = block(x, p)
             aux = aux + a
     elif cfg.family == "ssm":
+        block = _remat(lambda h, p: _apply_rwkv_block(h, p, cfg), cfg.remat)
         for p in model.blocks:
-            x, a = _apply_rwkv_block(x, p, cfg)
+            x, a = block(x, p)
             aux = aux + a
     else:
         x, aux = _hybrid_forward(x, model, cfg, mesh, data_axes)
@@ -188,14 +216,25 @@ def _hybrid_forward(x, model, cfg, mesh, data_axes):
     every = cfg.attn_every
     n_groups = cfg.n_layers // every
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    mamba = _remat(lambda h, p: _apply_mamba_block(h, p, cfg), cfg.remat)
+    shared = _remat(lambda h, p: _apply_attn_block(h, p, cfg, mesh,
+                                                   data_axes), cfg.remat)
     for g in range(n_groups):
         for p in model.blocks[g * every:(g + 1) * every]:
-            x, _ = _apply_mamba_block(x, p, cfg)
-        x, aux = _apply_attn_block(x, model.shared, cfg, mesh, data_axes)
+            x, _ = mamba(x, p)
+        x, aux = shared(x, model.shared)
         aux_total = aux_total + aux
     for p in model.blocks[n_groups * every:]:
-        x, _ = _apply_mamba_block(x, p, cfg)
+        x, _ = mamba(x, p)
     return x, aux_total
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor], cfg,
+            mesh=None, data_axes=("data",)) -> torch.Tensor:
+    logits, aux = forward(model, batch, cfg, mesh, data_axes)
+    # audio: logits (B,S,Cb,V) vs labels (B,S,Cb); LM: (B,S,V) vs (B,S)
+    loss = cross_entropy(logits, batch["labels"])
+    return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
-"""repro_torch.runtime — the runtime pieces ``psort``'s fault lane needs:
-the restart loop, the straggler watchdog and the fault policy
-(``failures.py``), and the rescale plan of a sorting mesh
-(``elastic.py``).  They are the port's own copies of the reference's
-(``repro/runtime``), plain Python and numpy.
-
-The reference's training-stack runtime (``CheckpointManager``,
-``plan_rescale``, ``RescalePlan``, ``rescale_state``) comes with the
-training slice, ROADMAP queue 1 item 10b."""
-from .elastic import SortRescalePlan, plan_sort_rescale  # noqa: F401
+"""repro_torch.runtime — the runtime of the port (counterpart of
+``repro/runtime``), plain Python and numpy: the restart loop, the
+straggler watchdog and the fault policy (``failures.py``); atomic async
+checkpoints in the reference's layout (``checkpoint.py``); and the
+rescale plans of a training mesh and of a sorting mesh, with the restore
+of a training state onto the one device the port trains on
+(``elastic.py``; onto a mesh is ROADMAP item 10c)."""
+from .checkpoint import CheckpointManager  # noqa: F401
+from .elastic import (RescalePlan, SortRescalePlan,  # noqa: F401
+                      plan_rescale, plan_sort_rescale, rescale_state)
 from .failures import (FaultPolicy, StepWatchdog,  # noqa: F401
                        flag_stragglers, run_with_restarts)

@@ -1,5 +1,12 @@
-"""Elastic rescale of a sorting mesh after PE failures (the sort half of
-the reference's ``repro/runtime/elastic.py``, which is plain Python).
+"""Elastic scaling (counterpart of ``repro/runtime/elastic.py``): plan a
+topology change at restart time, for training and for sorting.
+
+:func:`plan_rescale` chooses the (pod, data, model) factorization of a new
+chip count for training (plain Python, the reference's copy), and
+:func:`rescale_state` restores the latest checkpoint onto the new
+topology.  The port trains on one device, so it restores onto that
+device; onto a mesh (the reference re-derives its shardings with
+``make_shardings``) is ROADMAP item 10c.
 
 :func:`plan_sort_rescale` gives the reduced topology a ``psort`` fault lane
 re-runs at: survivors rounded down to a power of two (the hypercube
@@ -9,7 +16,85 @@ while it fits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class RescalePlan:
+    old_shape: Dict[str, int]
+    new_shape: Dict[str, int]
+    grad_accum: int                 # steps to accumulate if batch ∤ data
+    notes: Tuple[str, ...]
+
+    @property
+    def n_chips(self) -> int:
+        return int(np.prod(list(self.new_shape.values())))
+
+
+def plan_rescale(old_shape: Dict[str, int], n_chips: int, cfg,
+                 global_batch: int) -> RescalePlan:
+    """Choose a (pod, data, model) factorization of ``n_chips``.
+
+    Keeps the model extent as close to the old one as the architecture's
+    shardable dims allow, puts the rest in (pod ×) data.
+    """
+    notes = []
+    model_old = old_shape.get("model", 1)
+    # largest model extent ≤ old that divides n_chips and the arch dims
+    divisors = [m for m in range(min(model_old, n_chips), 0, -1)
+                if n_chips % m == 0 and _model_divides(cfg, m)]
+    model = divisors[0] if divisors else 1
+    if model != model_old:
+        notes.append(f"model axis {model_old}→{model} "
+                     f"(arch dims / chip count)")
+    rest = n_chips // model
+    pod = old_shape.get("pod", 1)
+    if rest % pod != 0:
+        pod = 1
+        notes.append("pod axis collapsed to 1")
+    data = rest // pod
+    accum = 1
+    unit = pod * data
+    if global_batch % unit != 0:
+        # smallest accum with global_batch % (unit·accum) == 0; when the
+        # data extent itself does not divide the batch no such accum
+        # exists, so pad the batch up to the next multiple of unit
+        # (per-chip microbatch of 1, effective batch unit·accum).
+        accum = next((a for a in range(1, max(1, global_batch // unit) + 1)
+                      if global_batch % (unit * a) == 0), None)
+        if accum is None:
+            accum = -(-global_batch // unit)       # ceil: pad, never shrink
+            notes.append(f"grad accumulation ×{accum} (batch {global_batch} "
+                         f"∤ data extent {unit}; padded to {unit * accum})")
+        else:
+            notes.append(f"grad accumulation ×{accum} (batch {global_batch} "
+                         f"∤ data extent {unit})")
+    new = {"data": data, "model": model}
+    if pod > 1:
+        new = {"pod": pod, **new}
+    return RescalePlan(dict(old_shape), new, accum, tuple(notes))
+
+
+def _model_divides(cfg, m: int) -> bool:
+    dims = [cfg.d_ff, cfg.n_heads * cfg.head_dim]
+    if cfg.n_experts:
+        dims.append(cfg.n_experts * cfg.d_ff)
+    return all(d % m == 0 for d in dims if d)
+
+
+def rescale_state(state, state_like, cfg, new_mesh, ckpt_manager,
+                  step: Optional[int] = None):
+    """Restore ``state_like``-shaped state from the checkpoint (the
+    elastic restart path).  ``new_mesh`` None is the one device the port
+    trains on: the state restores in place there.  ``state`` (the state
+    of the old topology) is not read, as in the reference."""
+    if new_mesh is not None:
+        raise NotImplementedError(
+            "rescale_state onto a mesh re-derives the shardings with "
+            "make_shardings: ROADMAP item 10c, not ported yet")
+    return ckpt_manager.restore(state_like, step=step)
 
 
 @dataclasses.dataclass(frozen=True)

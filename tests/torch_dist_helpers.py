@@ -381,3 +381,25 @@ def moe_job(arch, dtype, x, params, layout, kw):
             "ep_bits": y_ep.view(torch.int16 if dt == torch.bfloat16
                                  else torch.int32).numpy(),
             "applied_is_ep": torch.equal(applied, default)}
+
+
+def compress_job(grads, errs, p):
+    """``compressed_psum`` on the first p ranks of the world (one PE
+    each, on the CPU): this rank's row of each (p, …) gradient and
+    residual in ``grads``/``errs`` (dicts of numpy arrays), and back its
+    mean gradients and new residuals (None on the ranks past p, which
+    only join the making of the group)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.optim import compressed_psum
+    group = dist.new_group(list(range(p)))
+    rank = dist.get_rank()
+    if rank >= p:
+        return None
+    with comm.distributed(group):
+        g = {k: torch.from_numpy(v[rank:rank + 1]) for k, v in grads.items()}
+        e = {k: torch.from_numpy(v[rank:rank + 1]) for k, v in errs.items()}
+        out, err = compressed_psum(g, e, "data", p)
+    return ({k: v.numpy() for k, v in out.items()},
+            {k: v.numpy() for k, v in err.items()})
