@@ -209,7 +209,8 @@ Phases, each fatal on failure (no phase catches its own error):
    ``--model-only`` runs phases 1, 2 and 19 alone.
 20. the training stack (``repro_torch.launch.train``, ``optim``,
    ``runtime.checkpoint``): (a) ``train`` of granite-moe-1b-a400m at full
-   size (bf16, remat ``full``, AdamW, batch 8 × seq 2048 from
+   width and 12 of its 24 layers (cut when phase 21 joined, for the
+   script's time limit; bf16, remat ``full``, AdamW, batch 8 × seq 2048 from
    ``TokenPipeline``) for 20 steps, a checkpoint every 10 and a crash
    injected at step 15: each step's loss (finite), p50/p99 step ms
    (host walls of an eager step), tokens/s and peak, the restart from
@@ -227,6 +228,27 @@ Phases, each fatal on failure (no phase catches its own error):
    ranks sharing the card equal to the sim at p = 4 bit for bit (the
    chunks, and so the bits, depend on p).  Each part prints its seconds.
    ``--train-only`` runs phases 1, 2 and 20 alone.
+21. serving on a mesh (``dist.sharding``, ``convert.shard_params``,
+   ``serve(cfg, mesh)``): four gloo ranks sharing the card on a (data 2,
+   model 2) ``DeviceMesh``, every weight sharded at rest as
+   ``make_shardings`` places it and gathered whole over ``model`` at its
+   block: (a) ``serve`` of granite-moe-1b-a400m at full size (bf16, batch
+   32, 6 steps over a 1024-slot cache): each rank's resident weight
+   bytes (equal to the slices ``make_shardings`` reckons), the bytes it
+   receives a step, its peaks while drawing and while serving, p50/p99
+   step ms and tok/s (walls of processes that share one card through
+   the host, not a multi-GPU speed), every rank's tokens equal and their
+   share equal to 19a's one-device serve at the same seed (reported: bf16
+   on 16 rows may round apart from 32); (b) the mesh against one device,
+   granite at full width and depth 2 in float32, 8 greedy steps: tokens
+   equal, logits within 1e-4/1e-5; (c) context-parallel prefill of
+   llama3.2-1b at full width and depth 2 in float32 over (2, 2048)
+   tokens in 1024-key blocks (query blocks over ``model``, rows over
+   ``data``): the last-token logits within 1e-4/1e-5 of one device's
+   ``forward`` on each rank's rows, the prefill step's tokens equal (the
+   whole-batch forward's distance is printed beside it: cuBLAS sums 4096
+   rows in another order than 2048).  ``--mesh-only`` runs phases 1, 2
+   and 21 alone.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
@@ -416,6 +438,9 @@ MODEL_DEV = "cuda"          # phase 19 runs here (a CPU rehearsal sets "cpu")
 # compressed gradient mean of one full-width granite layer, sim against
 # gloo ranks sharing the card
 TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_DEPTH = 12            # of granite's 24 layers: cut when phase 21
+                            # joined, to keep the script inside its 1200 s
+                            # (the full depth took ~180 s of phase 20)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
 TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 10, 15
 TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
@@ -425,6 +450,21 @@ TRAIN_ADAFACTOR_BATCH, TRAIN_ADAFACTOR_SEQ, TRAIN_ADAFACTOR_STEPS = 1, 4096, 3
 TRAIN_BYTES_LIMIT = 40e9
 TRAIN_COMPRESS_P, TRAIN_COMPRESS_RANKS, TRAIN_COMPRESS_SEQ = (8, 4), 4, 256
 TRAIN_DEV = "cuda"          # phase 20 runs here (a CPU rehearsal sets "cpu")
+# phase 21: serving on a mesh.  Four gloo ranks share the card on a (data
+# 2, model 2) mesh: granite-moe-1b-a400m served at full size (batch 32, 6
+# steps over a 1024-slot bf16 cache: a step takes ~3-4 s through the
+# host's gloo, so 16 would pass the script's time limit) with its weights
+# sharded at rest,
+# against 19a's one-device serve at the same seed; the mesh against one
+# device at full width and depth 2 in float32 (8 decode steps); and
+# context-parallel prefill of llama3.2-1b (dense: granite's prefill takes
+# the expert-parallel dispatch on a mesh, which drops other items than the
+# one-device layer, as the reference's does) at full width and depth 2 in
+# float32 on (2, 2048) tokens in 1024-key blocks
+MESH_RANKS, MESH_LAYOUT = 4, (2, 2)
+MESH_TOKENS, MESH_SEED = 6, 21
+MESH_CP_ARCH, MESH_CP_SHAPE = "llama3.2-1b", (2, 2048)
+MESH_SMOKE = False          # a CPU rehearsal sets True (smoke widths)
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -3697,15 +3737,16 @@ def restored_equals_saved(torch, np, mgr, state, step) -> int:
 
 
 def train_full_phase(torch, np, card):
-    """20a: ``train`` of the full model through a crash and a restart,
-    then the restored state against the saved leaves and one step under
-    the profiler."""
+    """20a: ``train`` of the model at full width and TRAIN_DEPTH layers
+    through a crash and a restart, then the restored state against the
+    saved leaves and one step under the profiler."""
+    import dataclasses
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.launch import train as TR
     from repro_torch.runtime import CheckpointManager
     from repro_torch.data.pipeline import TokenPipeline
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_DEPTH)
     lines = []
     with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt:
         torch.cuda.empty_cache()
@@ -3730,7 +3771,9 @@ def train_full_phase(torch, np, card):
                                  f"restored {restored}, steps {ran}, "
                                  f"losses {[r['loss'] for r in rows]}")
         row = {"phase": "train_full", "arch": TRAIN_ARCH, "card": card,
-               "layers": cfg.n_layers, "params": cfg.param_count(),
+               "layers": cfg.n_layers,
+               "layers_published": get_config(TRAIN_ARCH).n_layers,
+               "params": cfg.param_count(),
                "dtype": cfg.dtype, "remat": cfg.remat,
                "optimizer": cfg.optimizer, "batch": TRAIN_BATCH,
                "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
@@ -4030,6 +4073,325 @@ def train_phase(torch, np, card):
           "part_seconds": parts})
 
 
+def mesh_cfg(arch, smoke, **kw):
+    """The config of ``arch`` (its smoke variant in a rehearsal) with
+    ``kw`` replaced."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    cfg = get_config(arch)
+    return dataclasses.replace(smoke_variant(cfg) if smoke else cfg, **kw)
+
+
+def reckoned_bytes(cfg, mesh) -> int:
+    """The bytes of the slices of every weight that ``make_shardings``
+    gives this rank of ``mesh`` (from the shapes alone)."""
+    import torch
+    from repro_torch.dist.sharding import leaf_slices, make_shardings
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.tree import param_tree
+    tree = param_tree(Transformer(cfg, torch.device("meta")))
+    places = make_shardings(tree, cfg, mesh)
+    total = 0
+    for path, leaf in tree.items():
+        cut = leaf_slices(tuple(leaf.shape), places[path], mesh)
+        total += math.prod(len(range(*c.indices(n)))
+                           for c, n in zip(cut, leaf.shape)) * \
+            torch.empty((), dtype=leaf.dtype).element_size()
+    return total
+
+
+def mesh_serve_job(torch, np, mesh, dev, smoke):
+    """21a on one rank: ``serve`` of granite at full size on the mesh, its
+    tokens and stats, the weights it holds against the bytes
+    ``make_shardings`` reckons for it, its peaks (the whole call, and from
+    the first step on), its wall."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve as SV, steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import resident_bytes
+    cfg = mesh_cfg(MODEL_ARCH, smoke)
+    held = {}
+    init, make_step = T.init_params, S.make_serve_step
+
+    def keep(c, gen, device=None):
+        held["model"] = init(c, gen, device=device)
+        return held["model"]
+
+    def steps_start(c, m):               # serve's weights and state are made
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            held["peak_init"] = torch.cuda.max_memory_allocated()
+            held["before_steps"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        return make_step(c, m)
+
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    T.init_params, S.make_serve_step = keep, steps_start
+    try:
+        toks, stats = SV.serve(cfg, mesh, batch=MODEL_BATCH,
+                               tokens=MESH_TOKENS, cache_len=MODEL_CACHE,
+                               logger=lambda s: None, device=dev)
+    finally:
+        T.init_params, S.make_serve_step = init, make_step
+    model, m = held["model"], MESH_LAYOUT[1]
+    # a step gathers every split weight once, the tied embedding twice
+    # (the input and the head): the other model ranks' slices come in
+    received = sum(t.numel() * t.element_size() * (m - 1) * (
+        2 if n == "embed" and cfg.tie_embeddings else 1)
+        for n, t in model.named_parameters() if n in model.at_rest["dims"])
+    out = {"wall_s": time.perf_counter() - t0, "tokens": toks,
+           "weight_bytes_received_per_step": received,
+           "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+           "tok_per_s": stats["tok_per_s"], "steps_timed": stats["n"],
+           "resident_bytes": resident_bytes(held["model"]),
+           "reckoned_bytes": reckoned_bytes(cfg, mesh),
+           "whole_bytes": sum(t.numel() * t.element_size() for t in
+                              T.Transformer(cfg, torch.device(
+                                  "meta")).parameters())}
+    if dev == "cuda":
+        out.update(peak_init=held["peak_init"],
+                   before_steps=held["before_steps"],
+                   peak_steps=torch.cuda.max_memory_allocated())
+    del held
+    return out
+
+
+def mesh_decode_job(torch, np, mesh, dev, smoke, rank):
+    """21b on one rank: granite at full width and depth 2 in float32, 8
+    greedy decode steps on the mesh (weights sharded at rest, this rank's
+    rows of a float32 state); rank 0 first runs the same steps on one
+    device from a whole copy and answers both runs' logits and tokens."""
+    import copy
+    from repro_torch.dist.sharding import local_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import shard_params
+    c = mesh_cfg(MODEL_ARCH, smoke, n_layers=MODEL_CHECK_DEPTH,
+                 dtype="float32")
+    model = T.init_params(c, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev)
+    inp = decode_inputs(torch, np, c, MODEL_BATCH, MESH_SEED, dev)
+    out = {}
+    with torch.inference_mode():
+        if rank == 0:
+            st = T.init_decode_state(c, MODEL_BATCH, MODEL_CACHE,
+                                     torch.float32, device=dev)
+            x, one = inp, []
+            for _ in range(MODEL_CHECK_STEPS):
+                lg, st = T.decode_step(model, st, x, c)
+                x = {"tokens": lg[:, -1].argmax(-1)[:, None]}
+                one.append(lg.cpu())
+            out["one"] = one
+            model = copy.deepcopy(model)
+            del st
+        shard_params(model, c, mesh)
+        rows = local_rows(MODEL_BATCH, mesh)
+        st = T.init_decode_state(c, rows.stop - rows.start, MODEL_CACHE,
+                                 torch.float32, device=dev)
+        x, got = inp, []
+        t0 = time.perf_counter()
+        for _ in range(MODEL_CHECK_STEPS):
+            lg, st = T.decode_step(model, st, x, c, mesh, ("data",))
+            x = {"tokens": lg[:, -1].argmax(-1)[:, None]}
+            got.append(lg.cpu())
+        out["wall_s"] = time.perf_counter() - t0
+    out["mesh"] = got if rank == 0 else None
+    out["tokens"] = [g[:, -1].argmax(-1).numpy() for g in got]
+    return out
+
+
+def mesh_prefill_job(torch, np, mesh, dev, smoke, rank):
+    """21c on one rank: llama3.2-1b at full width and depth 2 in float32
+    with context-parallel attention and ``prefill_last_only``: the prefill
+    step on the mesh over (2, 2048) tokens (1024-key blocks: each model
+    index takes one query block, each data index one row).  Rank 0 first
+    runs ``forward`` on one device from a whole copy: on each data index's
+    rows (what a rank computes), on the whole batch, and on the whole
+    batch with the context-parallel attention of a (1, 1) layout."""
+    import copy
+    from repro_torch.dist.sharding import MeshLayout
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import shard_params
+    c = mesh_cfg(MESH_CP_ARCH, smoke, n_layers=MODEL_CHECK_DEPTH,
+                 dtype="float32", attn_context_parallel=True,
+                 prefill_last_only=True)
+    tok = torch.from_numpy(np.random.default_rng(MESH_SEED).integers(
+        0, c.vocab, size=MESH_CP_SHAPE)).to(dev)
+    model = T.init_params(c, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev)
+    out = {}
+    with torch.inference_mode():
+        if rank == 0:
+            def one(t, layout=None):
+                return T.forward(model, {"tokens": t}, c, layout,
+                                 last_only=True)[0].cpu()
+            rows = MESH_CP_SHAPE[0] // MESH_LAYOUT[0]
+            out["one_rows"] = torch.cat([one(t) for t in tok.split(rows)])
+            out["one_whole"] = one(tok)
+            out["one_cp"] = one(tok, MeshLayout(("data", "model"), (1, 1),
+                                                (0, 0)))
+            model = copy.deepcopy(model)
+        shard_params(model, c, mesh)
+        t0 = time.perf_counter()
+        lg, _ = T.forward(model, {"tokens": tok}, c, mesh, ("data",),
+                          last_only=True)
+        nxt = S.make_prefill_step(c, mesh)(model, {"tokens": tok})
+        out["wall_s"] = time.perf_counter() - t0
+    out["mesh"] = lg.cpu() if rank == 0 else None
+    out["tokens"] = nxt.cpu().numpy()
+    return out
+
+
+def mesh_rank(rank, world, port, backend, jobs, results):
+    """One rank of phase 21 (spawned; every rank on the card 0): joins the
+    gloo group, makes the (data 2, model 2) mesh, then runs each job
+    ("mesh", (part, device, smoke)) for part serve, decode or prefill."""
+    import datetime
+    import traceback
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        from repro_torch.dist.sharding import make_mesh
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        mesh = make_mesh(np.arange(world).reshape(MESH_LAYOUT),
+                         ("data", "model"))
+        results.put((rank, "ready", None))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        try:
+            _, (part, dev, smoke) = job
+            if part == "serve":
+                out = mesh_serve_job(torch, np, mesh, dev, smoke)
+            elif part == "decode":
+                out = mesh_decode_job(torch, np, mesh, dev, smoke, rank)
+            else:
+                out = mesh_prefill_job(torch, np, mesh, dev, smoke, rank)
+            results.put((rank, "ok", out))
+            del out
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+        except BaseException:
+            results.put((rank, "error", traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+def mesh_phase(torch, np, card):
+    """Phase 21: serving on a (data 2, model 2) mesh of four gloo ranks
+    sharing the card; (a) granite served at full size against 19a's
+    one-device serve at the same seed, (b) the mesh against one device in
+    float32 at depth 2, (c) context-parallel prefill against one device.
+    The walls are of four processes that share one card through the host,
+    not a multi-GPU speed.  Each part prints its seconds."""
+    from repro_torch.launch.serve import serve
+    dev, smoke = MODEL_DEV, MESH_SMOKE
+    t_all = time.perf_counter()
+    parts = {}
+    cfg = mesh_cfg(MODEL_ARCH, smoke)
+    # 19a's serve at the same seed, cut to MESH_TOKENS steps
+    one, one_stats = serve(cfg, None, batch=MODEL_BATCH, tokens=MESH_TOKENS,
+                           cache_len=MODEL_CACHE, logger=lambda s: None,
+                           device=dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    parts["one_device"] = time.perf_counter() - t_all
+    t = time.perf_counter()
+    ranks = DistRanks(MESH_RANKS, "gloo", target=mesh_rank)
+    parts["ranks_up"] = time.perf_counter() - t
+    try:
+        t = time.perf_counter()
+        a = ranks.run(("mesh", ("serve", dev, smoke)))
+        parts["a"] = time.perf_counter() - t
+        toks = a[0]["tokens"]
+        row = {"phase": "mesh_serve", "arch": cfg.name, "card": card,
+               "mesh": dict(zip(("data", "model"), MESH_LAYOUT)),
+               "ranks": MESH_RANKS,
+               "transport": "gloo through the host, four processes "
+                            "sharing one card",
+               "dtype": cfg.dtype, "batch": MODEL_BATCH,
+               "tokens": MESH_TOKENS, "cache_len": MODEL_CACHE,
+               "tokens_equal_on_every_rank": all(
+                   np.array_equal(r["tokens"], toks) for r in a),
+               "share_equal_to_one_device": float(np.mean(toks == one)),
+               "one_device_p50_ms": one_stats["p50_ms"],
+               "whole_bytes": a[0]["whole_bytes"]}
+        for k in ("resident_bytes", "reckoned_bytes",
+                  "weight_bytes_received_per_step", "peak_init",
+                  "before_steps", "peak_steps", "p50_ms", "p99_ms",
+                  "tok_per_s", "steps_timed", "wall_s"):
+            row[k] = [r.get(k) for r in a]
+        emit(row)
+        if not row["tokens_equal_on_every_rank"] or toks.shape != (
+                MESH_TOKENS * MODEL_BATCH,) or any(
+                r["resident_bytes"] != r["reckoned_bytes"] for r in a) \
+                or any(r["p50_ms"] is None for r in a):
+            raise AssertionError(f"21a: {row}")
+
+        t = time.perf_counter()
+        b = ranks.run(("mesh", ("decode", dev, smoke)))
+        parts["b"] = time.perf_counter() - t
+        err, same = 0.0, True
+        for lo, lm in zip(b[0]["one"], b[0]["mesh"]):
+            err = max(err, float((lo - lm).abs().max()))
+            if not torch.allclose(lm, lo, **MODEL_F32_TOL):
+                raise AssertionError(f"21b: mesh logits differ from one "
+                                     f"device's by {err}")
+            same &= bool(torch.equal(lo[:, -1].argmax(-1),
+                                     lm[:, -1].argmax(-1)))
+        same &= all(np.array_equal(np.stack(r["tokens"]),
+                                   np.stack(b[0]["tokens"])) for r in b)
+        row = {"phase": "mesh_vs_one_device", "arch": cfg.name,
+               "card": card, "depth": MODEL_CHECK_DEPTH, "dtype": "float32",
+               "steps": MODEL_CHECK_STEPS, "batch": MODEL_BATCH,
+               "tokens_equal": same, "max_abs_logit_err": err,
+               "tol": MODEL_F32_TOL, "wall_s": [r["wall_s"] for r in b]}
+        emit(row)
+        if not same:
+            raise AssertionError(f"21b: {row}")
+
+        t = time.perf_counter()
+        c = ranks.run(("mesh", ("prefill", dev, smoke)))
+        parts["c"] = time.perf_counter() - t
+        lm = c[0]["mesh"]
+        errs = {k: float((c[0][k] - lm).abs().max())
+                for k in ("one_rows", "one_whole", "one_cp")}
+        want = c[0]["one_rows"][:, -1].argmax(-1).numpy()
+        row = {"phase": "mesh_cp_prefill", "arch": MESH_CP_ARCH,
+               "card": card, "depth": MODEL_CHECK_DEPTH, "dtype": "float32",
+               "shape": list(MESH_CP_SHAPE), "block": 1024,
+               "logits_shape": list(lm.shape),
+               "max_abs_logit_err": errs["one_rows"],
+               "max_abs_logit_err_whole_batch": errs["one_whole"],
+               "max_abs_logit_err_one_device_cp": errs["one_cp"],
+               "tol": MODEL_F32_TOL,
+               "tokens_equal": all(np.array_equal(r["tokens"], want)
+                                   for r in c),
+               "wall_s": [r["wall_s"] for r in c]}
+        emit(row)
+        if not torch.allclose(lm, c[0]["one_rows"], **MODEL_F32_TOL) \
+                or not row["tokens_equal"]:
+            raise AssertionError(f"21c: {row}")
+    finally:
+        ranks.close()
+    emit({"phase": "mesh_done", "seconds": time.perf_counter() - t_all,
+          "part_seconds": parts})
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4085,6 +4447,14 @@ def main() -> int:
     if "--train-only" in sys.argv[1:]:          # phase 20 alone
         train_phase(torch, np, card)
         lap("20")
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--mesh-only" in sys.argv[1:]:           # phase 21 alone
+        mesh_phase(torch, np, card)
+        lap("21")
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -4319,6 +4689,10 @@ def main() -> int:
     # --- 20. the training stack --------------------------------------------
     train_phase(torch, np, card)
     lap("20")
+
+    # --- 21. serving on a mesh -------------------------------------------------
+    mesh_phase(torch, np, card)
+    lap("21")
     emit({"phase": "seconds", "of": "all",
           "seconds": time.perf_counter() - start})
 

@@ -63,6 +63,33 @@ def int_to_key(s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(s < 0, s ^ _PAD[s.dtype], s).view(dtype)
 
 
+_UNSIGNED = {torch.int32: torch.uint32, torch.int64: torch.uint64}
+
+
+def key_to_uint(x: torch.Tensor) -> torch.Tensor:
+    """The reference's order-preserving unsigned word of f32/f64/i32/i64/
+    u32/u64 keys: the sign-flipped word of :func:`key_to_int` with its
+    top bit flipped back, viewed as uint32/uint64 (the flip is done on the
+    int words: the CPU build has no arithmetic on unsigned dtypes)."""
+    if x.dtype in (torch.uint32, torch.uint64):
+        return x
+    s = key_to_int(x)
+    return (s ^ _FLIP[s.dtype]).view(_UNSIGNED[s.dtype])
+
+
+def uint_to_key(u: torch.Tensor, orig_dtype) -> torch.Tensor:
+    """Inverse of :func:`key_to_uint`; ``orig_dtype`` a torch dtype or
+    anything numpy reads as one."""
+    if not isinstance(orig_dtype, torch.dtype):
+        orig_dtype = torch.from_numpy(np.empty(0, np.dtype(orig_dtype))).dtype
+    if orig_dtype in (torch.uint32, torch.uint64):
+        return u
+    if orig_dtype not in _INTERNAL:
+        raise TypeError(f"unsupported key dtype {orig_dtype}")
+    it = _INTERNAL[orig_dtype]
+    return int_to_key(u.view(it) ^ _FLIP[it], orig_dtype)
+
+
 def resolve_device(device) -> torch.device:
     """``device``, or CUDA when it is None; never the CPU on its own."""
     if device is None:

@@ -1,5 +1,5 @@
-"""The device meshes of the distributed backend (counterpart of
-``sort_mesh`` in ``repro/dist/sharding.py``).
+"""Device meshes and the model stack's sharding rules (counterpart of
+``repro/dist/sharding.py``).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks
 of the default process group: each rank is one PE (one device in the
@@ -8,10 +8,30 @@ a collective over the whole default group, so every rank calls
 :func:`sort_mesh` with the same arguments, ranks the mesh leaves out
 included.  Meshes are cached per layout, so repeated calls (``psort``'s
 default meshes among them) reuse their groups.
+
+Axis roles, as the reference's: ``pod``/``data`` carry the batch,
+``model`` splits the weights, ``sort`` is the sorting meshes'.  The rules
+read only a mesh's axis names and sizes and, for a rank's own block, its
+coordinate, so a :class:`MeshLayout` (names, sizes, coordinate) stands
+for a ``DeviceMesh`` wherever no transport is needed: any rank's slices
+can be reckoned in one process.
+
+``make_shardings`` gives every leaf of a parameter tree its placements,
+one per mesh dimension (``Shard(i)`` or ``Replicate()`` of
+``torch.distributed.tensor``), by the reference's rule: the largest
+non-leading dimension that ``model`` divides, the first on a tie, over
+``model``; a ``Stacked`` leaf's dimension 0 is the layer stack, never
+split; ``cfg.ddp``, or no ``model`` > 1, replicates.  ``shard_act`` is
+the rule for which block of an activation a rank holds: its rows over
+the data axes when the batch divides them (every row otherwise), and
+``gather_blocks`` puts the blocks of every rank back together.  A mesh
+changes where data lives, never what is computed: the gathers only
+concatenate.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,3 +123,239 @@ def sort_mesh(p: Optional[int] = None, d: int = 1, *, axis: str = "sort",
         raise ValueError(f"requested mesh ({d}, {p}) needs {d * p} devices; "
                          f"have {len(devs)}")
     return make_mesh(np.array(devs[:d * p]).reshape(d, p), (data_axis, axis))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """A mesh as the sharding rules read it: its axis ``names``, their
+    ``sizes`` and one rank's ``coord`` (None: a rank outside it).  It
+    answers ``mesh_dim_names``, ``mesh`` and ``get_coordinate()`` as a
+    ``DeviceMesh`` does, and carries no process group."""
+    names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    coord: Optional[Tuple[int, ...]] = None
+
+    @property
+    def mesh_dim_names(self) -> Tuple[str, ...]:
+        return tuple(self.names)
+
+    @property
+    def mesh(self) -> torch.Tensor:
+        return torch.arange(int(np.prod(self.sizes))).reshape(self.sizes)
+
+    def get_coordinate(self) -> Optional[List[int]]:
+        return None if self.coord is None else list(self.coord)
+
+    @classmethod
+    def of_rank(cls, names, sizes, rank: int) -> "MeshLayout":
+        """Rank ``rank`` of the row-major layout ``sizes``."""
+        return cls(tuple(names), tuple(int(v) for v in sizes), tuple(
+            int(v) for v in np.unravel_index(rank, tuple(sizes))))
+
+
+def data_axes_of(mesh) -> Tuple[str, ...]:
+    """Mesh axes that carry batch parallelism, outermost first."""
+    if mesh is None:
+        return ()
+    sizes = mesh_sizes(mesh)
+    return tuple(a for a in ("pod", "data") if a in sizes)
+
+
+def _size(sizes: Dict[str, int], axes) -> int:
+    return int(np.prod([sizes[a] for a in axes])) if axes else 1
+
+
+def batch_axes_of(mesh, cfg=None, batch: Optional[int] = None
+                  ) -> Tuple[str, ...]:
+    """Axes the batch dimension shards over.  Under ``cfg.ddp`` the model
+    axis joins the batch axes (weights are replicated, so every rank can
+    take a batch slice).  Axes are dropped innermost-first until ``batch``
+    divides the axis product."""
+    if mesh is None:
+        return ()
+    sizes = mesh_sizes(mesh)
+    axes = list(data_axes_of(mesh))
+    if cfg is not None and getattr(cfg, "ddp", False) and "model" in sizes:
+        axes.append("model")
+    if batch is not None:
+        while axes and batch % _size(sizes, axes) != 0:
+            axes.pop()
+    return tuple(axes)
+
+
+def act_axes(mesh, batch: int, axes: Optional[Sequence[str]] = None
+             ) -> Tuple[str, ...]:
+    """The axes :func:`shard_act` splits a batch of ``batch`` rows over:
+    ``axes`` as given, by default the data axes when the batch divides
+    them, else none."""
+    if mesh is None:
+        return ()
+    if axes is None:
+        axes = data_axes_of(mesh)
+        if batch % _size(mesh_sizes(mesh), axes):
+            axes = ()
+    return tuple(axes)
+
+
+def act_spec(shape, mesh, seq_axis: Optional[str] = None,
+             d_axis: Optional[str] = None,
+             axes: Optional[Sequence[str]] = None) -> List[Tuple[str, ...]]:
+    """The reference's ``PartitionSpec`` of a constrained activation
+    (``shard_act``), as the axes of each dimension (() where whole)."""
+    spec: List[Tuple[str, ...]] = [act_axes(mesh, shape[0], axes)] + [
+        ()] * (len(shape) - 1)
+    if seq_axis is not None and len(shape) >= 3:
+        spec[1] = (seq_axis,)
+    if d_axis is not None:
+        spec[-1] = (d_axis,)
+    return spec
+
+
+def local_rows(batch: int, mesh, axes: Optional[Sequence[str]] = None
+               ) -> slice:
+    """The rows of a batch of ``batch`` this rank holds under
+    :func:`shard_act` (every row without a mesh)."""
+    if mesh is None:
+        return slice(0, batch)
+    return block_slices((batch,), [act_axes(mesh, batch, axes)], mesh)[0]
+
+
+def mesh_coord(mesh) -> Dict[str, int]:
+    """This rank's index along each axis of ``mesh``, by name."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"this rank is not in the mesh "
+                         f"{mesh.mesh.tolist()}")
+    return dict(zip(mesh.mesh_dim_names, (int(c) for c in coord)))
+
+
+def block_slices(shape, spec, mesh) -> Tuple[slice, ...]:
+    """This rank's block of an array of ``shape`` laid out as ``spec``
+    (the axes of each dimension, the first major): dimension i cut into
+    the product of its axes' sizes, the block at this rank's coordinate
+    along them.  Each split dimension must divide."""
+    sizes, coord = mesh_sizes(mesh), mesh_coord(mesh)
+    out = []
+    for n, axes in zip(shape, spec):
+        parts, at = 1, 0
+        for a in axes:
+            parts, at = parts * sizes[a], at * sizes[a] + coord[a]
+        if n % parts:
+            raise ValueError(f"dimension {n} of {tuple(shape)} does not "
+                             f"split over {tuple(axes)} ({parts} blocks)")
+        out.append(slice(at * (n // parts), (at + 1) * (n // parts)))
+    return tuple(out)
+
+
+def shard_act(x: torch.Tensor, mesh, seq_axis: Optional[str] = None,
+              d_axis: Optional[str] = None,
+              axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """This rank's block of an activation ``(B, S, ..., D)`` in the
+    reference's layout: its rows over ``axes`` (default: the data axes
+    when the batch divides them, else every row); ``seq_axis``/``d_axis``
+    split dims 1 / -1.  No mesh, or fewer than two dimensions: ``x``."""
+    if mesh is None or x.ndim < 2:
+        return x
+    return x[block_slices(x.shape, act_spec(x.shape, mesh, seq_axis, d_axis,
+                                            axes), mesh)]
+
+
+def _rule(shape, model: int, ddp: bool) -> Optional[int]:
+    """The dimension the reference's ``make_shardings`` splits over
+    ``model``, or None."""
+    if model > 1 and not ddp and len(shape) >= 2:
+        cands = [i for i in range(1, len(shape))
+                 if shape[i] >= model and shape[i] % model == 0]
+        if cands:
+            return max(cands, key=lambda i: shape[i])
+    return None
+
+
+def make_shardings(tree, cfg, mesh):
+    """The placements of every leaf of a parameter or optimizer tree on
+    ``mesh``: a tuple with one ``Shard(i)``/``Replicate()`` per mesh
+    dimension, ``i`` a dimension of the leaf's reference shape ((L, …) for
+    a ``Stacked`` leaf).  ``tree`` is a module (its ``param_tree``) or a
+    tree of anything with a shape; no mesh gives a tree of None."""
+    from torch import nn
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.optim.tree import map_leaves, param_tree
+    if isinstance(tree, nn.Module):
+        tree = param_tree(tree)
+    if mesh is None:
+        return map_leaves(lambda _: None, tree)
+    sizes = mesh_sizes(mesh)
+    ddp = bool(getattr(cfg, "ddp", False)) if cfg is not None else False
+
+    def rule(leaf):
+        dim = _rule(tuple(getattr(leaf, "shape", np.shape(leaf))),
+                    sizes.get("model", 1), ddp)
+        return tuple(Shard(dim) if a == "model" and dim is not None
+                     else Replicate() for a in sizes)
+
+    return map_leaves(rule, tree)
+
+
+def placement_spec(placements, mesh, ndim: int) -> List[Tuple[str, ...]]:
+    """Placements as the axes of each of ``ndim`` dimensions (the
+    reference's ``PartitionSpec``, () where whole)."""
+    spec: List[Tuple[str, ...]] = [()] * ndim
+    for a, pl in zip(mesh_sizes(mesh), placements):
+        if pl.is_shard():
+            spec[pl.dim] = spec[pl.dim] + (a,)
+    return spec
+
+
+def leaf_slices(shape, placements, mesh) -> Tuple[slice, ...]:
+    """This rank's slice of a leaf of ``shape`` under ``placements``."""
+    return block_slices(shape, placement_spec(placements, mesh, len(shape)),
+                        mesh)
+
+
+def _all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """(size of ``axis``,) + t.shape: every rank's ``t`` along ``axis``
+    (equal shapes), in axis order, carried as bytes by the port's
+    transport (``comm.gather_pes``, unrecorded)."""
+    from repro_torch.core import comm
+    buf = t.contiguous().view(torch.uint8).reshape(1, -1)
+    with comm.distributed(mesh, axis=axis):
+        out = comm.gather_pes(buf)
+    return out.view(t.dtype).reshape((out.shape[0],) + tuple(t.shape))
+
+
+def gather_blocks(t: torch.Tensor, mesh, axes: Sequence[str],
+                  dim: int = 0) -> torch.Tensor:
+    """Every rank's block ``t`` across ``axes`` (the first major, as in a
+    spec) concatenated along ``dim``: the whole of what :func:`shard_act`
+    or :func:`leaf_slices` cut, on every rank.  Exact: it only copies."""
+    for a in reversed(tuple(axes)):
+        if mesh_sizes(mesh)[a] == 1:
+            continue
+        g = _all_gather(t, mesh, a)                  # (n,) + t.shape
+        t = g.movedim(0, dim).flatten(dim, dim + 1)
+    return t
+
+
+def gather_model(shards: Sequence[torch.Tensor], dims: Sequence[int],
+                 mesh, axis: str = "model") -> List[torch.Tensor]:
+    """Each of ``shards`` whole: every rank's shard along ``axis``
+    concatenated along its dimension in ``dims``, all of them in one
+    gather of their bytes (each padded to 16 bytes)."""
+    if not shards:
+        return []
+    nbytes = [t.numel() * t.element_size() for t in shards]
+    pads = [-(-n // 16) * 16 for n in nbytes]
+    buf = shards[0].new_empty(sum(pads), dtype=torch.uint8)
+    off = 0
+    for t, n, pad in zip(shards, nbytes, pads):
+        buf[off:off + n] = t.contiguous().view(torch.uint8).reshape(-1)
+        off += pad
+    g = _all_gather(buf, mesh, axis)                 # (m, total bytes)
+    del buf
+    out, off = [], 0
+    for t, n, pad, d in zip(shards, nbytes, pads, dims):
+        part = g[:, off:off + n].view(t.dtype).reshape(
+            (g.shape[0],) + tuple(t.shape))
+        out.append(part.movedim(0, d).flatten(d, d + 1))
+        off += pad
+    return out

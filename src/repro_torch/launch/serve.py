@@ -1,13 +1,22 @@
 """Batched serving driver (counterpart of ``repro/launch/serve.py``):
 prefill-free token generation against a KV cache / recurrent state, with
 request batching and per-step latency stats.  It runs on the card unless
-the caller passes ``device="cpu"``; serving on a mesh is ROADMAP item
-10c.
+the caller passes ``device="cpu"``.
+
+On a ``(data, model)`` mesh of the ranks of a process group, ``serve`` is
+SPMD: every rank draws the same weights from the seed and keeps its
+slices of them (``convert.shard_params``), holds its rows of the decode
+state, and returns the same tokens, those of one device.  ``--mesh d,m``
+joins the group ``torchrun`` describes (gloo for ``--device cpu``), as
+the query-serving CLI does; ranks sharing one card are gloo ranks
+spawned by the caller (``chip_smoke.py`` phase 21).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --smoke --tokens 64 --batch 8
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-1b-a400m
+  PYTHONPATH=src torchrun --nproc-per-node=8 -m repro_torch.launch.serve \\
+      --arch granite-moe-1b-a400m --smoke --mesh 2,4 --device cpu
 """
 from __future__ import annotations
 
@@ -19,12 +28,12 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.types import resolve_device
+from repro_torch.dist.sharding import (local_rows, make_mesh, mesh_sizes,
+                                       world_ranks)
 from repro_torch.launch import steps as S
-from repro_torch.launch.sort_serve import latency_stats
+from repro_torch.launch.sort_serve import _join_ranks, latency_stats
 from repro_torch.models import transformer as T
-
-_MESH = ("serving on a mesh (make_shardings, shard_act, serve --mesh) is "
-         "ROADMAP item 10c, not ported yet")
+from repro_torch.models.convert import shard_params
 
 
 def next_token_input(nxt, batch: int) -> dict:
@@ -47,14 +56,20 @@ def serve(cfg, mesh=None, *, batch: int, tokens: int, cache_len: int = 256,
     """Generate ``tokens`` steps for ``batch`` sequences from random
     weights drawn with ``seed``; returns (tokens (steps·batch,) or, audio,
     (steps·batch, codebooks), latency stats).  Each step's clock stops
-    once its tokens are on the host."""
+    once its tokens are on the host.  On a mesh every rank of the process
+    group calls it alike and gets the whole tokens; the mesh must hold
+    every rank of the group."""
     if mesh is not None:
-        raise NotImplementedError(_MESH)
+        ranks = int(np.prod(list(mesh_sizes(mesh).values())))
+        if ranks != world_ranks():
+            raise ValueError(f"a mesh of {ranks} ranks in a process group "
+                             f"of {world_ranks()}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = T.init_params(cfg, gen, device=dev)
-    dstate = T.init_decode_state(cfg, batch, cache_len, torch.bfloat16,
-                                 device=dev)
+    model = shard_params(T.init_params(cfg, gen, device=dev), cfg, mesh)
+    rows = local_rows(batch, mesh)
+    dstate = T.init_decode_state(cfg, rows.stop - rows.start, cache_len,
+                                 torch.bfloat16, device=dev)
     step = S.make_serve_step(cfg, mesh)
 
     r = np.random.default_rng(seed)
@@ -100,12 +115,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MESH)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    return serve(cfg, None, batch=args.batch, tokens=args.tokens,
+    mesh = None
+    if args.mesh:
+        dd, mm = (int(x) for x in args.mesh.split(","))
+        _join_ranks(args.device)
+        if dd * mm > 1 or world_ranks():
+            mesh = make_mesh(np.arange(dd * mm).reshape(dd, mm),
+                             ("data", "model"))
+    return serve(cfg, mesh, batch=args.batch, tokens=args.tokens,
                  device=args.device)
 
 

@@ -3,7 +3,9 @@
 ``abstract_state`` and ``sharded_specs`` feed the reference's XLA dry-run
 and wait with it.
 
-The train step runs on one device (the model's): a mesh is ROADMAP item
+The serve and prefill steps run on a mesh too (SPMD on its ranks, the
+batch's rows over its data axes: ``models.transformer``); the train step
+runs on one device (the model's): training on a mesh is ROADMAP item
 10c.  It takes the reference's step: the loss and its gradients, the
 optimizer's update of the weights and moments (in place), and the
 metrics ``loss``, ``lr`` and ``grad_norm`` (the square root of the
@@ -15,6 +17,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import data_axes_of
 from repro_torch.models import transformer as T
 from repro_torch.optim import cosine_schedule, make_optimizer
 from repro_torch.optim.tree import Stacked, layers, param_tree
@@ -76,8 +79,11 @@ def make_train_step(cfg, mesh, *, peak_lr: float = 3e-4, warmup: int = 200,
 
 
 def make_serve_step(cfg, mesh):
+    dax = data_axes_of(mesh) if mesh is not None else ("data",)
+
     def serve_step(model, dstate, inputs):
-        logits, new_state = T.decode_step(model, dstate, inputs, cfg, mesh)
+        logits, new_state = T.decode_step(model, dstate, inputs, cfg, mesh,
+                                          dax)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return nxt, new_state
 
@@ -85,8 +91,10 @@ def make_serve_step(cfg, mesh):
 
 
 def make_prefill_step(cfg, mesh):
+    dax = data_axes_of(mesh) if mesh is not None else ("data",)
+
     def prefill_step(model, inputs):
-        logits, _ = T.forward(model, inputs, cfg, mesh,
+        logits, _ = T.forward(model, inputs, cfg, mesh, dax,
                               last_only=getattr(cfg, "prefill_last_only",
                                                 False))
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)

@@ -7,8 +7,9 @@ The chunked path keeps a (B, H, block, block) score block instead of the
 blocks at or before it with a running (max, denominator), as the
 reference's ``lax.map`` over query blocks and ``lax.scan`` over key blocks
 do, masked steps included.  ``banded`` scans only the key blocks of the
-sliding-window band.  Plain torch, as the reference is plain ``jnp``; the
-context-parallel path needs a mesh (ROADMAP item 10c).
+sliding-window band.  On a mesh with ``cfg.attn_context_parallel``,
+``_attend_cp`` splits the query blocks over ``model``.  Plain torch, as
+the reference is plain ``jnp``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+
+from repro_torch.dist.sharding import gather_blocks, mesh_coord, mesh_sizes
 
 from .layers import apply_rope, init_rms, normal, rms_norm
 
@@ -62,8 +65,10 @@ def _repeat_kv(k, n_rep: int):
 
 
 def attention(x: torch.Tensor, p, cfg, *, block: int = 1024,
-              banded: Optional[bool] = None, mesh=None) -> torch.Tensor:
-    """Causal self-attention for prefill.  x: (B, S, D)."""
+              banded: Optional[bool] = None, mesh=None,
+              batch_axes=()) -> torch.Tensor:
+    """Causal self-attention for prefill.  x: (B, S, D), on a mesh this
+    rank's rows, split over ``batch_axes``."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.arange(S, device=x.device)[None, :]
@@ -74,14 +79,58 @@ def attention(x: torch.Tensor, p, cfg, *, block: int = 1024,
 
     if getattr(cfg, "attn_context_parallel", False) and mesh is not None \
             and S > block:
-        raise NotImplementedError(
-            "context-parallel attention (_attend_cp) shards query blocks "
-            "over a mesh: ROADMAP item 10c")
-    if S <= block:
+        out = _attend_cp(q, k, v, H // KV, window, block, mesh, batch_axes)
+    elif S <= block:
         out = _attend_dense(q, k, v, H // KV, window)
     else:
         out = _attend_chunked(q, k, v, H // KV, window, block, banded)
     return out.reshape(B, S, H * hd) @ p.wo
+
+
+def _attend_cp(q, k, v, n_rep, window, block, mesh, batch_axes=()):
+    """Context-parallel attention (the reference's ``_attend_cp``): this
+    rank's query blocks, the ``nq / model`` of its ``model`` index when
+    ``model`` divides nq (and does not already split the rows), else all
+    of them, against K and V whole, in one online-softmax pass over every
+    key block with the causal and window masks; the output gathered over
+    ``model``.  q: (B, S, H, hd) of this rank's rows."""
+    B, S, H, hd = q.shape
+    nq = S // block
+    m = mesh_sizes(mesh).get("model", 1)
+    split = m > 1 and nq % m == 0 and "model" not in batch_axes
+    n_loc = nq // m if split else nq
+    lo = mesh_coord(mesh)["model"] * n_loc if split else 0
+    qb = q.reshape(B, nq, block, H, hd)[:, lo:lo + n_loc]
+    ar = torch.arange(block, device=q.device)
+    qpos = (lo + torch.arange(n_loc, device=q.device))[:, None] * block \
+        + ar[None, :]                                   # (n_loc, block)
+    acc = torch.zeros((B, n_loc, block, H, hd), dtype=torch.float32,
+                      device=q.device)
+    m_run = torch.full((B, n_loc, H, block), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    denom = torch.zeros((B, n_loc, H, block), dtype=torch.float32,
+                        device=q.device)
+    for kj in range(nq):
+        kb = _repeat_kv(k[:, kj * block:(kj + 1) * block], n_rep)
+        vb = _repeat_kv(v[:, kj * block:(kj + 1) * block], n_rep)
+        s = torch.einsum("bnqhd,bkhd->bnhqk", qb, kb).float()
+        s = s * (1.0 / math.sqrt(hd))
+        kpos = kj * block + ar
+        mask = kpos[None, None, :] <= qpos[:, :, None]
+        if window:
+            mask &= kpos[None, None, :] > qpos[:, :, None] - window
+        s = torch.where(mask[None, :, None], s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        scale = torch.exp(m_run - m_new)
+        pr = torch.exp(s - m_new[..., None])
+        denom = denom * scale + pr.sum(dim=-1)
+        acc = acc * scale.transpose(2, 3)[..., None] + torch.einsum(
+            "bnhqk,bkhd->bnqhd", pr.to(qb.dtype), vb).float()
+        m_run = m_new
+    out = acc / torch.clamp(denom.transpose(2, 3)[..., None], min=1e-30)
+    if split:
+        out = gather_blocks(out, mesh, ("model",), dim=1)
+    return out.reshape(B, S, H, hd).to(q.dtype)
 
 
 def _attend_dense(q, k, v, n_rep, window):

@@ -13,6 +13,12 @@ zamba2's ``shared`` block, musicgen's ``heads`` and a tied embedding (no
 its shape, and keep each weight's dtype (float32 norms and routers, the
 model's dtype elsewhere).
 
+On a mesh (``params_from_jax(..., mesh=...)``, or ``shard_params`` of a
+model drawn with a seed) each rank keeps only its slice of every weight,
+as ``dist.sharding.make_shardings`` places the reference's leaf: the
+weights sharded at rest, gathered whole at use by ``forward`` and
+``decode_step``.
+
 ``train_state_from_jax`` carries a whole training state across: the
 reference's ``TrainState`` (weights, AdamW or Adafactor state, step) as
 the port's, the model taking gradients and the moments of a stacked leaf
@@ -27,6 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.dist.sharding import (leaf_slices, make_shardings,
+                                       mesh_sizes)
 
 from repro_torch.launch.steps import TrainState
 from repro_torch.optim import AdafactorState, AdamWState
@@ -57,10 +65,45 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(cfg, tree, device=None) -> Transformer:
+def shard_params(model: Transformer, cfg, mesh) -> Transformer:
+    """Keep this rank's slice of every weight of ``model`` (in place), as
+    ``make_shardings`` places its leaf on ``mesh`` (a ``Stacked`` leaf's
+    dimension i is dimension i − 1 of each layer); the model records in
+    ``at_rest`` which dimension of each weight is split over ``model``.
+    No mesh: the model as it is."""
+    if mesh is None:
+        return model
+    if getattr(model, "at_rest", None) is not None:
+        raise ValueError("the model's weights are sharded already")
+    params = tr.param_tree(model)
+    placements = make_shardings(params, cfg, mesh)
+    names = {id(t): n for n, t in model.named_parameters()}
+    dims = {}
+    with torch.no_grad():
+        for path, leaf in params.items():
+            split = [pl.dim for pl in placements[path] if pl.is_shard()]
+            if not split:
+                continue
+            cut = leaf_slices(tuple(leaf.shape), placements[path], mesh)
+            stacked = isinstance(leaf, tr.Stacked)
+            for t in tr.layers(leaf):
+                t.data = t.data[cut[1:] if stacked else cut].clone()
+                dims[names[id(t)]] = split[0] - (1 if stacked else 0)
+    model.at_rest = {"mesh": mesh_sizes(mesh), "dims": dims}
+    return model
+
+
+def resident_bytes(model) -> int:
+    """The bytes of the weights ``model`` holds (on a mesh, this rank's
+    slices)."""
+    return sum(t.numel() * t.element_size() for t in model.parameters())
+
+
+def params_from_jax(cfg, tree, device=None, mesh=None) -> Transformer:
     """A :class:`Transformer` of ``cfg`` holding the reference's weights
     ``tree`` (nested dicts of numpy arrays), on ``device`` (the card
-    unless ``device="cpu"``)."""
+    unless ``device="cpu"``); with a mesh, this rank's slices of them
+    (:func:`shard_params`)."""
     model = Transformer(cfg, resolve_device(device))
     flat = {}
     for name, a in _flatten(tree).items():
@@ -84,7 +127,7 @@ def params_from_jax(cfg, tree, device=None) -> Transformer:
             raise ValueError(f"{name}: shape {tuple(src.shape)}, the model's "
                              f"{tuple(t.shape)}")
         t.data.copy_(src.to(t.dtype))
-    return model
+    return shard_params(model, cfg, mesh)
 
 
 def decode_state_from_jax(cfg, state, device=None) -> DecodeState:

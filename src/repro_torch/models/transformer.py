@@ -15,9 +15,20 @@ A :class:`Transformer` holds an ``nn.ModuleList`` of blocks where the
 reference stacks (L, …) leaves and scans them; its weights carry the
 reference's parameter names (``blocks.3.attn.wq``, ``shared.mlp.up``,
 …), which ``convert.params_from_jax`` relies on.  Entry points run on the
-card unless the caller passes ``device="cpu"``.  A mesh reaches the MoE
-layers (``moe.moe_apply``) and is otherwise a layout hint the port does
-not need on one device.
+card unless the caller passes ``device="cpu"``.
+
+On a mesh (a ``DeviceMesh`` with ``data``/``pod`` and ``model`` axes)
+``forward`` and ``decode_step`` run SPMD: every rank passes the whole
+batch, keeps its rows (``dist.sharding.shard_act``), runs each block on
+them with the block's weights whole, and gets the whole logits back.  A
+model sharded at rest (``convert.shard_params``) holds each rank's slice
+of every weight, as ``make_shardings`` places it; a block's slices are
+gathered over ``model`` when the block starts and dropped after it, so
+one block's weights are whole at a time.  Where rows mix, the MoE layer,
+the rows are gathered and it runs on the whole batch, as the reference's
+does under jit; context-parallel attention splits the query blocks over
+``model``.  The gathers only concatenate, so each rank computes what one
+device computes on its rows.  Gradients on a mesh are ROADMAP item 10c.
 
 ``cfg.remat`` applies where gradients are taken: ``"full"`` recomputes
 each block in the backward pass (``torch.utils.checkpoint``, hybrid's
@@ -28,13 +39,17 @@ which are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional
+from types import SimpleNamespace
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
+from repro_torch.dist.sharding import (act_axes, batch_axes_of,
+                                       gather_blocks, gather_model,
+                                       mesh_sizes, shard_act)
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -69,12 +84,12 @@ class AttnBlock(nn.Module):
                            device, gen)
 
 
-def _apply_attn_block(x, p, cfg, mesh, data_axes):
-    h = attention(rms_norm(x, p.ln1), p.attn, cfg, mesh=mesh)
+def _apply_attn_block(x, p, cfg, mesh, data_axes, rows=()):
+    h = attention(rms_norm(x, p.ln1), p.attn, cfg, mesh=mesh,
+                  batch_axes=rows)
     x = x + h
     if hasattr(p, "moe"):
-        y, aux = moe_mod.moe_apply(rms_norm(x, p.ln2), p.moe, cfg, mesh,
-                                   data_axes=data_axes)
+        y, aux = _moe(rms_norm(x, p.ln2), p.moe, cfg, mesh, data_axes, rows)
     else:
         y, aux = mlp(rms_norm(x, p.ln2), p.mlp, cfg.act), 0.0
     return x + y, aux
@@ -170,6 +185,85 @@ def _inputs(model, inputs, cfg):
     return embed(inputs["tokens"], model.embed)
 
 
+def _moe(x, p, cfg, mesh, data_axes, rows):
+    """``moe_apply`` on the whole batch, back on this rank's ``rows``: its
+    capacity buffers and the distributed layouts take every row, as the
+    reference's layer does under jit."""
+    if not rows:
+        return moe_mod.moe_apply(x, p, cfg, mesh, data_axes=data_axes)
+    y, aux = moe_mod.moe_apply(gather_blocks(x, mesh, rows), p, cfg, mesh,
+                               data_axes=data_axes)
+    return shard_act(y, mesh, axes=rows), aux
+
+
+# ---------------------------------------------------------------------------
+# On a mesh: weights whole at use, the batch's rows
+# ---------------------------------------------------------------------------
+
+_GRAD_ON_MESH = ("gradients on a mesh (training on a mesh) are ROADMAP "
+                 "item 10c, not ported yet")
+
+
+def _namespace(mod, full, path: str, only):
+    ns = SimpleNamespace()
+    for n, t in mod.named_parameters(recurse=False):
+        if only is None or n in only:
+            setattr(ns, n, full.get(path + n, t))
+    if only is None:
+        for n, child in mod.named_children():
+            setattr(ns, n, _namespace(child, full, f"{path}{n}.", None))
+    return ns
+
+
+def _whole(model, mesh):
+    """``whole(part, prefix, only=None)``: ``part`` of ``model`` (a block
+    named ``prefix``, or the model itself for the top-level weights named
+    in ``only``) with every weight whole.  On a model sharded at rest the
+    part's slices are gathered over ``model`` in one transfer and handed
+    out in a namespace of the part's layout, freed when the caller drops
+    it; a whole model gives the part itself."""
+    at_rest = getattr(model, "at_rest", None)
+    if at_rest is None:
+        return lambda part, prefix, only=None: part
+    if mesh is None or mesh_sizes(mesh) != at_rest["mesh"]:
+        raise ValueError(f"the weights are sharded at rest on the mesh "
+                         f"{at_rest['mesh']}; got "
+                         f"{None if mesh is None else mesh_sizes(mesh)}")
+    dims = at_rest["dims"]
+
+    def whole(part, prefix, only=None):
+        split = [n for n, _ in part.named_parameters(recurse=only is None)
+                 if prefix + n in dims and (only is None or n in only)]
+        full = dict(zip(split, gather_model(
+            [part.get_parameter(n) for n in split],
+            [dims[prefix + n] for n in split], mesh)))
+        return _namespace(part, full, "", only)
+    return whole
+
+
+def _head_names(cfg) -> set:
+    if cfg.family == "audio":
+        return {"norm_f", "heads"}
+    return {"norm_f", "embed" if cfg.tie_embeddings else "head"}
+
+
+def _on_mesh(model, inputs, mesh, cfg=None) -> Tuple[dict, tuple]:
+    """(``inputs`` with this rank's rows of the token ids or embeddings,
+    the axes those rows split over: ``shard_act``'s default, or under
+    ``cfg.ddp`` ``batch_axes_of``); every row and () without a mesh."""
+    if mesh is None:
+        return inputs, ()
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in model.parameters()):
+        raise NotImplementedError(_GRAD_ON_MESH)
+    key = "embeds" if "embeds" in inputs else "tokens"
+    B = inputs[key].shape[0]
+    rows = act_axes(mesh, B, batch_axes_of(mesh, cfg, batch=B)
+                    if getattr(cfg, "ddp", False) else None)
+    return dict(inputs, **{key: shard_act(inputs[key], mesh, axes=rows)}), \
+        rows
+
+
 def _remat(fn, mode: str):
     """``fn`` recomputed in the backward pass under ``"full"`` (only where
     autograd records it), as it is under ``"none"``."""
@@ -189,28 +283,36 @@ def _remat(fn, mode: str):
 
 def forward(model: Transformer, inputs: Dict[str, torch.Tensor], cfg,
             mesh=None, data_axes=("data",), last_only: bool = False):
-    """Returns (logits, aux_loss).  inputs: {'tokens'} or {'embeds'}."""
-    x = _inputs(model, inputs, cfg)
+    """Returns (logits, aux_loss).  inputs: {'tokens'} or {'embeds'}; on a
+    mesh the whole batch on every rank, which keeps its rows (the data
+    axes, and ``model`` under ``cfg.ddp``, as ``batch_axes_of`` drops
+    them) and returns the whole logits."""
+    whole = _whole(model, mesh)
+    inputs, rows = _on_mesh(model, inputs, mesh, cfg)
+    x = _inputs(whole(model, "", {"embed"}), inputs, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         block = _remat(lambda h, p: _apply_attn_block(h, p, cfg, mesh,
-                                                      data_axes), cfg.remat)
-        for p in model.blocks:
-            x, a = block(x, p)
+                                                      data_axes, rows),
+                       cfg.remat)
+        for i, p in enumerate(model.blocks):
+            x, a = block(x, whole(p, f"blocks.{i}."))
             aux = aux + a
     elif cfg.family == "ssm":
         block = _remat(lambda h, p: _apply_rwkv_block(h, p, cfg), cfg.remat)
-        for p in model.blocks:
-            x, a = block(x, p)
+        for i, p in enumerate(model.blocks):
+            x, a = block(x, whole(p, f"blocks.{i}."))
             aux = aux + a
     else:
-        x, aux = _hybrid_forward(x, model, cfg, mesh, data_axes)
+        x, aux = _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows)
     if last_only:
         x = x[:, -1:]                # prefill serves next-token logits only
-    return _logits(rms_norm(x, model.norm_f), model, cfg), aux
+    top = whole(model, "", _head_names(cfg))
+    return gather_blocks(_logits(rms_norm(x, top.norm_f), top, cfg), mesh,
+                         rows), aux
 
 
-def _hybrid_forward(x, model, cfg, mesh, data_axes):
+def _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows):
     """zamba2: groups of ``attn_every`` mamba layers + the shared attn
     block after each group; the remaining layers last."""
     every = cfg.attn_every
@@ -218,14 +320,15 @@ def _hybrid_forward(x, model, cfg, mesh, data_axes):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     mamba = _remat(lambda h, p: _apply_mamba_block(h, p, cfg), cfg.remat)
     shared = _remat(lambda h, p: _apply_attn_block(h, p, cfg, mesh,
-                                                   data_axes), cfg.remat)
+                                                   data_axes, rows),
+                    cfg.remat)
     for g in range(n_groups):
-        for p in model.blocks[g * every:(g + 1) * every]:
-            x, _ = mamba(x, p)
-        x, aux = shared(x, model.shared)
+        for i in range(g * every, (g + 1) * every):
+            x, _ = mamba(x, whole(model.blocks[i], f"blocks.{i}."))
+        x, aux = shared(x, whole(model.shared, "shared."))
         aux_total = aux_total + aux
-    for p in model.blocks[n_groups * every:]:
-        x, _ = mamba(x, p)
+    for i in range(n_groups * every, cfg.n_layers):
+        x, _ = mamba(x, whole(model.blocks[i], f"blocks.{i}."))
     return x, aux_total
 
 
@@ -284,19 +387,28 @@ def decode_step(model: Transformer, state: DecodeState,
                 data_axes=("data",)):
     """One-token decode.  inputs: {'tokens': (B, 1)} or {'embeds': (B, 1,
     D)}.  Returns (logits, new state); the KV caches are updated in
-    place."""
-    x = _inputs(model, inputs, cfg)
+    place.  On a mesh every rank passes the whole batch and gets the whole
+    logits, and ``state`` holds this rank's rows: those ``shard_act``
+    gives it (``dist.sharding.local_rows``)."""
+    whole = _whole(model, mesh)
+    inputs, rows = _on_mesh(model, inputs, mesh)
+    x = _inputs(whole(model, "", {"embed"}), inputs, cfg)
+    held = _state_rows(state)
+    if held is not None and held != x.shape[0]:
+        raise ValueError(f"the decode state holds {held} rows; this rank "
+                         f"holds {x.shape[0]} of the batch")
     pos = state.pos
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         caches = []
-        for p, cache in zip(model.blocks, state.caches):
+        for i, (p, cache) in enumerate(zip(model.blocks, state.caches)):
+            p = whole(p, f"blocks.{i}.")
             a, new_cache = decode_attention(
                 rms_norm(x, p.ln1), p.attn, cfg,
                 KVCache(cache.k, cache.v, pos))
             x = x + a
             if hasattr(p, "moe"):
-                y, _ = moe_mod.moe_apply(rms_norm(x, p.ln2), p.moe, cfg,
-                                         mesh, data_axes=data_axes)
+                y, _ = _moe(rms_norm(x, p.ln2), p.moe, cfg, mesh, data_axes,
+                            rows)
             else:
                 y = mlp(rms_norm(x, p.ln2), p.mlp, cfg.act)
             x = x + y
@@ -304,7 +416,8 @@ def decode_step(model: Transformer, state: DecodeState,
         new_state = DecodeState(caches, None, pos + 1)
     elif cfg.family == "ssm":
         caches = []
-        for p, st in zip(model.blocks, state.caches):
+        for i, (p, st) in enumerate(zip(model.blocks, state.caches)):
+            p = whole(p, f"blocks.{i}.")
             a, new_st = ssm_mod.rwkv6_decode(rms_norm(x, p.ln1), p.time,
                                              cfg, st)
             x = x + a
@@ -320,12 +433,13 @@ def decode_step(model: Transformer, state: DecodeState,
         caches, shared = [], []
         for g in range(cfg.n_layers // every):
             for i in range(g * every, (g + 1) * every):
-                p = model.blocks[i]
+                p = whole(model.blocks[i], f"blocks.{i}.")
                 out, st = ssm_mod.mamba2_decode(rms_norm(x, p.ln), p.mamba,
                                                 cfg, state.caches[i])
                 x = x + out
                 caches.append(st)
-            sh, shc = model.shared, state.shared_caches[g]
+            sh = whole(model.shared, "shared.")
+            shc = state.shared_caches[g]
             a, nshc = decode_attention(rms_norm(x, sh.ln1), sh.attn, cfg,
                                        KVCache(shc.k, shc.v, pos))
             x = x + a
@@ -337,4 +451,13 @@ def decode_step(model: Transformer, state: DecodeState,
         new_state = DecodeState(caches, shared, pos + 1)
     else:
         raise ValueError(cfg.family)
-    return _logits(rms_norm(x, model.norm_f), model, cfg), new_state
+    top = whole(model, "", _head_names(cfg))
+    return gather_blocks(_logits(rms_norm(x, top.norm_f), top, cfg), mesh,
+                         rows), new_state
+
+
+def _state_rows(state) -> Optional[int]:
+    """The batch rows a decode state holds (None: no layer)."""
+    if not state.caches:
+        return None
+    return int(state.caches[0][0].shape[0])

@@ -8,12 +8,21 @@ its error types, in the port, against the reference on the same inputs.
   raises ``TypeError``; ``device`` stays the port's own keyword.
 - ``trace_collectives(n, p, algorithm, capacity_factor)`` equals the
   reference's trace of the same legacy call, event for event.
-- ``repro_torch.core`` exports the six names of ``repro.core`` it lacked.
+- ``repro_torch.core`` exports the six names of ``repro.core`` it lacked;
+  every name the ``__init__`` of ``repro.core``, ``repro.data``,
+  ``repro.dist`` and the three kernel packages exports exists in the
+  port's same package, but the Pallas entry points (``sort_tile``,
+  ``merge_tiles``, ``partition_tile``, ``supported``, ``LANES``); the JAX
+  ``Collectives`` classes and ``sim_map`` stay out of ``comm`` too;
+- ``key_to_uint``/``uint_to_key`` give the reference's unsigned words for
+  the six key dtypes (±0.0, ±inf and NaN included) and round-trip.
 - ``REPRO_LOCAL_KERNELS`` (and the legacy ``REPRO_PALLAS_LOCAL_SORT``)
   parse to the reference's policy; ``set_local_kernels`` round-trips.
 - int16 keys raise ``TypeError``; ``select_rank(data, [])`` raises
   ``ZeroDivisionError``.
 """
+import ast
+import importlib
 import warnings
 from pathlib import Path
 
@@ -136,6 +145,81 @@ def test_the_six_exports():
         assert tcore.select_algorithm(n, p, model=ts.CostModel.load(path)) \
             == jcore.select_algorithm(n, p, model=js.CostModel.load(
                 str(path)))
+
+
+# the reference's exports that the port leaves out by design: the Pallas
+# entry points (the CUDA kernels have their own wrappers) and, in comm,
+# the JAX Collectives classes and sim_map
+PALLAS_ONLY = {"sort_tile", "merge_tiles", "partition_tile", "supported",
+               "LANES"}
+JAX_COMM_ONLY = ("Collectives", "LaxCollectives", "CountingCollectives",
+                 "SimCollectives", "NestedCollectives", "sim_map")
+
+
+def _init_exports(package: str) -> set:
+    """The names a reference package's ``__init__`` imports from its own
+    modules."""
+    init = ROOT / "src" / "repro" / Path(*package.split(".")) / "__init__.py"
+    return {a.asname or a.name for node in ast.walk(ast.parse(
+        init.read_text())) if isinstance(node, ast.ImportFrom)
+        and node.level >= 1 for a in node.names}
+
+
+@pytest.mark.parametrize("package", ["core", "data", "dist",
+                                     "kernels.bitonic", "kernels.kway",
+                                     "kernels.partition"])
+def test_every_export_of_the_reference(package):
+    names = _init_exports(package)
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    assert names and all(hasattr(ref, n) for n in names)
+    missing = sorted(n for n in names - PALLAS_ONLY if not hasattr(port, n))
+    assert missing == [], missing
+    for n in ("default_mesh", "key_to_uint", "uint_to_key",
+              "TokenPipeline", "length_balanced_batches", "make_shardings",
+              "shard_act", "data_axes_of", "batch_axes_of"):
+        if n in names:
+            assert callable(getattr(port, n)), n
+
+
+def test_the_jax_collectives_stay_out():
+    from repro.core import comm as jcomm
+    from repro_torch.core import comm as tcomm
+    for n in JAX_COMM_ONLY:
+        assert hasattr(jcomm, n) and not hasattr(tcomm, n), n
+
+
+def _words(x):
+    """Keys of every kind for the unsigned map: spread values, the
+    extremes, and for floats ±0.0, ±inf and NaN."""
+    rng = np.random.default_rng(5)
+    if x.kind == "f":
+        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.5, -1.5,
+                            np.finfo(x).tiny, -np.finfo(x).max], x)
+        return np.concatenate([special, rng.normal(size=64).astype(x)])
+    info = np.iinfo(x)
+    ends = np.array([info.min, info.min + 1, 0, 1, info.max - 1, info.max],
+                    x)
+    return np.concatenate([ends, rng.integers(info.min, info.max, size=64,
+                                              dtype=x)])
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "float32", "int64",
+                                   "uint64", "float64"])
+def test_key_to_uint_gives_the_reference_words(dtype):
+    import jax.numpy as jnp
+    x = _words(np.dtype(dtype))
+    want = np.asarray(jcore.key_to_uint(jnp.asarray(x)))
+    u = tcore.key_to_uint(torch.from_numpy(x))
+    assert str(u.dtype) == f"torch.{want.dtype}"
+    signed, np_signed = {4: (torch.int32, np.int32),
+                         8: (torch.int64, np.int64)}[x.itemsize]
+    assert np.array_equal(u.view(signed).numpy(), want.view(np_signed))
+    for orig in (getattr(torch, dtype), dtype):
+        back = tcore.uint_to_key(u, orig)
+        assert np.array_equal(back.view(signed).numpy(), x.view(np_signed))
+    ref_back = np.asarray(jcore.uint_to_key(jnp.asarray(want), x.dtype))
+    assert np.array_equal(ref_back.view(np_signed), x.view(np_signed))
 
 
 SPECS = ["auto", "none", "all", "sort", "partition", "sort,partition",

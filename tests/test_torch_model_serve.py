@@ -180,14 +180,6 @@ def test_next_token_input_contract():
             JSV.next_token_input(jnp.asarray(bad.numpy()), 4)
 
 
-def test_serve_on_a_mesh_is_not_ported():
-    cfg = smoke_variant(get_config("rwkv6-1.6b"))
-    with pytest.raises(NotImplementedError, match="10c"):
-        SV.serve(cfg, object(), batch=1, tokens=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="10c"):
-        SV.main(["--smoke", "--mesh", "1,1", "--device", "cpu"])
-
-
 def test_serve_cli_smoke(capsys):
     toks, stats = SV.main(["--arch", "rwkv6-1.6b", "--smoke", "--tokens",
                            "3", "--batch", "2", "--device", "cpu"])

@@ -171,13 +171,13 @@ def test_attention_bf16(arch):
         assert_bf16(got, want, truth)
 
 
-def test_context_parallel_needs_a_mesh():
+def test_context_parallel_without_a_mesh_is_chunked():
     _, tc, p = _attn_setup("llama3.2-1b", "float32")
     tc = dataclasses.replace(tc, attn_context_parallel=True)
-    x = torch.zeros((1, 32, tc.d_model))
-    with pytest.raises(NotImplementedError, match="10c"):
-        A.attention(x, tensors(p), tc, block=16, mesh=object())
-    A.attention(x, tensors(p), tc, block=16)          # no mesh: chunked
+    x = torch.from_numpy(_x((1, 32, tc.d_model), 2))
+    chunked = dataclasses.replace(tc, attn_context_parallel=False)
+    assert torch.equal(A.attention(x, tensors(p), tc, block=16),
+                       A.attention(x, tensors(p), chunked, block=16))
 
 
 @pytest.mark.parametrize("window", [None, 6])

@@ -403,3 +403,134 @@ def compress_job(grads, errs, p):
         out, err = compressed_psum(g, e, "data", p)
     return ({k: v.numpy() for k, v in out.items()},
             {k: v.numpy() for k, v in err.items()})
+
+
+# ---------------------------------------------------------------------------
+# Serving on a (data, model) mesh (run in the ranks)
+# ---------------------------------------------------------------------------
+
+
+def model_mesh(layout=(2, 4)):
+    """The (data, model) ``DeviceMesh`` of the first d·m ranks (made on
+    every rank: making it is collective)."""
+    from repro_torch.dist.sharding import make_mesh
+    d, m = layout
+    return make_mesh(np.arange(d * m).reshape(d, m), ("data", "model"))
+
+
+def smoke_cfg(arch, dtype, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    return dataclasses.replace(smoke_variant(get_config(arch)), dtype=dtype,
+                               **kw)
+
+
+def _f32(t):
+    return t.float().numpy()
+
+
+def mesh_decode_job(arch, tree, tokens, steps, cache_len):
+    """Greedy float32 decode on the (2, 4) mesh from the reference's
+    weights ``tree``, each rank holding its slices and its rows of a
+    float32 decode state: every step's whole logits and tokens."""
+    import torch
+    from repro_torch.dist.sharding import local_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+    cfg = smoke_cfg(arch, "float32")
+    mesh = model_mesh()
+    model = params_from_jax(cfg, tree, device="cpu", mesh=mesh)
+    rows = local_rows(tokens.shape[0], mesh)
+    st = T.init_decode_state(cfg, rows.stop - rows.start, cache_len,
+                             torch.float32, device="cpu")
+    tok = torch.from_numpy(tokens).long()
+    out = []
+    with torch.inference_mode():
+        for _ in range(steps):
+            logits, st = T.decode_step(model, st, {"tokens": tok}, cfg, mesh,
+                                       ("data",))
+            tok = logits[:, -1].argmax(-1)[:, None]
+            out.append((_f32(logits), tok[:, 0].numpy()))
+    return out
+
+
+def mesh_prefill_job(arch, cfg_kw, tree, tokens):
+    """``forward`` on the (2, 4) mesh in float32 from the reference's
+    weights (``cfg_kw`` on the smoke config, ``last_only`` as its
+    ``prefill_last_only``), and the prefill step's tokens: (logits, aux,
+    tokens)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+    cfg = smoke_cfg(arch, "float32", **cfg_kw)
+    mesh = model_mesh()
+    model = params_from_jax(cfg, tree, device="cpu", mesh=mesh)
+    inp = {"tokens": torch.from_numpy(tokens).long()}
+    with torch.inference_mode():
+        logits, aux = T.forward(model, inp, cfg, mesh, ("data",),
+                                last_only=cfg.prefill_last_only)
+        nxt = steps.make_prefill_step(cfg, mesh)(model, inp)
+    return _f32(logits), float(aux), nxt.numpy()
+
+
+def mesh_serve_job(arch, dtype, batch, tokens, cache_len):
+    """``serve`` on the (2, 4) mesh: this rank's tokens, and the bytes and
+    count of the weights it holds."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import resident_bytes
+    held = {}
+    init = T.init_params
+
+    def keep(cfg, gen, device=None):
+        held["model"] = init(cfg, gen, device=device)
+        return held["model"]
+    T.init_params = keep
+    try:
+        toks, stats = serve(smoke_cfg(arch, dtype), model_mesh(),
+                            batch=batch, tokens=tokens, cache_len=cache_len,
+                            logger=lambda s: None, device="cpu")
+    finally:
+        T.init_params = init
+    return toks, stats["n"], resident_bytes(held["model"])
+
+
+def serve_cli_job(argv):
+    """The model-serving CLI on this rank: its tokens."""
+    from repro_torch.launch.serve import main
+    return main(argv)[0]
+
+
+def resident_job(arch, dtype, tree):
+    """The weights this rank holds after ``params_from_jax`` on the (2, 4)
+    mesh, by the reference's path (a stacked leaf's layers stacked), as
+    float32 numpy arrays."""
+    import torch
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.optim.tree import Stacked, param_tree
+    model = params_from_jax(smoke_cfg(arch, dtype), tree, device="cpu",
+                            mesh=model_mesh())
+    return {"/".join(k): _f32(torch.stack(list(v)) if isinstance(v, Stacked)
+                              else v) for k, v in param_tree(model).items()}
+
+
+def mesh_errors_job():
+    """The errors of a mesh that leaves ranks out: ``serve`` on it (every
+    rank), and this rank's rows of it (the ranks outside)."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import local_rows
+    from repro_torch.launch.serve import serve
+    small = model_mesh((2, 2))
+    out = {}
+    try:
+        serve(smoke_cfg("rwkv6-1.6b", "float32"), small, batch=2, tokens=1,
+              device="cpu")
+    except ValueError as e:
+        out["serve"] = str(e)
+    try:
+        out["rows"] = local_rows(4, small)
+    except ValueError as e:
+        out["rows"] = str(e)
+    out["rank"] = dist.get_rank()
+    return out
