@@ -209,8 +209,9 @@ Phases, each fatal on failure (no phase catches its own error):
    ``--model-only`` runs phases 1, 2 and 19 alone.
 20. the training stack (``repro_torch.launch.train``, ``optim``,
    ``runtime.checkpoint``): (a) ``train`` of granite-moe-1b-a400m at full
-   width and 12 of its 24 layers (cut when phase 21 joined, for the
-   script's time limit; bf16, remat ``full``, AdamW, batch 8 × seq 2048 from
+   width and 6 of its 24 layers (cut to 12 when phase 21 joined and to 6
+   when phase 22 did, for the script's time limit; bf16, remat ``full``,
+   AdamW, batch 8 × seq 2048 from
    ``TokenPipeline``) for 20 steps, a checkpoint every 10 and a crash
    injected at step 15: each step's loss (finite), p50/p99 step ms
    (host walls of an eager step), tokens/s and peak, the restart from
@@ -249,6 +250,36 @@ Phases, each fatal on failure (no phase catches its own error):
    whole-batch forward's distance is printed beside it: cuBLAS sums 4096
    rows in another order than 2048).  ``--mesh-only`` runs phases 1, 2
    and 21 alone.
+22. training on a mesh (``launch.train``, ``launch.steps``,
+   ``runtime.checkpoint`` and ``rescale_state`` on a ``DeviceMesh``):
+   four gloo ranks sharing the card on a (data 2, model 2) mesh, weights
+   and optimizer state sharded at rest as ``make_shardings`` places them,
+   gradients through the gathers' reduce-scatters and the
+   expert-parallel dispatch: (a) ``train`` of granite-moe-1b-a400m at full
+   width and 2 of its 24 layers (bf16, remat ``full``, AdamW, batch 4 ×
+   seq 2048 from ``TokenPipeline``, the expert-parallel dispatch) for 4
+   steps, a checkpoint every 2 and a crash injected at step 3 (cut from 6,
+   3 and 4 for the script's time limit): each rank's resident bytes of weights and of optimizer state
+   against the slices ``make_shardings`` reckons, the bytes it sends and
+   receives in a step, its peak, p50 step ms and tokens/s (walls of
+   processes that share one card through the host, not a multi-GPU
+   speed), every rank's losses equal and finite, the replayed step's loss
+   that of the first attempt, the saved checkpoint's whole leaves equal
+   bit for bit to the ranks' slices put together; (b) the mesh against
+   one device: llama3.2-1b at full width and depth 2 in float32, batch 2
+   × seq 256, 3 steps: loss, lr and grad_norm at each step and every
+   rank's slice of every leaf of the state within 1e-4/1e-5 of the
+   one-device run on the card (each rank runs it, so every leaf is
+   compared whole), then a checkpoint and a fourth step; (c) granite at
+   full width and depth 2 in float32, batch 2 × seq 256, 2 steps on the
+   four ranks with card tensors and with CPU tensors: losses and every
+   slice within 1e-4/1e-5; (d) ``rescale_state`` of (b)'s checkpoint
+   onto (4, 1) and (1, 4) meshes of the four ranks: every slice equal bit
+   for bit to the new ``make_shardings`` slice of the saved leaf, the
+   next step's loss on (4, 1) within 1e-4/1e-5 of (b)'s fourth step; and
+   (a)'s checkpoint onto both, slices only (its expert-parallel dispatch
+   drops other items at another ``model``).  ``--mesh-train-only`` runs
+   phases 1, 2 and 22 alone.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
@@ -438,9 +469,10 @@ MODEL_DEV = "cuda"          # phase 19 runs here (a CPU rehearsal sets "cpu")
 # compressed gradient mean of one full-width granite layer, sim against
 # gloo ranks sharing the card
 TRAIN_ARCH = "granite-moe-1b-a400m"
-TRAIN_DEPTH = 12            # of granite's 24 layers: cut when phase 21
-                            # joined, to keep the script inside its 1200 s
-                            # (the full depth took ~180 s of phase 20)
+TRAIN_DEPTH = 6             # of granite's 24 layers: cut to 12 when phase
+                            # 21 joined and to 6 when phase 22 did, to keep
+                            # the script inside its 1200 s (the full depth
+                            # took ~180 s of phase 20, 12 layers 83 s)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
 TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 10, 15
 TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
@@ -465,6 +497,23 @@ MESH_RANKS, MESH_LAYOUT = 4, (2, 2)
 MESH_TOKENS, MESH_SEED = 6, 21
 MESH_CP_ARCH, MESH_CP_SHAPE = "llama3.2-1b", (2, 2048)
 MESH_SMOKE = False          # a CPU rehearsal sets True (smoke widths)
+# phase 22: training on a mesh.  Four gloo ranks share the card on a (data
+# 2, model 2) mesh: granite-moe-1b-a400m trained at full width through a
+# crash and a restart (its depth reckoned so the phase fits its budget: a
+# step moves ~1-3 GB a rank through the host's gloo at 0.3-0.5 GB/s); the
+# mesh against one device for llama3.2-1b (dense) in float32; granite's
+# card ranks against the same ranks on the CPU; the elastic restores onto
+# (4, 1) and (1, 4)
+MESH_TRAIN_DEPTH = 2        # of granite's 24 layers
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 2048
+# 4 steps, a checkpoint every 2, the crash at 3: cut from 6, 3 and 4 for
+# the script's time limit (a step is ~4.4 s of gloo traffic)
+MESH_TRAIN_STEPS, MESH_TRAIN_CKPT_EVERY, MESH_TRAIN_CRASH_AT = 4, 2, 3
+MESH_CHECK_ARCH, MESH_CHECK_DEPTH = "llama3.2-1b", 2
+MESH_CHECK_BATCH, MESH_CHECK_SEQ, MESH_CHECK_STEPS = 2, 256, 3
+MESH_CPU_STEPS = 2
+MESH_ELASTIC = ((4, 1), (1, 4))
+MESH_TRAIN_SEED = 22
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
@@ -2812,7 +2861,8 @@ class DistRanks:
                     raise AssertionError(
                         f"phase 18/19 {what}: ranks "
                         f"{sorted(set(range(self.world)) - set(out))} gave "
-                        f"no answer") from None
+                        f"no answer" + "".join(
+                            f"\n{e}" for e in errors)) from None
                 continue
             if status == "error":
                 errors.append(f"rank {rank}: {value}")
@@ -4138,11 +4188,11 @@ def mesh_serve_job(torch, np, mesh, dev, smoke):
     finally:
         T.init_params, S.make_serve_step = init, make_step
     model, m = held["model"], MESH_LAYOUT[1]
-    # a step gathers every split weight once, the tied embedding twice
-    # (the input and the head): the other model ranks' slices come in
-    received = sum(t.numel() * t.element_size() * (m - 1) * (
-        2 if n == "embed" and cfg.tie_embeddings else 1)
-        for n, t in model.named_parameters() if n in model.at_rest["dims"])
+    # a step gathers every split weight once (the tied embedding once for
+    # the input and the head): the other model ranks' slices come in
+    received = sum(t.numel() * t.element_size() * (m - 1)
+                   for n, t in model.named_parameters()
+                   if n in model.at_rest["dims"])
     out = {"wall_s": time.perf_counter() - t0, "tokens": toks,
            "weight_bytes_received_per_step": received,
            "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
@@ -4392,6 +4442,497 @@ def mesh_phase(torch, np, card):
           "part_seconds": parts})
 
 
+def state_bytes(tree) -> int:
+    """The bytes of the tensors of a tree (a rank's slices on a mesh)."""
+    from repro_torch.optim import tree as tr
+    return sum(t.numel() * t.element_size() for leaf in tr.leaves(tree)
+               if not isinstance(leaf, int) for t in tr.layers(leaf))
+
+
+def reckoned_state_bytes(torch, cfg, shards) -> dict:
+    """The bytes of the slices ``make_shardings`` gives this rank of the
+    weights and of the optimizer state of ``cfg`` (from the shapes)."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim import tree as tr
+    params = tr.param_tree(Transformer(cfg, torch.device("meta")))
+    opt = make_optimizer(cfg.optimizer)[0](params)
+    out = {}
+    for name, whole, sh in (("weights", params, shards.params),
+                            ("opt", opt, shards.opt)):
+        cut = tr.map_with(lambda leaf, s: s.cut(leaf), whole, sh)
+        out[name] = state_bytes(cut)
+    return out
+
+
+class Transport:
+    """The bytes this rank sends to and receives from the other ranks
+    through the port's transport (``comm._d_gather`` and
+    ``comm._d_alltoall`` over whole axes), counted while installed."""
+
+    def __init__(self):
+        from repro_torch.core import comm
+        self.comm, self.sent, self.received = comm, 0, 0
+        self.gather, self.alltoall = comm._d_gather, comm._d_alltoall
+
+        def gather(ax, members, x):
+            n = len(members)
+            self.sent += x.numel() * x.element_size() * (n - 1)
+            self.received += x.numel() * x.element_size() * (n - 1)
+            return self.gather(ax, members, x)
+
+        def alltoall(ax, members, blocks):
+            g = len(members)
+            moved = blocks.numel() * blocks.element_size() * (g - 1) // g
+            self.sent += moved
+            self.received += moved
+            return self.alltoall(ax, members, blocks)
+        comm._d_gather, comm._d_alltoall = gather, alltoall
+
+    def close(self):
+        self.comm._d_gather, self.comm._d_alltoall = self.gather, \
+            self.alltoall
+
+
+def mesh_train_full_job(torch, np, mesh, dev, smoke, ckpt):
+    """22a on one rank: ``train`` of granite at full width and
+    MESH_TRAIN_DEPTH layers on the mesh through a crash and a restart;
+    each step's exact loss and transport bytes, the resident bytes of the
+    final state against the reckoned slices, the peak, and the saved
+    step's whole leaves against the slices put together (rank 0 reads
+    the files)."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as TR
+    from repro_torch.models.convert import resident_bytes
+    from repro_torch.optim import tree as tr
+    cfg = mesh_cfg(TRAIN_ARCH, smoke, n_layers=MESH_TRAIN_DEPTH)
+    held = {"steps": []}
+    build = TR.build_everything
+    wire = Transport()
+
+    def keep(*a, **k):
+        state, step_fn, shards = build(*a, **k)
+        held["shards"] = shards
+
+        def step(st, batch):
+            wire.sent = wire.received = 0
+            st, metrics = step_fn(st, batch)
+            held["steps"].append({"step": st.step - 1,
+                                  "loss": float(metrics["loss"]),
+                                  "sent": wire.sent,
+                                  "received": wire.received})
+            held["state"] = st
+            return st, metrics
+        return state, step, shards
+
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    lines = []
+    dist.barrier()
+    t0 = time.perf_counter()
+    TR.build_everything = keep
+    try:
+        final, _ = TR.train(
+            cfg, mesh, steps=MESH_TRAIN_STEPS, batch=MESH_TRAIN_BATCH,
+            seq=MESH_TRAIN_SEQ, ckpt_dir=ckpt,
+            ckpt_every=MESH_TRAIN_CKPT_EVERY, log_every=1,
+            crash_at=MESH_TRAIN_CRASH_AT, logger=lines.append, device=dev)
+    finally:
+        TR.build_everything = build
+        wire.close()
+    wall = time.perf_counter() - t0
+    state, shards = held["state"], held["shards"]
+    out = {"final": final, "wall_s": wall, "steps": held["steps"],
+           "lines": lines,
+           "resident_weight_bytes": resident_bytes(state.params),
+           "resident_opt_bytes": state_bytes(state.opt),
+           "reckoned": reckoned_state_bytes(torch, cfg, shards)}
+    if dev == "cuda":
+        out["peak"] = torch.cuda.max_memory_allocated()
+    rows, _ = train_log(lines)
+    out.update(step_stats(rows, MESH_TRAIN_BATCH * MESH_TRAIN_SEQ))
+    # the saved step's whole leaves against this state's slices put
+    # together (the gathers are collective; rank 0 reads the files)
+    t0 = time.perf_counter()
+    d = Path(ckpt) / f"step_{MESH_TRAIN_STEPS:09d}"
+    rank0, same, n = dist.get_rank() == 0, True, 0
+    for k, (leaf, sh) in enumerate(zip(tr.leaves(state),
+                                       tr.leaves(shards))):
+        whole = sh.whole(leaf)
+        if rank0:
+            arr, _ = tr.host_leaf(whole)
+            saved = np.load(d / f"leaf_{k}.npy")
+            same &= arr.dtype == saved.dtype and np.array_equal(arr, saved)
+            n += 1
+        del whole
+    out.update(saved_leaves=n, saved_bit_for_bit=same if rank0 else None,
+               compare_s=time.perf_counter() - t0)
+    del state, held
+    return out
+
+
+def slice_err(torch, mesh_state, one_state, shards) -> tuple:
+    """(largest difference, all within MODEL_F32_TOL, leaves) between this
+    rank's slices of a state on the mesh and the same slices of the
+    one-device state."""
+    from repro_torch.optim import tree as tr
+    err, ok, n = 0.0, True, 0
+    for mine, one, sh in zip(tr.leaves(mesh_state), tr.leaves(one_state),
+                             tr.leaves(shards)):
+        n += 1
+        if isinstance(mine, int):
+            ok &= mine == one
+            continue
+        for a, b in zip(tr.layers(mine), tr.layers(sh.cut(one))):
+            a, b = a.detach(), b.detach()
+            err = max(err, float((a.float() - b.float()).abs().max()))
+            ok &= bool(torch.allclose(a, b, **MODEL_F32_TOL))
+    return err, ok, n
+
+
+def mesh_train_check_job(torch, np, mesh, dev, smoke, ckpt):
+    """22b on one rank: llama3.2-1b at full width and depth 2 in float32,
+    MESH_CHECK_STEPS steps on one device (this rank) and on the mesh from
+    the same weights, the metrics of each step and this rank's slices of
+    the state compared; then the mesh's state saved to ``ckpt`` and one
+    more step on each."""
+    import copy
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import shard_params
+    c = mesh_cfg(MESH_CHECK_ARCH, smoke, n_layers=MESH_CHECK_DEPTH,
+                 dtype="float32")
+    model = T.init_params(c, torch.Generator(device=dev).manual_seed(
+        MESH_TRAIN_SEED), device=dev)
+    whole = copy.deepcopy(model).requires_grad_(True)
+    sharded = shard_params(model, c, mesh).requires_grad_(True)
+    step1, init1 = S.make_train_step(c, None)
+    stepm, initm = S.make_train_step(c, mesh)
+    one = S.TrainState(whole, init1(whole), 0)
+    on_mesh = S.TrainState(sharded, initm(sharded), 0)
+    shards = S.state_shardings(c, mesh)
+    pipe = TokenPipeline(c.vocab, MESH_CHECK_BATCH, MESH_CHECK_SEQ)
+    metrics, ms = [], []
+    for i in range(MESH_CHECK_STEPS + 1):
+        if i == MESH_CHECK_STEPS:            # the checkpoint (d) restores
+            from repro_torch.runtime import CheckpointManager
+            mgr = CheckpointManager(ckpt, mesh=mesh)
+            t0 = time.perf_counter()
+            mgr.save(on_mesh.step, on_mesh, shardings=shards)
+            mgr.wait()
+            save_s = time.perf_counter() - t0
+            err, ok, n = slice_err(torch, on_mesh, one, shards)
+        batch = pipe.batch_at(i)
+        one, m1 = step1(one, batch)
+        t0 = time.perf_counter()
+        on_mesh, mm = stepm(on_mesh, batch)
+        float(mm["loss"])
+        ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: (float(m1[k]), float(mm[k]))
+                        for k in ("loss", "lr", "grad_norm")})
+    out = {"metrics": metrics, "step_ms": ms, "max_abs_leaf_err": err,
+           "leaves_within_tol": ok, "leaves": n, "save_s": save_s,
+           "checkpoint_bytes": sum(f.stat().st_size for f in (
+               Path(ckpt) / f"step_{MESH_CHECK_STEPS:09d}").glob(
+                   "leaf_*.npy")) if mgr.writer else None}
+    del one, on_mesh, whole, sharded, model
+    return out
+
+
+def mesh_train_cpu_job(torch, np, mesh, dev, smoke):
+    """22c on one rank: granite at full width and depth 2 in float32,
+    drawn on the CPU, MESH_CPU_STEPS steps on the mesh with card tensors
+    and with CPU tensors from the same weights: both runs' losses and
+    this rank's slices compared."""
+    import copy
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import shard_params
+    c = mesh_cfg(TRAIN_ARCH, smoke, n_layers=MESH_CHECK_DEPTH,
+                 dtype="float32")
+    cpu_model = shard_params(T.init_params(c, torch.Generator().manual_seed(
+        MESH_TRAIN_SEED), device="cpu"), c, mesh).requires_grad_(True)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    step, init = S.make_train_step(c, mesh)
+    runs = {}
+    for name, model in (("card", card_model), ("cpu", cpu_model)):
+        st = S.TrainState(model, init(model), 0)
+        pipe = TokenPipeline(c.vocab, MESH_CHECK_BATCH, MESH_CHECK_SEQ)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(MESH_CPU_STEPS):
+            st, m = step(st, pipe.batch_at(i))
+            losses.append(float(m["loss"]))
+        runs[name] = (st, losses, time.perf_counter() - t0)
+    err, ok, n = 0.0, True, 0
+    from repro_torch.optim import tree as tr
+    for a, b in zip(tr.leaves(runs["card"][0]), tr.leaves(runs["cpu"][0])):
+        n += 1
+        if isinstance(a, int):
+            ok &= a == b
+            continue
+        for x, y in zip(tr.layers(a), tr.layers(b)):
+            x = x.detach().cpu()
+            err = max(err, float((x - y.detach()).abs().max()))
+            ok &= bool(torch.allclose(x, y.detach(), **MODEL_F32_TOL))
+    return {"card_losses": runs["card"][1], "cpu_losses": runs["cpu"][1],
+            "card_s": runs["card"][2], "cpu_s": runs["cpu"][2],
+            "max_abs_leaf_err": err, "leaves_within_tol": ok, "leaves": n}
+
+
+def mesh_elastic_job(torch, np, dev, smoke, ckpts):
+    """22d on one rank: ``rescale_state`` of 22b's and 22a's checkpoints
+    onto the MESH_ELASTIC meshes of the four ranks, into states drawn
+    from another seed; each restored slice against the new
+    ``make_shardings`` slice of the saved leaf, bit for bit; on (4, 1)
+    the next step of 22b's model."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.launch import train as TR
+    from repro_torch.optim import tree as tr
+    from repro_torch.runtime import CheckpointManager, rescale_state
+    out = []
+    for arch, layers_, dtype, ckpt in (
+            (MESH_CHECK_ARCH, MESH_CHECK_DEPTH, "float32", ckpts["b"]),
+            (TRAIN_ARCH, MESH_TRAIN_DEPTH, None, ckpts["a"])):
+        kw = {"n_layers": layers_} | ({"dtype": dtype} if dtype else {})
+        c = mesh_cfg(arch, smoke, **kw)
+        mgr = CheckpointManager(ckpt)
+        step = mgr.latest_step()
+        d = Path(ckpt) / f"step_{step:09d}"
+        for layout in MESH_ELASTIC:
+            t0 = time.perf_counter()
+            mesh = make_mesh(np.arange(4).reshape(layout),
+                             ("data", "model"))
+            like, step_fn, shards = TR.build_everything(
+                c, mesh, MESH_CHECK_BATCH, MESH_CHECK_SEQ, seed=1,
+                device=dev)
+            state = rescale_state(None, like, c, mesh, mgr)
+            same, n = True, 0
+            for k, (leaf, sh) in enumerate(zip(tr.leaves(state),
+                                               tr.leaves(shards))):
+                saved = np.load(d / f"leaf_{k}.npy")
+                if not isinstance(leaf, int):
+                    saved = saved[sh.slices(saved.shape)]
+                arr, _ = tr.host_leaf(leaf)
+                same &= arr.dtype == saved.dtype and np.array_equal(
+                    arr, saved)
+                n += 1
+            row = {"arch": arch, "mesh": list(layout), "step": step,
+                   "leaves": n, "slices_bit_for_bit": same}
+            if arch == MESH_CHECK_ARCH and layout == MESH_ELASTIC[0]:
+                pipe = TokenPipeline(c.vocab, MESH_CHECK_BATCH,
+                                     MESH_CHECK_SEQ)
+                state, m = step_fn(state, pipe.batch_at(step))
+                row["next_loss"] = float(m["loss"])
+            row["seconds"] = time.perf_counter() - t0
+            out.append(row)
+            del like, state, step_fn
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_rank(rank, world, port, backend, jobs, results):
+    """One rank of phase 22 (spawned; every rank on the card 0): joins the
+    gloo group, makes the (data 2, model 2) mesh, then runs each job
+    ("train", (part, device, smoke, directories)) for part full, check,
+    cpu or elastic."""
+    import datetime
+    import traceback
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        from repro_torch.dist.sharding import make_mesh
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        mesh = make_mesh(np.arange(world).reshape(MESH_LAYOUT),
+                         ("data", "model"))
+        results.put((rank, "ready", None))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        try:
+            _, (part, dev, smoke, dirs) = job
+            if part == "full":
+                out = mesh_train_full_job(torch, np, mesh, dev, smoke,
+                                          dirs["a"])
+            elif part == "check":
+                out = mesh_train_check_job(torch, np, mesh, dev, smoke,
+                                           dirs["b"])
+            elif part == "cpu":
+                out = mesh_train_cpu_job(torch, np, mesh, dev, smoke)
+            else:
+                out = mesh_elastic_job(torch, np, dev, smoke, dirs)
+            results.put((rank, "ok", out))
+            del out
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+        except BaseException:
+            results.put((rank, "error", traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+def close_to(a: float, b: float) -> bool:
+    return math.isclose(a, b, rel_tol=MODEL_F32_TOL["rtol"],
+                        abs_tol=MODEL_F32_TOL["atol"])
+
+
+def mesh_train_phase(torch, np, card):
+    """Phase 22: training on a (data 2, model 2) mesh of four gloo ranks
+    sharing the card: (a) granite at full width through a crash and a
+    restart, (b) llama3.2-1b on the mesh against one device in float32,
+    (c) granite's card ranks against the same ranks on the CPU, (d) the
+    elastic restores.  The walls are of four processes that share one
+    card through the host, not a multi-GPU speed.  Each part prints its
+    seconds."""
+    import tempfile
+    dev, smoke = MODEL_DEV, MESH_SMOKE
+    t_all = time.perf_counter()
+    parts = {}
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
+        dirs = {"a": str(Path(tmp) / "a"), "b": str(Path(tmp) / "b")}
+        t = time.perf_counter()
+        ranks = DistRanks(MESH_RANKS, "gloo", target=mesh_train_rank)
+        parts["ranks_up"] = time.perf_counter() - t
+        try:
+            t = time.perf_counter()
+            a = ranks.run(("train", ("full", dev, smoke, dirs)))
+            parts["a"] = time.perf_counter() - t
+            cfg = mesh_cfg(TRAIN_ARCH, smoke, n_layers=MESH_TRAIN_DEPTH)
+            losses = [[s["loss"] for s in r["steps"]] for r in a]
+            ran = [s["step"] for s in a[0]["steps"]]
+            want = list(range(MESH_TRAIN_CRASH_AT)) + list(range(
+                MESH_TRAIN_CKPT_EVERY, MESH_TRAIN_STEPS))
+            first = {s["step"]: s["loss"] for s in
+                     a[0]["steps"][:MESH_TRAIN_CRASH_AT]}
+            replayed = {s["step"]: s["loss"] for s in
+                        a[0]["steps"][MESH_TRAIN_CRASH_AT:]
+                        if s["step"] in first}
+            timed = [s for s in a[0]["steps"][1:]]
+            row = {"phase": "mesh_train", "arch": cfg.name, "card": card,
+                   "mesh": dict(zip(("data", "model"), MESH_LAYOUT)),
+                   "ranks": MESH_RANKS,
+                   "transport": "gloo through the host, four processes "
+                                "sharing one card",
+                   "layers": cfg.n_layers, "dtype": cfg.dtype,
+                   "remat": cfg.remat, "optimizer": cfg.optimizer,
+                   "batch": MESH_TRAIN_BATCH, "seq": MESH_TRAIN_SEQ,
+                   "steps": MESH_TRAIN_STEPS,
+                   "ckpt_every": MESH_TRAIN_CKPT_EVERY,
+                   "crash_at": MESH_TRAIN_CRASH_AT, "steps_ran": ran,
+                   "losses": losses[0],
+                   "losses_equal_on_every_rank": all(
+                       x == losses[0] for x in losses),
+                   "replayed": {str(k): [first[k], v]
+                                for k, v in replayed.items()},
+                   "sent_bytes_per_step": statistics.median(
+                       s["sent"] for s in timed),
+                   "received_bytes_per_step": statistics.median(
+                       s["received"] for s in timed),
+                   "what": "host walls of eager steps of four ranks "
+                           "sharing one card through gloo; bytes are "
+                           "this rank's to and from the others"}
+            for k in ("resident_weight_bytes", "resident_opt_bytes",
+                      "reckoned", "peak", "p50_ms", "p99_ms",
+                      "tok_per_s", "steps_timed", "wall_s",
+                      "saved_bit_for_bit", "compare_s"):
+                row[k] = [r.get(k) for r in a]
+            emit(row)
+            if ran != want or not row["losses_equal_on_every_rank"] \
+                    or not all(math.isfinite(v) for v in losses[0]) \
+                    or not replayed or any(first[k] != v for k, v in
+                                           replayed.items()) \
+                    or any(r["final"] != MESH_TRAIN_STEPS for r in a) \
+                    or any(r["resident_weight_bytes"] !=
+                           r["reckoned"]["weights"] or
+                           r["resident_opt_bytes"] != r["reckoned"]["opt"]
+                           for r in a) \
+                    or not a[0]["saved_bit_for_bit"] \
+                    or a[0]["saved_leaves"] == 0:
+                raise AssertionError(f"22a: {row}")
+
+            t = time.perf_counter()
+            b = ranks.run(("train", ("check", dev, smoke, dirs)))
+            parts["b"] = time.perf_counter() - t
+            ok = all(r["leaves_within_tol"] for r in b) and all(
+                close_to(x, y) for r in b for m in r["metrics"]
+                for x, y in m.values())
+            mesh_metrics = [[{k: v[1] for k, v in m.items()}
+                             for m in r["metrics"]] for r in b]
+            same = all(m == mesh_metrics[0] for m in mesh_metrics)
+            row = {"phase": "mesh_train_vs_one_device",
+                   "arch": MESH_CHECK_ARCH, "card": card,
+                   "depth": MESH_CHECK_DEPTH, "dtype": "float32",
+                   "batch": MESH_CHECK_BATCH, "seq": MESH_CHECK_SEQ,
+                   "steps": MESH_CHECK_STEPS,
+                   "metrics_one_device_vs_mesh": b[0]["metrics"],
+                   "mesh_metrics_equal_on_every_rank": same,
+                   "max_abs_leaf_err": max(r["max_abs_leaf_err"]
+                                           for r in b),
+                   "leaves": b[0]["leaves"], "tol": MODEL_F32_TOL,
+                   "step_ms": [r["step_ms"] for r in b],
+                   "save_s": [r["save_s"] for r in b],
+                   "checkpoint_bytes": b[0]["checkpoint_bytes"]}
+            emit(row)
+            if not ok or not same:
+                raise AssertionError(f"22b: {row}")
+
+            t = time.perf_counter()
+            c = ranks.run(("train", ("cpu", dev, smoke, dirs)))
+            parts["c"] = time.perf_counter() - t
+            row = {"phase": "mesh_train_cuda_vs_cpu", "arch": TRAIN_ARCH,
+                   "card": card, "depth": MESH_CHECK_DEPTH,
+                   "dtype": "float32", "batch": MESH_CHECK_BATCH,
+                   "seq": MESH_CHECK_SEQ, "steps": MESH_CPU_STEPS,
+                   "card_losses": c[0]["card_losses"],
+                   "cpu_losses": c[0]["cpu_losses"],
+                   "max_abs_leaf_err": max(r["max_abs_leaf_err"]
+                                           for r in c),
+                   "leaves": c[0]["leaves"], "tol": MODEL_F32_TOL,
+                   "card_s": [r["card_s"] for r in c],
+                   "cpu_s": [r["cpu_s"] for r in c]}
+            emit(row)
+            if not all(r["leaves_within_tol"] for r in c) or not all(
+                    close_to(x, y) for r in c for x, y in zip(
+                        r["card_losses"], r["cpu_losses"])):
+                raise AssertionError(f"22c: {row}")
+
+            t = time.perf_counter()
+            d = ranks.run(("train", ("elastic", dev, smoke, dirs)))
+            parts["d"] = time.perf_counter() - t
+            want_next = b[0]["metrics"][MESH_CHECK_STEPS]["loss"][1]
+            nxt = [row["next_loss"] for r in d for row in r
+                   if "next_loss" in row]
+            row = {"phase": "mesh_train_elastic", "card": card,
+                   "restores": d[0], "next_loss_on_4x1": nxt,
+                   "next_loss_on_2x2": want_next, "tol": MODEL_F32_TOL,
+                   "seconds": [[x["seconds"] for x in r] for r in d]}
+            emit(row)
+            if not all(x["slices_bit_for_bit"] for r in d for x in r) \
+                    or len(nxt) != MESH_RANKS \
+                    or not all(close_to(v, want_next) for v in nxt):
+                raise AssertionError(f"22d: {row}")
+        finally:
+            ranks.close()
+    emit({"phase": "mesh_train_done", "seconds": time.perf_counter() - t_all,
+          "part_seconds": parts})
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4447,6 +4988,14 @@ def main() -> int:
     if "--train-only" in sys.argv[1:]:          # phase 20 alone
         train_phase(torch, np, card)
         lap("20")
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--mesh-train-only" in sys.argv[1:]:     # phase 22 alone
+        mesh_train_phase(torch, np, card)
+        lap("22")
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -4693,6 +5242,10 @@ def main() -> int:
     # --- 21. serving on a mesh -------------------------------------------------
     mesh_phase(torch, np, card)
     lap("21")
+
+    # --- 22. training on a mesh ------------------------------------------------
+    mesh_train_phase(torch, np, card)
+    lap("22")
     emit({"phase": "seconds", "of": "all",
           "seconds": time.perf_counter() - start})
 

@@ -34,7 +34,11 @@ ranks a mesh leaves out never take part after its making.  The few reads
 across PEs that are not collectives of the reference (the samples SSort
 pools, the merge-pass bound of the streamed exchange, the reassembled
 result) go through unrecorded helpers (:func:`sort_rows`,
-:func:`agree_max`, :func:`gather_ranks`, :func:`gather_pes`).
+:func:`agree_max`, :func:`gather_ranks`, :func:`gather_pes`).  A float
+``psum`` or ``all_to_all`` of a tensor that takes gradients is recorded
+by autograd (:func:`collective`): its backward is its transpose, a
+``psum`` of the gradient (the reference's ``psum`` transposes so) and an
+``all_to_all`` back along the same blocks.
 
 The trace.  The reference counts collectives at trace time, one event per
 call site execution with the per-PE bytes of each pytree leaf read off its
@@ -722,6 +726,30 @@ def _dist() -> Optional[Distributed]:
     return _VIEW.get().dist
 
 
+class _Collective(torch.autograd.Function):
+    """``fwd`` of tensors, linear in them, whose transpose is ``bwd``."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *xs):
+        ctx.bwd = bwd
+        return tuple(fwd(xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + tuple(ctx.bwd(tuple(g.contiguous()
+                                                  for g in gs)))
+
+
+def collective(fwd, bwd, *xs) -> tuple:
+    """``fwd(xs)``, a tuple of tensors computed from the tuple ``xs`` by a
+    collective linear in them; where autograd records any of ``xs``, the
+    call is recorded with ``bwd`` (gradients of the outputs → gradients
+    of ``xs``, run on every rank in the same order) as its backward."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return _Collective.apply(fwd, bwd, *xs)
+    return tuple(fwd(xs))
+
+
 def _one_row(x: torch.Tensor) -> None:
     if x.shape[0] != 1:
         raise ValueError(f"a rank holds one PE's row, not {x.shape[0]}")
@@ -1090,11 +1118,15 @@ def psum(x: torch.Tensor, axis_index_groups=None,
             out = x.clone()
             tdist.all_reduce(out, group=ax.group)
             return out
-        # floats and bools: the group's values summed in group order, the
-        # emulated PEs' sum bit for bit
-        g = _d_gather(ax, ax.members(axis_index_groups), x)
-        return g.reshape((1, 1) + tuple(g.shape[:1]) + tuple(
-            x.shape[1:])).sum(dim=2, dtype=x.dtype).reshape(x.shape)
+        members = ax.members(axis_index_groups)
+
+        def total(xs):
+            # floats and bools: the group's values summed in group order,
+            # the emulated PEs' sum bit for bit
+            g = _d_gather(ax, members, xs[0])
+            return (g.reshape((1, 1) + tuple(g.shape[:1]) + tuple(
+                x.shape[1:])).sum(dim=2, dtype=x.dtype).reshape(x.shape),)
+        return collective(total, total, x)[0]
     d, p = _split(x)
     groups = _flat_groups(axis_index_groups, axis)
     rest = tuple(x.shape[1:])
@@ -1180,8 +1212,11 @@ def all_to_all(x: torch.Tensor, axis_index_groups=None,
         if x.shape[1] % len(members):
             raise ValueError(f"dimension 1 ({x.shape[1]}) must split into "
                              f"{len(members)} blocks")
-        return _d_alltoall(ax, members, x.reshape(
-            (len(members), -1) + rest)).reshape(x.shape)
+
+        def exchange(xs):        # its own transpose: the blocks go back
+            return (_d_alltoall(ax, members, xs[0].reshape(
+                (len(members), -1) + rest)).reshape(x.shape),)
+        return collective(exchange, exchange, x)[0]
     d, p = _split(x)
     members, rank = _tables(p, _flat_groups(axis_index_groups, axis),
                             x.device)

@@ -21,12 +21,20 @@ one per mesh dimension (``Shard(i)`` or ``Replicate()`` of
 ``torch.distributed.tensor``), by the reference's rule: the largest
 non-leading dimension that ``model`` divides, the first on a tie, over
 ``model``; a ``Stacked`` leaf's dimension 0 is the layer stack, never
-split; ``cfg.ddp``, or no ``model`` > 1, replicates.  ``shard_act`` is
-the rule for which block of an activation a rank holds: its rows over
-the data axes when the batch divides them (every row otherwise), and
-``gather_blocks`` puts the blocks of every rank back together.  A mesh
-changes where data lives, never what is computed: the gathers only
-concatenate.
+split; ``cfg.ddp``, or no ``model`` > 1, replicates.
+``named_shardings`` pairs each leaf's placements with the mesh (the
+reference's ``NamedSharding``), which cuts a whole leaf to a rank's slice
+and puts the slices back together.  ``shard_act`` is the rule for which
+block of an activation a rank holds: its rows over the data axes when
+the batch divides them (every row otherwise), and ``gather_blocks`` puts
+the blocks of every rank back together.  A mesh changes where data
+lives, never what is computed: the gathers only concatenate.
+
+Gradients pass the gathers: a gather of a tensor that takes gradients
+is recorded by autograd, and its backward is the transposed collective,
+a reduce-scatter over the same axes (each rank's share of the whole
+gradient summed in rank order, the sum of its own block kept).  Tensors
+that take no gradient move as bytes.
 """
 from __future__ import annotations
 
@@ -52,6 +60,17 @@ def mesh_sizes(mesh) -> Dict[str, int]:
     """A mesh's axis sizes by name, in order (the reference's
     ``Mesh.shape``)."""
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def check_world(mesh) -> None:
+    """A model mesh must hold every rank of the process group (no mesh:
+    nothing to check)."""
+    if mesh is None:
+        return
+    ranks = int(np.prod(list(mesh_sizes(mesh).values())))
+    if ranks != world_ranks():
+        raise ValueError(f"a mesh of {ranks} ranks in a process group of "
+                         f"{world_ranks()}")
 
 
 def make_mesh(layout: np.ndarray, names: Tuple[str, ...]):
@@ -271,19 +290,9 @@ def _rule(shape, model: int, ddp: bool) -> Optional[int]:
     return None
 
 
-def make_shardings(tree, cfg, mesh):
-    """The placements of every leaf of a parameter or optimizer tree on
-    ``mesh``: a tuple with one ``Shard(i)``/``Replicate()`` per mesh
-    dimension, ``i`` a dimension of the leaf's reference shape ((L, …) for
-    a ``Stacked`` leaf).  ``tree`` is a module (its ``param_tree``) or a
-    tree of anything with a shape; no mesh gives a tree of None."""
-    from torch import nn
+def _placer(cfg, mesh):
+    """The rule as a function of a leaf: its placements on ``mesh``."""
     from torch.distributed.tensor import Replicate, Shard
-    from repro_torch.optim.tree import map_leaves, param_tree
-    if isinstance(tree, nn.Module):
-        tree = param_tree(tree)
-    if mesh is None:
-        return map_leaves(lambda _: None, tree)
     sizes = mesh_sizes(mesh)
     ddp = bool(getattr(cfg, "ddp", False)) if cfg is not None else False
 
@@ -292,8 +301,91 @@ def make_shardings(tree, cfg, mesh):
                     sizes.get("model", 1), ddp)
         return tuple(Shard(dim) if a == "model" and dim is not None
                      else Replicate() for a in sizes)
+    return rule
 
-    return map_leaves(rule, tree)
+
+def make_shardings(tree, cfg, mesh):
+    """The placements of every leaf of a parameter or optimizer tree on
+    ``mesh``: a tuple with one ``Shard(i)``/``Replicate()`` per mesh
+    dimension, ``i`` a dimension of the leaf's reference shape ((L, …) for
+    a ``Stacked`` leaf).  ``tree`` is a module (its ``param_tree``) or a
+    tree of anything with a shape; no mesh gives a tree of None."""
+    from torch import nn
+    from repro_torch.optim.tree import map_leaves, param_tree
+    if isinstance(tree, nn.Module):
+        tree = param_tree(tree)
+    if mesh is None:
+        return map_leaves(lambda _: None, tree)
+    return map_leaves(_placer(cfg, mesh), tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's placements on a mesh (the reference's ``NamedSharding``):
+    which slice of the whole leaf each rank holds, and how the slices go
+    back together.  A leaf is a tensor, a ``Stacked`` (its dimension 0
+    the layers, never split) or a number (always whole)."""
+    mesh: object
+    placements: tuple
+
+    def spec(self, ndim: int) -> List[Tuple[str, ...]]:
+        return placement_spec(self.placements, self.mesh, ndim)
+
+    def split_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the leaf is split over."""
+        return tuple(a for a, pl in zip(self.mesh.mesh_dim_names,
+                                        self.placements) if pl.is_shard())
+
+    def replicated_axes(self) -> Tuple[str, ...]:
+        """The mesh axes of more than one rank that hold the same slice."""
+        sizes = mesh_sizes(self.mesh)
+        return tuple(a for a in sizes
+                     if sizes[a] > 1 and a not in self.split_axes())
+
+    def slices(self, shape) -> Tuple[slice, ...]:
+        """This rank's slice of a whole leaf of ``shape``."""
+        return leaf_slices(tuple(shape), self.placements, self.mesh)
+
+    def cut(self, leaf):
+        """This rank's slice of a whole ``leaf`` (views)."""
+        from repro_torch.optim.tree import Stacked
+        if isinstance(leaf, (int, float)):
+            return leaf
+        cut = self.slices(leaf.shape)
+        if isinstance(leaf, Stacked):
+            return Stacked(t[cut[1:]] for t in leaf)
+        return leaf[cut]
+
+    def whole(self, leaf):
+        """The whole leaf of this rank's slice ``leaf``, put together from
+        every rank's (collective over the split axes; bytes, no
+        gradient)."""
+        from repro_torch.optim.tree import Stacked
+        if isinstance(leaf, (int, float)) or not self.split_axes():
+            return leaf
+        stacked = isinstance(leaf, Stacked)
+        spec = self.spec(leaf.ndim)[1:] if stacked else self.spec(leaf.ndim)
+
+        def one(t):
+            t = t.detach()
+            for dim, axes in enumerate(spec):
+                if axes:
+                    t = gather_blocks(t, self.mesh, axes, dim=dim)
+            return t
+        return Stacked(one(t) for t in leaf) if stacked else one(leaf)
+
+
+def named_shardings(tree, cfg, mesh):
+    """:func:`make_shardings` with each leaf's placements and the mesh in
+    one :class:`Sharding` (no mesh: a tree of None)."""
+    from torch import nn
+    from repro_torch.optim.tree import map_leaves, param_tree
+    if isinstance(tree, nn.Module):
+        tree = param_tree(tree)
+    if mesh is None:
+        return map_leaves(lambda _: None, tree)
+    rule = _placer(cfg, mesh)
+    return map_leaves(lambda leaf: Sharding(mesh, rule(leaf)), tree)
 
 
 def placement_spec(placements, mesh, ndim: int) -> List[Tuple[str, ...]]:
@@ -312,6 +404,20 @@ def leaf_slices(shape, placements, mesh) -> Tuple[slice, ...]:
                         mesh)
 
 
+def mesh_barrier(mesh) -> None:
+    """Wait until every rank of ``mesh`` is here (a barrier on each
+    axis's group in turn: passing the last, a rank knows every rank
+    reached the first)."""
+    for name in mesh.mesh_dim_names:
+        if mesh_sizes(mesh)[name] > 1:
+            tdist.barrier(group=mesh.get_group(name))
+
+
+# ---------------------------------------------------------------------------
+# Transport: gathers, and their transposes
+# ---------------------------------------------------------------------------
+
+
 def _all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """(size of ``axis``,) + t.shape: every rank's ``t`` along ``axis``
     (equal shapes), in axis order, carried as bytes by the port's
@@ -323,39 +429,158 @@ def _all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out.view(t.dtype).reshape((out.shape[0],) + tuple(t.shape))
 
 
+def _exchange(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Block j of ``t`` (n, …) to the rank at position j along ``axis``;
+    returns (n, …), block j the one position j sent here (bytes,
+    unrecorded)."""
+    from repro_torch.core import comm
+    buf = t.contiguous().view(torch.uint8).reshape(t.shape[0], -1)
+    with comm.distributed(mesh, axis=axis) as d:
+        ax = d.axis(axis)
+        out = comm._d_alltoall(ax, list(range(ax.size)), buf)
+    return out.view(t.dtype).reshape(t.shape)
+
+
+def sum_rows(rows: torch.Tensor) -> torch.Tensor:
+    """``rows[0] + rows[1] + …`` in that order, accumulated in float32,
+    in the rows' dtype."""
+    acc = rows[0].to(torch.float32, copy=True)
+    for r in rows[1:]:
+        acc += r
+    return acc.to(rows.dtype)
+
+
+def _reduce_scatter(g: torch.Tensor, mesh, axis: str, dim: int
+                    ) -> torch.Tensor:
+    """Block i of ``g`` along ``dim`` (cut into the size of ``axis``)
+    summed over the ranks of ``axis``, on the rank at position i: the
+    transpose of a gather along ``dim``."""
+    n = mesh_sizes(mesh)[axis]
+    parts = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
+    return sum_rows(_exchange(parts, mesh, axis))
+
+
 def gather_blocks(t: torch.Tensor, mesh, axes: Sequence[str],
                   dim: int = 0) -> torch.Tensor:
     """Every rank's block ``t`` across ``axes`` (the first major, as in a
     spec) concatenated along ``dim``: the whole of what :func:`shard_act`
-    or :func:`leaf_slices` cut, on every rank.  Exact: it only copies."""
-    for a in reversed(tuple(axes)):
-        if mesh_sizes(mesh)[a] == 1:
-            continue
-        g = _all_gather(t, mesh, a)                  # (n,) + t.shape
-        t = g.movedim(0, dim).flatten(dim, dim + 1)
-    return t
+    or :func:`leaf_slices` cut, on every rank.  Exact: it only copies.
+    Its backward sums each rank's gradient of the whole into the blocks'
+    owners (a reduce-scatter over ``axes``)."""
+    from repro_torch.core import comm
+    axes = tuple(a for a in axes if mesh_sizes(mesh)[a] > 1)
+    if not axes:
+        return t
+
+    def gather(xs):
+        x = xs[0]
+        for a in reversed(axes):
+            g = _all_gather(x, mesh, a)              # (n,) + x.shape
+            x = g.movedim(0, dim).flatten(dim, dim + 1)
+        return (x,)
+
+    def scatter(gs):
+        g = gs[0]
+        for a in axes:
+            g = _reduce_scatter(g, mesh, a, dim)
+        return (g,)
+    return comm.collective(gather, scatter, t)[0]
+
+
+def _packed(ts: Sequence[torch.Tensor], rows: int):
+    """The bytes of each (rows, …) tensor of ``ts`` side by side in one
+    (rows, total) uint8 buffer, each padded to 16 bytes; and each one's
+    (offset, bytes)."""
+    nbytes = [t[0].numel() * t.element_size() for t in ts]
+    pads = [-(-n // 16) * 16 for n in nbytes]
+    buf = ts[0].new_empty((rows, sum(pads)), dtype=torch.uint8)
+    at, off = [], 0
+    for t, n, pad in zip(ts, nbytes, pads):
+        buf[:, off:off + n] = t.contiguous().view(torch.uint8).reshape(
+            rows, -1)
+        at.append((off, n))
+        off += pad
+    return buf, at
 
 
 def gather_model(shards: Sequence[torch.Tensor], dims: Sequence[int],
                  mesh, axis: str = "model") -> List[torch.Tensor]:
     """Each of ``shards`` whole: every rank's shard along ``axis``
     concatenated along its dimension in ``dims``, all of them in one
-    gather of their bytes (each padded to 16 bytes)."""
+    gather of their bytes (each padded to 16 bytes).  Its backward
+    reduce-scatters the gradients of the wholes in one exchange."""
+    from repro_torch.core import comm
     if not shards:
         return []
-    nbytes = [t.numel() * t.element_size() for t in shards]
-    pads = [-(-n // 16) * 16 for n in nbytes]
-    buf = shards[0].new_empty(sum(pads), dtype=torch.uint8)
-    off = 0
-    for t, n, pad in zip(shards, nbytes, pads):
-        buf[off:off + n] = t.contiguous().view(torch.uint8).reshape(-1)
-        off += pad
-    g = _all_gather(buf, mesh, axis)                 # (m, total bytes)
-    del buf
-    out, off = [], 0
-    for t, n, pad, d in zip(shards, nbytes, pads, dims):
-        part = g[:, off:off + n].view(t.dtype).reshape(
-            (g.shape[0],) + tuple(t.shape))
-        out.append(part.movedim(0, d).flatten(d, d + 1))
-        off += pad
+    shapes = [tuple(t.shape) for t in shards]
+
+    def gather(xs):
+        buf, at = _packed([t.reshape(1, -1) for t in xs], 1)
+        g = _all_gather(buf[0], mesh, axis)          # (m, total bytes)
+        del buf
+        out = []
+        for t, (off, n), d in zip(xs, at, dims):
+            part = g[:, off:off + n].view(t.dtype).reshape(
+                (g.shape[0],) + tuple(t.shape))
+            out.append(part.movedim(0, d).flatten(d, d + 1))
+        return tuple(out)
+
+    def scatter(gs):
+        m = mesh_sizes(mesh)[axis]
+        parts = [g.unflatten(d, (m, g.shape[d] // m)).movedim(d, 0).reshape(
+            m, -1) for g, d in zip(gs, dims)]
+        buf, at = _packed(parts, m)
+        del parts
+        got = _exchange(buf, mesh, axis)             # (m, total bytes)
+        del buf
+        return tuple(sum_rows(got[:, off:off + n].view(g.dtype).reshape(
+            (m,) + shape)) for g, (off, n), shape in zip(gs, at, shapes))
+    return list(comm.collective(gather, scatter, *shards))
+
+
+_BUCKET_BYTES = 1 << 26        # the most one reduction exchanges at a time
+
+
+def _all_reduce(flat: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The 1-D ``flat`` summed over the ranks of ``axis``: each rank sums
+    one block in rank order (a reduce-scatter), then every rank gathers
+    the sums, so every rank holds the same bits."""
+    n = mesh_sizes(mesh)[axis]
+    size = flat.numel()
+    pad = -size % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    mine = sum_rows(_exchange(flat.view(n, -1), mesh, axis))
+    return _all_gather(mine, mesh, axis).reshape(-1)[:size]
+
+
+def reduce_replicas(tensors: Sequence[torch.Tensor],
+                    shardings: Sequence[Sharding]) -> List[torch.Tensor]:
+    """Each of ``tensors`` (this rank's slice of a leaf under its
+    sharding) summed over the axes along which the leaf is replicated,
+    one axis after another, each element in rank order: every rank
+    holding a slice ends with the same bits.  Tensors of one dtype and
+    one set of axes go together, up to 64 MiB an exchange."""
+    out = list(tensors)
+    groups: Dict[tuple, List[List[int]]] = {}
+    for k, sh in enumerate(shardings):
+        if sh is None or not sh.replicated_axes():
+            continue
+        buckets = groups.setdefault((sh.replicated_axes(), out[k].dtype),
+                                    [[]])
+        size = sum(out[j].numel() * out[j].element_size()
+                   for j in buckets[-1])
+        if buckets[-1] and size + out[k].numel() * out[k].element_size() \
+                > _BUCKET_BYTES:
+            buckets.append([])
+        buckets[-1].append(k)
+    for (axes, _), buckets in groups.items():
+        mesh = shardings[buckets[0][0]].mesh
+        for ks in buckets:
+            flat = torch.cat([out[k].reshape(-1) for k in ks])
+            for a in axes:
+                flat = _all_reduce(flat, mesh, a)
+            for k, part in zip(ks, flat.split([out[k].numel()
+                                               for k in ks])):
+                out[k] = part.view(out[k].shape)
     return out

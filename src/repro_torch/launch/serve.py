@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.types import resolve_device
-from repro_torch.dist.sharding import (local_rows, make_mesh, mesh_sizes,
+from repro_torch.dist.sharding import (check_world, local_rows, make_mesh,
                                        world_ranks)
 from repro_torch.launch import steps as S
 from repro_torch.launch.sort_serve import _join_ranks, latency_stats
@@ -59,11 +59,7 @@ def serve(cfg, mesh=None, *, batch: int, tokens: int, cache_len: int = 256,
     once its tokens are on the host.  On a mesh every rank of the process
     group calls it alike and gets the whole tokens; the mesh must hold
     every rank of the group."""
-    if mesh is not None:
-        ranks = int(np.prod(list(mesh_sizes(mesh).values())))
-        if ranks != world_ranks():
-            raise ValueError(f"a mesh of {ranks} ranks in a process group "
-                             f"of {world_ranks()}")
+    check_world(mesh)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = shard_params(T.init_params(cfg, gen, device=dev), cfg, mesh)
@@ -118,15 +114,25 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    mesh = None
-    if args.mesh:
-        dd, mm = (int(x) for x in args.mesh.split(","))
-        _join_ranks(args.device)
-        if dd * mm > 1 or world_ranks():
-            mesh = make_mesh(np.arange(dd * mm).reshape(dd, mm),
-                             ("data", "model"))
-    return serve(cfg, mesh, batch=args.batch, tokens=args.tokens,
-                 device=args.device)
+    return serve(cfg, cli_mesh(args.mesh, args.device), batch=args.batch,
+                 tokens=args.tokens, device=args.device)
+
+
+def cli_mesh(spec, device):
+    """``--mesh d,m``: none, or the (data, model) mesh of the process
+    group ``torchrun`` describes (joined here: gloo for ``--device cpu``,
+    NCCL otherwise); ``1,1`` without a group is no mesh.  A mesh of
+    another size than the group's raises."""
+    if spec is None or spec.lower() == "none":
+        return None
+    dd, mm = (int(x) for x in spec.split(","))
+    _join_ranks(device)
+    if dd * mm != max(world_ranks(), 1):
+        raise ValueError(f"a mesh of {dd * mm} ranks in a process group of "
+                         f"{world_ranks()}")
+    if not world_ranks():
+        return None
+    return make_mesh(np.arange(dd * mm).reshape(dd, mm), ("data", "model"))
 
 
 if __name__ == "__main__":

@@ -3,27 +3,42 @@
 ``abstract_state`` and ``sharded_specs`` feed the reference's XLA dry-run
 and wait with it.
 
-The serve and prefill steps run on a mesh too (SPMD on its ranks, the
-batch's rows over its data axes: ``models.transformer``); the train step
-runs on one device (the model's): training on a mesh is ROADMAP item
-10c.  It takes the reference's step: the loss and its gradients, the
-optimizer's update of the weights and moments (in place), and the
-metrics ``loss``, ``lr`` and ``grad_norm`` (the square root of the
-float32 sum of squares over every gradient) as 0-d tensors.
+Every step runs on one device (the model's) or SPMD on the ranks of a
+mesh (``models.transformer``: every rank passes the whole batch, keeps
+its rows over the data axes, and holds its slices of the weights,
+gathered whole at use).  The train step takes the reference's step: the
+loss and its gradients, the optimizer's update of the weights and
+moments (in place), and the metrics ``loss``, ``lr`` and ``grad_norm``
+(the square root of the float32 sum of squares over every gradient) as
+0-d tensors, the same on every rank.
+
+On a mesh (:func:`loss_and_grads`) each rank backpropagates its share of
+the global loss (``loss / ranks``); every gather passes the gradient back
+as a reduce-scatter, so a weight split over ``model`` has, on each rank,
+its slice's gradient of the rank's rows, and :func:`reduce_replicas`
+sums it over the axes the weight is replicated along (the data axes, and
+``model`` for a weight it does not split, or under ``cfg.ddp``), in rank
+order.  Each rank then holds its slices of the global gradient, the
+reference's under GSPMD.  The optimizer state is placed by
+``make_shardings`` on each state leaf's own shape
+(:func:`state_shardings`); ``grad_norm`` counts each element once.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import contextlib
+import functools
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.sharding import data_axes_of
+from repro_torch.dist.sharding import (data_axes_of, mesh_sizes,
+                                       named_shardings, reduce_replicas,
+                                       sum_rows, _all_gather)
 from repro_torch.models import transformer as T
 from repro_torch.optim import cosine_schedule, make_optimizer
+from repro_torch.optim import tree as tr
 from repro_torch.optim.tree import Stacked, layers, param_tree
-
-_MESH = ("training on a mesh (make_shardings, sharded optimizer state) is "
-         "ROADMAP item 10c, not ported yet")
 
 
 class TrainState(NamedTuple):
@@ -44,36 +59,127 @@ def batch_on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def state_shardings(cfg, mesh) -> Optional[TrainState]:
+    """The :class:`~repro_torch.dist.sharding.Sharding` of every leaf of
+    a training state of ``cfg`` on ``mesh``: the weights' (by the
+    reference's paths), the optimizer state's, each by the rule on its
+    own whole shape, and the step's (whole); None without a mesh."""
+    if mesh is None:
+        return None
+    params = param_tree(T.Transformer(cfg, torch.device("meta")))
+    opt_init, _ = make_optimizer(cfg.optimizer)
+    return TrainState(named_shardings(params, cfg, mesh),
+                      named_shardings(opt_init(params), cfg, mesh),
+                      named_shardings(0, cfg, mesh))
+
+
+def loss_and_grads(model, batch: Dict[str, torch.Tensor], cfg, mesh=None,
+                   data_axes=("data",), shardings=None):
+    """(loss, grads): ``loss_fn`` on ``batch`` and the gradient of every
+    weight, keyed by the reference's paths (a ``Stacked`` per block leaf).
+    On a mesh every rank passes the whole batch and gets the global loss
+    and its slices of the global gradient (``shardings``: the weights'
+    :func:`state_shardings`, made here where not given)."""
+    model.zero_grad(set_to_none=True)
+    loss = T.loss_fn(model, batch, cfg, mesh, data_axes)
+    if mesh is None:
+        loss.backward()
+    else:
+        # each rank backpropagates its share of the loss every rank holds
+        ranks = math.prod(mesh_sizes(mesh).values())
+        loss.backward(torch.full_like(loss, 1.0 / ranks))
+    params = param_tree(model)
+    grads = {k: tuple(t.grad if t.grad is not None else torch.zeros_like(t)
+                      for t in layers(v)) for k, v in params.items()}
+    model.zero_grad(set_to_none=True)
+    if mesh is not None:
+        if shardings is None:
+            shardings = state_shardings(cfg, mesh).params
+        keys = [k for k in grads for _ in grads[k]]
+        flat = reduce_replicas([g for k in grads for g in grads[k]],
+                               [shardings[k] for k in keys])
+        it = iter(flat)
+        grads = {k: tuple(next(it) for _ in v) for k, v in grads.items()}
+    return loss.detach(), {k: Stacked(v) if isinstance(params[k], Stacked)
+                           else v[0] for k, v in grads.items()}
+
+
+def grad_norm(grads, shardings=None) -> torch.Tensor:
+    """The global norm of ``grads`` (a rank's slices on a mesh, with the
+    weights' shardings): the float32 sum of squares of each leaf's slice,
+    summed over the axes the leaf is split along, each element counted
+    once."""
+    parts: Dict[tuple, torch.Tensor] = {}
+    for key, leaf in grads.items():
+        axes = shardings[key].split_axes() if shardings else ()
+        for g in layers(leaf):
+            parts[axes] = parts.get(axes, 0.0) + g.float().square().sum()
+    total = 0.0
+    for axes in sorted(parts):
+        part = parts[axes].reshape(1)
+        for a in axes:
+            part = sum_rows(_all_gather(part, shardings[key].mesh, a))
+        total = total + part[0]
+    return torch.sqrt(total)
+
+
+@contextlib.contextmanager
+def _whole_leaf(shardings, key, parts):
+    """Adafactor's view of one leaf on a mesh: (gradient, vr, vc, weight)
+    whole, gathered from the ranks' slices; on closing, this rank's slices
+    of the updated vr, vc and weight written back."""
+    shs = (shardings.params[key], shardings.opt.vr[key],
+           shardings.opt.vc[key], shardings.params[key])
+    full = tuple(sh.whole(x) for x, sh in zip(parts, shs))
+    yield full
+    with torch.no_grad():
+        for x, f, sh in zip(parts[1:], full[1:], shs[1:]):
+            if f is not x:                   # split: keep this rank's slice
+                for dst, src in zip(layers(x), layers(sh.cut(f))):
+                    dst.copy_(src)
+
+
 def make_train_step(cfg, mesh, *, peak_lr: float = 3e-4, warmup: int = 200,
                     total: int = 10000):
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    """(step, init): ``step(state, numpy batch) → (state, metrics)`` and
+    ``init(model) → optimizer state``, on one device or, SPMD, on the
+    ranks of ``mesh`` (the model sharded at rest on it, the optimizer
+    state placed by :func:`state_shardings`)."""
     opt_init, opt_update = make_optimizer(cfg.optimizer)
+    dax = data_axes_of(mesh) if mesh is not None else ("data",)
+    shards = state_shardings(cfg, mesh)
+    whole = None if shards is None else functools.partial(_whole_leaf,
+                                                          shards)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         model = state.params
         lr = cosine_schedule(state.step, peak_lr=peak_lr, warmup=warmup,
                              total=total)
         dev = next(model.parameters()).device
-        model.zero_grad(set_to_none=True)
-        loss = T.loss_fn(model, batch_on(batch, dev), cfg, mesh)
-        loss.backward()
-        params = param_tree(model)
-        grads = {k: Stacked(t.grad for t in v) if isinstance(v, Stacked)
-                 else v.grad for k, v in params.items()}
-        gnorm = torch.zeros((), dtype=torch.float32, device=dev)
-        for leaf in grads.values():
-            for g in layers(leaf):
-                gnorm = gnorm + g.float().square().sum()
-        _, opt = opt_update(grads, state.opt, params, lr=lr)
+        loss, grads = loss_and_grads(
+            model, batch_on(batch, dev), cfg, mesh, dax,
+            None if shards is None else shards.params)
+        gnorm = grad_norm(grads, None if shards is None else shards.params)
+        _, opt = opt_update(grads, state.opt, param_tree(model), lr=lr,
+                            whole=whole)
         del grads
-        model.zero_grad(set_to_none=True)
         return (TrainState(model, opt, state.step + 1),
-                {"loss": loss.detach(), "lr": lr,
-                 "grad_norm": torch.sqrt(gnorm)})
+                {"loss": loss, "lr": lr, "grad_norm": gnorm})
 
     def init(model):
-        return opt_init(param_tree(model))
+        params = param_tree(model)
+        if shards is None:
+            return opt_init(params)
+        dev = layers(next(iter(params.values())))[0].device
+
+        def zeros(like, sh):                 # this rank's slice of zeros
+            if isinstance(like, int):
+                return like
+            cut = [torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                   for t in layers(sh.cut(like))]
+            return Stacked(cut) if isinstance(like, Stacked) else cut[0]
+        meta = param_tree(T.Transformer(cfg, torch.device("meta")))
+        return tr.map_with(zeros, opt_init(meta), shards.opt)
 
     return train_step, init
 

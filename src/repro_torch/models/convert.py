@@ -22,8 +22,10 @@ weights sharded at rest, gathered whole at use by ``forward`` and
 ``train_state_from_jax`` carries a whole training state across: the
 reference's ``TrainState`` (weights, AdamW or Adafactor state, step) as
 the port's, the model taking gradients and the moments of a stacked leaf
-held per layer (``optim.tree.Stacked``).  ``train_state_leaves`` is its
-inverse: the port's state as the reference's ``jax.tree.leaves``.
+held per layer (``optim.tree.Stacked``); with a mesh, this rank's slices
+of every leaf, placed as ``launch.steps.state_shardings`` says.
+``train_state_leaves`` is its inverse: the port's state as the
+reference's ``jax.tree.leaves`` (on a mesh, this rank's slices).
 """
 from __future__ import annotations
 
@@ -161,14 +163,17 @@ def decode_state_from_jax(cfg, state, device=None) -> DecodeState:
     raise ValueError(cfg.family)
 
 
-def train_state_from_jax(cfg, tree, device=None):
+def train_state_from_jax(cfg, tree, device=None, mesh=None):
     """The port's ``TrainState`` of the reference's (its leaves as numpy
     arrays): the model (``params_from_jax``, taking gradients), the
     optimizer state over its ``param_tree`` and the step, on ``device``
-    (the card unless ``device="cpu"``)."""
+    (the card unless ``device="cpu"``); with a mesh, this rank's slices
+    of each."""
+    from repro_torch.launch.steps import state_shardings
     dev = resolve_device(device)
-    model = params_from_jax(cfg, tree.params, device=dev).requires_grad_(True)
-    params = tr.param_tree(model)
+    model = params_from_jax(cfg, tree.params, device=dev,
+                            mesh=mesh).requires_grad_(True)
+    params = tr.param_tree(Transformer(cfg, torch.device("meta")))
 
     def moments(sub, per_layer: bool):
         flat = {tuple(k.split(".")): v for k, v in _flatten(sub).items()}
@@ -189,6 +194,13 @@ def train_state_from_jax(cfg, tree, device=None):
     else:
         opt = AdafactorState(moments(opt.vr, False), moments(opt.vc, False),
                              step)
+    if mesh is not None:                         # keep this rank's slices
+        def cut(leaf, sh):
+            part = sh.cut(leaf)
+            if isinstance(part, tr.Stacked):
+                return tr.Stacked(t.clone() for t in part)
+            return part.clone() if torch.is_tensor(part) else part
+        opt = tr.map_with(cut, opt, state_shardings(cfg, mesh).opt)
     return TrainState(model, opt, int(np.asarray(tree.step)))
 
 

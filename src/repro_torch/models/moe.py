@@ -20,6 +20,12 @@ the reference.  Layouts:
     (``comm.distributed``): every rank passes the whole x, takes its
     block, and gets y back whole, as the port's ``psort`` does.
 
+Gradients pass both distributed layouts as the reference's transposes
+them: the feature payloads and combine weights go back along the
+exchange's blocks (``comm.all_to_all`` is its own transpose), the slot
+maps are integers and carry none, ``moe_tp_shardmap``'s ``psum``
+transposes to a ``psum``, and the gathers of y to reduce-scatters.
+
 Floats are computed PE by PE in both expert-parallel layouts (the
 router, each PE's experts on its (e_per, cap, D) buffer, the route-back
 sum), so the emulated and the distributed runs are equal bit for bit: a
@@ -288,9 +294,20 @@ def _mesh_block(mesh, data_axes, model_axis: str):
 
 def _gather_whole(t, mesh, axes):
     """Every rank's block ``t`` over ``axes`` (the first varying fastest),
-    concatenated: the whole result on every rank."""
-    with comm.distributed(mesh, axis=axes[0]):
-        return comm.gather_ranks(t.reshape(-1), axes)
+    concatenated: the whole result on every rank (its backward a
+    reduce-scatter, ``dist.sharding.gather_blocks``)."""
+    from repro_torch.dist.sharding import gather_blocks
+    return gather_blocks(t.reshape(-1), mesh, tuple(axes)[::-1])
+
+
+def _row0_mean(aux):
+    """The mean of row 0 of aux (d, ep): the reference's ``out_specs
+    P(model_axis)`` reads data row 0.  Its gradient is the mean's over
+    every row, as the reference's ``shard_map`` transposes an output it
+    does not map over the data axes: the cotangent divided by d on every
+    data row."""
+    spread = aux.mean()
+    return aux[0].mean().detach() + (spread - spread.detach())
 
 
 def moe_ep_shardmap(x, p, cfg, mesh, *, data_axes, model_axis="model",
@@ -312,8 +329,8 @@ def moe_ep_shardmap(x, p, cfg, mesh, *, data_axes, model_axis="model",
                                  slot_factor)
     axes = (model_axis,) + data_axes[::-1]
     y = _gather_whole(y, mesh, axes).reshape(d, ep, B // d, S // ep, D)
-    aux = _gather_whole(aux, mesh, axes).reshape(d, ep)[0]
-    return y.movedim(1, 2).reshape(B, S, D), aux.mean()
+    aux = _gather_whole(aux, mesh, axes).reshape(d, ep)
+    return y.movedim(1, 2).reshape(B, S, D), _row0_mean(aux)
 
 
 def moe_tp_shardmap(x, p, cfg, mesh, *, data_axes,
@@ -341,8 +358,8 @@ def moe_tp_shardmap(x, p, cfg, mesh, *, data_axes,
         y = comm.psum(y[None])[0]
     axes = ("model",) + data_axes[::-1]
     y = _gather_whole(y, mesh, data_axes[::-1]).reshape(B, S, D)
-    aux = _gather_whole(aux.reshape(1), mesh, axes).reshape(d, m)[0]
-    return y, aux.mean()
+    aux = _gather_whole(aux.reshape(1), mesh, axes).reshape(d, m)
+    return y, _row0_mean(aux)
 
 
 def moe_apply(x, p, cfg, mesh=None, *, data_axes=("data",),

@@ -28,12 +28,22 @@ one block's weights are whole at a time.  Where rows mix, the MoE layer,
 the rows are gathered and it runs on the whole batch, as the reference's
 does under jit; context-parallel attention splits the query blocks over
 ``model``.  The gathers only concatenate, so each rank computes what one
-device computes on its rows.  Gradients on a mesh are ROADMAP item 10c.
+device computes on its rows.
+
+Gradients on a mesh pass every gather as its transpose, a reduce-scatter
+(``dist.sharding``), and each rank computes the global loss: a caller
+that takes its share of it (``loss / ranks``, as
+``launch.steps.loss_and_grads`` does) and then sums each weight's
+gradient over the axes it is replicated along gets the global gradient
+of its slices.
 
 ``cfg.remat`` applies where gradients are taken: ``"full"`` recomputes
 each block in the backward pass (``torch.utils.checkpoint``, hybrid's
 shared block included), as the reference's ``jax.checkpoint`` of its scan
-body saves nothing; ``"none"`` keeps every activation.  ``"dots"`` (save
+body saves nothing; ``"none"`` keeps every activation.  A block's gather
+at use runs inside the recomputed function, so under ``"full"`` the
+backward gathers its weights again, as the reference's recompute does,
+and no layer's whole weights outlive its block.  ``"dots"`` (save
 the matmuls' outputs) is set only by the reference's dry-run variants,
 which are not ported.
 """
@@ -200,9 +210,6 @@ def _moe(x, p, cfg, mesh, data_axes, rows):
 # On a mesh: weights whole at use, the batch's rows
 # ---------------------------------------------------------------------------
 
-_GRAD_ON_MESH = ("gradients on a mesh (training on a mesh) are ROADMAP "
-                 "item 10c, not ported yet")
-
 
 def _namespace(mod, full, path: str, only):
     ns = SimpleNamespace()
@@ -247,15 +254,22 @@ def _head_names(cfg) -> set:
     return {"norm_f", "embed" if cfg.tie_embeddings else "head"}
 
 
-def _on_mesh(model, inputs, mesh, cfg=None) -> Tuple[dict, tuple]:
+def _top(model, cfg, whole):
+    """(the input embedding's part, a function giving the head's): a tied
+    embedding is gathered once, for the input and the head both."""
+    if "embed" in _head_names(cfg):
+        top = whole(model, "", _head_names(cfg))
+        return top, lambda: top
+    return whole(model, "", {"embed"}), lambda: whole(model, "",
+                                                      _head_names(cfg))
+
+
+def _on_mesh(inputs, mesh, cfg=None) -> Tuple[dict, tuple]:
     """(``inputs`` with this rank's rows of the token ids or embeddings,
     the axes those rows split over: ``shard_act``'s default, or under
     ``cfg.ddp`` ``batch_axes_of``); every row and () without a mesh."""
     if mesh is None:
         return inputs, ()
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in model.parameters()):
-        raise NotImplementedError(_GRAD_ON_MESH)
     key = "embeds" if "embeds" in inputs else "tokens"
     B = inputs[key].shape[0]
     rows = act_axes(mesh, B, batch_axes_of(mesh, cfg, batch=B)
@@ -288,26 +302,27 @@ def forward(model: Transformer, inputs: Dict[str, torch.Tensor], cfg,
     axes, and ``model`` under ``cfg.ddp``, as ``batch_axes_of`` drops
     them) and returns the whole logits."""
     whole = _whole(model, mesh)
-    inputs, rows = _on_mesh(model, inputs, mesh, cfg)
-    x = _inputs(whole(model, "", {"embed"}), inputs, cfg)
+    inputs, rows = _on_mesh(inputs, mesh, cfg)
+    first, head = _top(model, cfg, whole)
+    x = _inputs(first, inputs, cfg)
+    del first
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "audio", "moe"):
-        block = _remat(lambda h, p: _apply_attn_block(h, p, cfg, mesh,
-                                                      data_axes, rows),
-                       cfg.remat)
-        for i, p in enumerate(model.blocks):
-            x, a = block(x, whole(p, f"blocks.{i}."))
-            aux = aux + a
+        block = _remat(lambda h, i: _apply_attn_block(
+            h, whole(model.blocks[i], f"blocks.{i}."), cfg, mesh, data_axes,
+            rows), cfg.remat)
     elif cfg.family == "ssm":
-        block = _remat(lambda h, p: _apply_rwkv_block(h, p, cfg), cfg.remat)
-        for i, p in enumerate(model.blocks):
-            x, a = block(x, whole(p, f"blocks.{i}."))
+        block = _remat(lambda h, i: _apply_rwkv_block(
+            h, whole(model.blocks[i], f"blocks.{i}."), cfg), cfg.remat)
+    if cfg.family != "hybrid":
+        for i in range(len(model.blocks)):
+            x, a = block(x, i)
             aux = aux + a
     else:
         x, aux = _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows)
     if last_only:
         x = x[:, -1:]                # prefill serves next-token logits only
-    top = whole(model, "", _head_names(cfg))
+    top = head()
     return gather_blocks(_logits(rms_norm(x, top.norm_f), top, cfg), mesh,
                          rows), aux
 
@@ -318,17 +333,20 @@ def _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows):
     every = cfg.attn_every
     n_groups = cfg.n_layers // every
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    mamba = _remat(lambda h, p: _apply_mamba_block(h, p, cfg), cfg.remat)
-    shared = _remat(lambda h, p: _apply_attn_block(h, p, cfg, mesh,
-                                                   data_axes, rows),
-                    cfg.remat)
+    mamba = _remat(lambda h, i: _apply_mamba_block(
+        h, whole(model.blocks[i], f"blocks.{i}."), cfg), cfg.remat)
+    # the shared block is gathered at each of its uses; its gradient is
+    # the sum over them
+    shared = _remat(lambda h: _apply_attn_block(
+        h, whole(model.shared, "shared."), cfg, mesh, data_axes, rows),
+        cfg.remat)
     for g in range(n_groups):
         for i in range(g * every, (g + 1) * every):
-            x, _ = mamba(x, whole(model.blocks[i], f"blocks.{i}."))
-        x, aux = shared(x, whole(model.shared, "shared."))
+            x, _ = mamba(x, i)
+        x, aux = shared(x)
         aux_total = aux_total + aux
     for i in range(n_groups * every, cfg.n_layers):
-        x, _ = mamba(x, whole(model.blocks[i], f"blocks.{i}."))
+        x, _ = mamba(x, i)
     return x, aux_total
 
 
@@ -391,8 +409,10 @@ def decode_step(model: Transformer, state: DecodeState,
     logits, and ``state`` holds this rank's rows: those ``shard_act``
     gives it (``dist.sharding.local_rows``)."""
     whole = _whole(model, mesh)
-    inputs, rows = _on_mesh(model, inputs, mesh)
-    x = _inputs(whole(model, "", {"embed"}), inputs, cfg)
+    inputs, rows = _on_mesh(inputs, mesh)
+    first, head = _top(model, cfg, whole)
+    x = _inputs(first, inputs, cfg)
+    del first
     held = _state_rows(state)
     if held is not None and held != x.shape[0]:
         raise ValueError(f"the decode state holds {held} rows; this rank "
@@ -451,7 +471,7 @@ def decode_step(model: Transformer, state: DecodeState,
         new_state = DecodeState(caches, shared, pos + 1)
     else:
         raise ValueError(cfg.family)
-    top = whole(model, "", _head_names(cfg))
+    top = head()
     return gather_blocks(_logits(rms_norm(x, top.norm_f), top, cfg), mesh,
                          rows), new_state
 

@@ -12,9 +12,17 @@ leaf updates layer by layer; Adafactor factors and clips each leaf of the
 reference whole, so its row and column statistics of a stacked leaf are
 kept stacked (they are small), and the update's RMS is taken over all its
 layers in two passes, one layer's float32 temporaries at a time.
+
+On a mesh the trees hold each rank's slices.  AdamW is elementwise, so it
+updates the slices as they are.  Adafactor's row and column means and
+its clip span whole leaves: the update takes ``whole(key, (grad, vr, vc,
+weight))``, a context that gives the leaf's parts whole and writes the
+rank's slices back when it closes (``launch.steps``), and updates one
+whole leaf at a time.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
@@ -53,7 +61,7 @@ def _scalar(x: float, params) -> torch.Tensor:
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1):
+                 eps=1e-8, weight_decay=0.1, whole=None):
     step = state.step + 1
     lr = float(lr)
     sf = _scalar(float(step), params)
@@ -160,14 +168,17 @@ def _scaled(gf: torch.Tensor, fac) -> torch.Tensor:
 
 
 def adafactor_update(grads, state: AdafactorState, params, *, lr,
-                     decay=0.8, eps=1e-30, clip=1.0, weight_decay=0.0):
+                     decay=0.8, eps=1e-30, clip=1.0, weight_decay=0.0,
+                     whole=None):
     step = state.step + 1
     lr = float(lr)
     beta = 1.0 - (_scalar(float(step), params) + 1.0) ** (-decay)
     for key, leaf in params.items():
-        _adafactor_leaf(grads[key], state.vr[key], state.vc[key], leaf,
-                        beta=beta, lr=lr, eps=eps, clip=clip,
-                        weight_decay=weight_decay)
+        parts = (grads[key], state.vr[key], state.vc[key], leaf)
+        with (contextlib.nullcontext(parts) if whole is None
+              else whole(key, parts)) as parts:
+            _adafactor_leaf(*parts, beta=beta, lr=lr, eps=eps, clip=clip,
+                            weight_decay=weight_decay)
     return params, AdafactorState(state.vr, state.vc, step)
 
 

@@ -82,6 +82,13 @@ def map_leaves(fn: Callable[[Any], Any], tree):
     return fn(tree)
 
 
+def map_with(fn: Callable[[Any, Any], Any], tree, other):
+    """``tree`` with each leaf replaced by ``fn(leaf, o)``, ``o`` the leaf
+    of ``other`` (a tree of the same leaves) at the same place."""
+    it = iter(leaves(other))
+    return map_leaves(lambda leaf: fn(leaf, next(it)), tree)
+
+
 def leaves(tree) -> List[Any]:
     """The leaves of ``tree`` in ``jax.tree.flatten``'s order."""
     out: List[Any] = []

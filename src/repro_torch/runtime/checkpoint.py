@@ -15,6 +15,17 @@ checkpoints.  bfloat16 is stored as its 16-bit pattern and labelled
 ``"bfloat16"``.  ``save_async`` copies the state to the host once, then
 writes it on a background thread while the next steps run.  ``restore``
 writes tensors (and a model's weights) in place.
+
+On a mesh (``CheckpointManager(dir, mesh=mesh)``, every rank of it
+calling alike) a state holds each rank's slices, and ``save`` takes their
+``shardings`` (``launch.steps.state_shardings``): every leaf is gathered
+whole, a collective run by every rank on the calling thread before any
+background write, and one rank (the mesh's first) writes the whole
+leaves, the reference's layout.  ``wait`` and ``latest_step`` end with a
+barrier of the mesh, so every rank sees a commit before it reads the
+latest step.  ``restore(state_like, step, shardings)`` reads the whole
+leaves on every rank and keeps the slices ``shardings`` gives it, on any
+mesh (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -35,31 +46,49 @@ def _crc(arr: np.ndarray) -> int:
 
 
 class CheckpointManager:
-    def __init__(self, directory, *, keep: int = 3):
+    def __init__(self, directory, *, keep: int = 3, mesh=None):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.mesh = mesh
+        self.writer = mesh is None or not any(mesh.get_coordinate())
         self._thread: Optional[threading.Thread] = None
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, state: Any, *, blocking: bool = True):
-        host = [tr.host_leaf(leaf) for leaf in tr.leaves(state)]
+    def save(self, step: int, state: Any, *, blocking: bool = True,
+             shardings: Any = None):
+        """Write ``state`` as step ``step``; on a mesh, with the
+        ``shardings`` of its leaves (collective)."""
+        if shardings is None:
+            host = [tr.host_leaf(leaf) for leaf in tr.leaves(state)]
+        else:
+            host = []
+            for leaf, sh in zip(tr.leaves(state), tr.leaves(shardings)):
+                whole = leaf if sh is None else sh.whole(leaf)
+                host.append(tr.host_leaf(whole) if self.writer else None)
+                del whole
+        if not self.writer:
+            return
         if blocking:
             self._write(step, host)
         else:
-            self.wait()
+            self.wait(barrier=False)
             self._thread = threading.Thread(
                 target=self._write, args=(step, host), daemon=True)
             self._thread.start()
 
-    def save_async(self, step: int, state: Any):
-        self.save(step, state, blocking=False)
+    def save_async(self, step: int, state: Any, shardings: Any = None):
+        self.save(step, state, blocking=False, shardings=shardings)
 
-    def wait(self):
+    def wait(self, *, barrier: bool = True):
+        """Join the background write; on a mesh then meet every rank."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if barrier and self.mesh is not None:
+            from repro_torch.dist.sharding import mesh_barrier
+            mesh_barrier(self.mesh)
 
     def _write(self, step: int, host):
         tmp = self.dir / f".tmp_step_{step:09d}"
@@ -97,13 +126,20 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
+        """The latest committed step; on a mesh, after every write of
+        the mesh has committed (collective)."""
+        if self.mesh is not None:
+            self.wait()
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, state_like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, state_like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``state_like``: its tensors are
         overwritten in place, its numbers replaced; returns the
-        structure.  Raises ``IOError`` on a crc mismatch."""
+        structure.  With ``shardings`` (a tree of the leaves' ``Sharding``
+        on the target mesh) each leaf keeps this rank's slice of the
+        whole one read.  Raises ``IOError`` on a crc mismatch."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -115,14 +151,18 @@ class CheckpointManager:
                              f"{len(manifest['leaves'])} vs {n_like}")
         k = iter(range(n_like))
 
-        def load(like):
+        def load(like, sh=None):
             i = next(k)
             meta = manifest["leaves"][i]
             arr = np.load(d / f"leaf_{i}.npy")
             if _crc(arr) != meta["crc"]:
                 raise IOError(f"checkpoint corruption in leaf_{i}")
+            if sh is not None and arr.ndim:
+                arr = arr[sh.slices(arr.shape)]
             want = tuple(getattr(like, "shape", np.shape(like)))
             if tuple(arr.shape) != want:
                 raise ValueError(f"leaf_{i} shape {arr.shape} != {want}")
             return tr.load_leaf(like, arr, meta["dtype"])
-        return tr.map_leaves(load, state_like)
+        if shardings is None:
+            return tr.map_leaves(load, state_like)
+        return tr.map_with(load, state_like, shardings)

@@ -4,9 +4,8 @@ topology change at restart time, for training and for sorting.
 :func:`plan_rescale` chooses the (pod, data, model) factorization of a new
 chip count for training (plain Python, the reference's copy), and
 :func:`rescale_state` restores the latest checkpoint onto the new
-topology.  The port trains on one device, so it restores onto that
-device; onto a mesh (the reference re-derives its shardings with
-``make_shardings``) is ROADMAP item 10c.
+topology: one device, or a mesh, where it re-derives the shardings with
+``make_shardings`` and every rank keeps its slices of the whole leaves.
 
 :func:`plan_sort_rescale` gives the reduced topology a ``psort`` fault lane
 re-runs at: survivors rounded down to a power of two (the hypercube
@@ -86,15 +85,14 @@ def _model_divides(cfg, m: int) -> bool:
 
 def rescale_state(state, state_like, cfg, new_mesh, ckpt_manager,
                   step: Optional[int] = None):
-    """Restore ``state_like``-shaped state from the checkpoint (the
-    elastic restart path).  ``new_mesh`` None is the one device the port
-    trains on: the state restores in place there.  ``state`` (the state
-    of the old topology) is not read, as in the reference."""
-    if new_mesh is not None:
-        raise NotImplementedError(
-            "rescale_state onto a mesh re-derives the shardings with "
-            "make_shardings: ROADMAP item 10c, not ported yet")
-    return ckpt_manager.restore(state_like, step=step)
+    """Restore ``state_like``-shaped state from the checkpoint onto
+    ``new_mesh`` with re-derived shardings (the elastic restart path):
+    ``state_like`` holds this rank's slices on ``new_mesh`` (or, None,
+    the whole state on one device), restored in place.  ``state`` (the
+    state of the old topology) is not read, as in the reference."""
+    from repro_torch.launch.steps import state_shardings
+    return ckpt_manager.restore(state_like, step=step,
+                                shardings=state_shardings(cfg, new_mesh))
 
 
 @dataclasses.dataclass(frozen=True)

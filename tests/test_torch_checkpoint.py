@@ -4,7 +4,7 @@ and garbage collection, atomicity, corruption); checkpoints across the
 two packages in both directions (the reference's ``TrainState`` leaves,
 block leaves stacked as (L, …), bf16 as its 16-bit pattern); ``plan_
 rescale`` against the reference's over a grid; and ``rescale_state``
-onto the one device the port trains on.
+onto one device (onto a mesh: ``test_torch_mesh_train.py``).
 """
 import dataclasses
 import json
@@ -203,5 +203,3 @@ def test_rescale_state_onto_one_device(tmp_path):
     assert out.params is b.params
     for x, y in zip(train_state_leaves(out), train_state_leaves(a)):
         np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="10c"):
-        rescale_state(a, b, tc, object(), mgr)

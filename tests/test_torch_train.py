@@ -4,7 +4,9 @@ of the llama3.2-1b and granite-moe-1b-a400m float32 smoke variants
 against the reference's ``make_train_step(cfg, None)`` from the same
 state (loss, lr, grad_norm, and every leaf of the state after each step,
 within float32 rtol 1e-4, atol 1e-5); a crash-resumed ``train`` equal bit
-for bit to the uninterrupted run; the CLI; and the one-device limits.
+for bit to the uninterrupted run; the CLI; and the refusal of a mesh that
+is not the process group's (training on a mesh:
+``test_torch_mesh_train.py``).
 """
 import dataclasses
 import json
@@ -121,18 +123,34 @@ def test_main_cli(tmp_path, capsys):
 
 @pytest.mark.parametrize("mesh", ["1,2", "2,1", "4,2"])
 def test_mesh_is_item_10c(mesh):
-    with pytest.raises(NotImplementedError, match="10c"):
+    """``--mesh`` of more than one rank outside a process group of that
+    size (``torchrun`` sets one up; ``test_torch_mesh_train.py`` trains
+    on one) raises."""
+    d, m = (int(v) for v in mesh.split(","))
+    with pytest.raises(ValueError, match=f"a mesh of {d * m} ranks in a "
+                                         f"process group of 0"):
         TR.main(["--smoke", "--steps", "1", "--mesh", mesh,
                  "--device", "cpu"])
 
 
 def test_one_device_limits():
+    """``train`` on a mesh whose ranks are not the process group's (here:
+    none) raises; ``make_train_step`` on a mesh places the optimizer
+    state by ``make_shardings`` (the rules need no transport)."""
     from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.dist.sharding import MeshLayout
     cfg = smoke_variant(get_config("llama3.2-1b"))
-    with pytest.raises(NotImplementedError, match="10c"):
-        S.make_train_step(cfg, object())
-    with pytest.raises(NotImplementedError, match="10c"):
-        TR.train(cfg, object(), steps=1, batch=1, seq=8, device="cpu")
+    layout = MeshLayout(("data", "model"), (1, 2), (0, 0))
+    with pytest.raises(ValueError, match="a mesh of 2 ranks in a process "
+                                         "group of 0"):
+        TR.train(cfg, layout, steps=1, batch=1, seq=8, device="cpu")
+    model = TR.build_everything(cfg, layout, 1, 8, device="cpu")[0].params
+    _, init = S.make_train_step(cfg, layout)
+    opt = init(model)
+    wq = model.blocks[0].attn.wq
+    assert tuple(wq.shape) == (cfg.d_model // 2, cfg.n_heads * cfg.head_dim)
+    assert tuple(opt.mu[("blocks", "attn", "wq")][0].shape) == tuple(
+        wq.shape)
 
 
 def test_entry_points_default_to_the_card():

@@ -92,10 +92,20 @@ class RankPool:
 
     def run(self, fn, *args):
         """``fn(*args)`` on every rank; its results in rank order."""
+        self.submit(fn, *args)
+        return self.collect(fn)
+
+    def submit(self, fn, *args):
+        """Send ``fn(*args)`` to every rank and return at once: the caller
+        works on while the ranks run, then takes the results with
+        :meth:`collect`."""
         if self.broken:
             raise RuntimeError(f"the rank pool is broken ({self.broken})")
         for q in self.jobs:
             q.put((fn, args))
+
+    def collect(self, fn):
+        """The results of the job :meth:`submit` sent, in rank order."""
         return self._collect(DEADLINE_S, fn.__name__)
 
     def close(self):
@@ -533,4 +543,160 @@ def mesh_errors_job():
     except ValueError as e:
         out["rows"] = str(e)
     out["rank"] = dist.get_rank()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training on a (data, model) mesh (run in the ranks)
+# ---------------------------------------------------------------------------
+
+
+def _host(leaf):
+    """A leaf (tensor, ``Stacked`` or number) as a numpy array, block
+    leaves stacked as (L, …), float32 for floats."""
+    import torch
+    from repro_torch.optim.tree import Stacked
+    if isinstance(leaf, int):
+        return np.asarray(leaf)
+    t = torch.stack(list(leaf)) if isinstance(leaf, Stacked) else leaf
+    t = t.detach()
+    return (t.float() if t.is_floating_point() else t).numpy().copy()
+
+
+def _whole_host(tree, shardings):
+    """Every leaf of ``tree`` (this rank's slices) put together whole, as
+    numpy arrays in flatten order (collective)."""
+    from repro_torch.optim import tree as tr
+    return [_host(sh.whole(leaf)) for leaf, sh in
+            zip(tr.leaves(tree), tr.leaves(shardings))]
+
+
+def _torch_batch(batch):
+    import torch
+    return {k: torch.from_numpy(np.asarray(v)).long() for k, v in
+            batch.items()}
+
+
+def mesh_grad_job(arch, cfg_kw, tree, batch):
+    """The loss and gradients of the float32 smoke config of ``arch``
+    (``cfg_kw`` replaced) on the (2, 4) mesh from the reference's weights
+    ``tree``: (loss, gradient leaves put together whole, by the
+    reference's paths)."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models.convert import params_from_jax
+    cfg = smoke_cfg(arch, "float32", **cfg_kw)
+    mesh = model_mesh()
+    model = params_from_jax(cfg, tree, device="cpu",
+                            mesh=mesh).requires_grad_(True)
+    shards = S.state_shardings(cfg, mesh).params
+    loss, grads = S.loss_and_grads(model, _torch_batch(batch), cfg, mesh,
+                                   ("data",))
+    whole = dict(zip(grads, _whole_host(grads, {k: shards[k]
+                                                 for k in grads})))
+    return float(loss), {"/".join(k): v for k, v in whole.items()}
+
+
+def mesh_step_job(arch, state_tree, batch, step_kw, ckpt_dir=None):
+    """One ``make_train_step`` on the (2, 4) mesh from the reference's
+    float32 ``TrainState`` (leaves as numpy): this rank's slices of every
+    leaf of the new state, in flatten order, and the metrics; with
+    ``ckpt_dir``, the new state saved there from the mesh, and its leaves
+    put together whole."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models.convert import (train_state_from_jax,
+                                            train_state_leaves)
+    from repro_torch.runtime import CheckpointManager
+    cfg = smoke_cfg(arch, "float32")
+    mesh = model_mesh()
+    state = train_state_from_jax(cfg, state_tree, device="cpu", mesh=mesh)
+    step, _ = S.make_train_step(cfg, mesh, **step_kw)
+    state, metrics = step(state, batch)
+    out = {"slices": train_state_leaves(state),
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "kinds": {k: (tuple(v.shape), str(v.dtype))
+                     for k, v in metrics.items()}}
+    if ckpt_dir is not None:             # the new state, saved and whole
+        shards = S.state_shardings(cfg, mesh)
+        mgr = CheckpointManager(ckpt_dir, mesh=mesh)
+        mgr.save(state.step, state, shardings=shards)
+        out["latest"] = mgr.latest_step()
+        out["whole"] = _whole_host(state, shards)
+    return out
+
+
+def mesh_restore_job(arch, ckpt_dir, layout):
+    """``rescale_state`` of the checkpoint in ``ckpt_dir`` onto the
+    ``layout`` mesh of the ranks, into a state drawn from another seed:
+    this rank's slices of every leaf, in flatten order."""
+    from repro_torch.launch import train as TR
+    from repro_torch.models.convert import train_state_leaves
+    from repro_torch.runtime import CheckpointManager, rescale_state
+    cfg = smoke_cfg(arch, "float32")
+    mesh = model_mesh(layout)
+    like = TR.build_everything(cfg, mesh, 4, 16, seed=1, device="cpu")[0]
+    out = rescale_state(None, like, cfg, mesh, CheckpointManager(ckpt_dir))
+    assert out.params is like.params
+    return train_state_leaves(out)
+
+
+def _from_tree(tree):
+    """``init_params`` replaced by the reference's weights ``tree``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+
+    def init(cfg, gen, device=None):
+        return params_from_jax(cfg, tree, device=device)
+    return T, init
+
+
+def mesh_train_job(arch, tree, kw, ckpt_dir):
+    """``train`` of the float32 smoke config of ``arch`` on the (2, 4) mesh
+    from the reference's weights ``tree`` (``init_params`` replaced),
+    with ``kw``: (losses, log lines, and on rank 0 the checkpoint
+    directory's entries)."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch import train as TR
+    cfg = smoke_cfg(arch, "float32")
+    T, init = _from_tree(tree)
+    saved = T.init_params
+    T.init_params = init
+    lines = []
+    try:
+        _, losses = TR.train(cfg, model_mesh(), ckpt_dir=ckpt_dir,
+                             log_every=1, logger=lines.append, device="cpu",
+                             **kw)
+    finally:
+        T.init_params = saved
+    listing = sorted(os.listdir(ckpt_dir)) if dist.get_rank() == 0 else None
+    return losses, lines, listing
+
+
+def train_cli_job(argv, arch, kw):
+    """``train --mesh 2,4`` (``argv``) on this rank, and ``train`` of the
+    smoke config of ``arch`` on the (2, 4) mesh with ``kw``: both runs'
+    losses."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch import train as TR
+    _, cli = TR.main(argv)
+    _, fn = TR.train(smoke_variant(get_config(arch)), model_mesh(),
+                     device="cpu", logger=lambda s: None, **kw)
+    return cli, fn
+
+
+def mesh_train_errors_job():
+    """The errors of a mesh that is not the group's size: ``train`` on a
+    (2, 2) mesh of the eight ranks, and ``train --mesh 2,2``."""
+    from repro_torch.launch import train as TR
+    out = {}
+    try:
+        TR.train(smoke_cfg("llama3.2-1b", "float32"), model_mesh((2, 2)),
+                 steps=1, batch=2, seq=8, device="cpu")
+    except ValueError as e:
+        out["train"] = str(e)
+    try:
+        TR.main(["--smoke", "--steps", "1", "--mesh", "2,2", "--device",
+                 "cpu"])
+    except ValueError as e:
+        out["cli"] = str(e)
     return out
