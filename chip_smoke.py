@@ -279,7 +279,26 @@ Phases, each fatal on failure (no phase catches its own error):
    next step's loss on (4, 1) within 1e-4/1e-5 of (b)'s fourth step; and
    (a)'s checkpoint onto both, slices only (its expert-parallel dispatch
    drops other items at another ``model``).  ``--mesh-train-only`` runs
-   phases 1, 2 and 22 alone.
+   phases 1, 2 and 22 alone.  22a's bytes are counted at the port's
+   transport seam (``core.comm.count_wire``), the counter the dry-run
+   reads.
+23. the dry-run against the card (``launch/dryrun.py``: one step reckoned
+   from shapes on the meta device under ``launch/op_cost.py``, no new
+   model run): (a) the roofline terms of 19a's decode step (granite,
+   batch 32, 1024 slots) and 20a's training step (granite at 20a's depth,
+   8 x 2048, bf16, remat ``full``) beside their measured p50, the
+   roofline fraction (the largest term over the p50) and 2·N_active·D or
+   6·N_active·D over the p50 at the data sheet's 989 TFLOP/s; (b)
+   op_cost's matmul FLOPs of 20a's step against ``torch.profiler``'s
+   FLOPs over the matmul operators of a second profiled step of 20a's
+   (taken ``with_flops``, apart from the step whose wall and idle share
+   20a reports), within 2 %; (c) the reckoned argument + temp bytes
+   beside ``max_memory_allocated`` of 20a and 22a (reported); (d) the
+   bytes a rank sends and receives a step of 22a, reckoned on rank 0's
+   ``MeshLayout``, equal to what 22a's ranks counted; (e) one bf16 8192^3
+   ``torch.matmul`` rate and one 4 GiB device-to-device copy rate beside
+   989 TFLOP/s and 3.35 TB/s.  ``--dryrun-only`` runs phases 1, 2, 19a,
+   20a, 22a and 23 alone.
 
 Every algorithm of ``repro_torch.psort`` runs: ``rams`` (phases 4, 5,
 14, 15), ``rquick`` and ``ntb-quick`` (8), the external lane (6, 7, 14),
@@ -514,10 +533,17 @@ MESH_CHECK_BATCH, MESH_CHECK_SEQ, MESH_CHECK_STEPS = 2, 256, 3
 MESH_CPU_STEPS = 2
 MESH_ELASTIC = ((4, 1), (1, 4))
 MESH_TRAIN_SEED = 22
+# phase 23: the dry-run against the card; its achieved peaks from one bf16
+# matmul of this size and one device-to-device copy of these bytes
+DRYRUN_MATMUL_N, DRYRUN_COPY_BYTES, DRYRUN_REPS = 8192, 4 << 30, 10
 # RFIS's cut if its projected peak at p = 2^18 passes this: the projection
 # is 8x the peak at p = 2^16 (the gathered rows, columns and route shards
 # hold p · 2^(cb) · capacity slots, 2^29 against 2^26)
 P_RFIS_CUT, LOG_N_RFIS_CUT, RFIS_PEAK_LIMIT = 1 << 16, 16, 70e9
+
+
+# what phases 19a, 20a and 22a measured, for phase 23 to hold the dry-run to
+MEASURED = {}
 
 
 def emit(obj) -> None:
@@ -2134,15 +2160,20 @@ def host_syncs(torch, fn) -> dict:
             if v != own.get(k, 0)}
 
 
-def device_breakdown(torch, fn, top: int = 8) -> dict:
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def device_breakdown(torch, fn, top: int = 8, with_flops: bool = False
+                     ) -> dict:
     """Where one ``fn()`` spends the card's time under ``torch.profiler``:
     its wall, the device operations and their summed time, and the
-    ``top`` operation names by device time."""
+    ``top`` operation names by device time; ``with_flops``, also the
+    profiler's FLOPs summed over the matmul operators (``MATMUL_OPS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=with_flops) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2155,10 +2186,15 @@ def device_breakdown(torch, fn, top: int = 8) -> dict:
             by_name[e.name] = (n + 1, t + us)
     busy = sum(t for _, t in by_name.values()) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-            "device_ops": sum(n for n, _ in by_name.values()),
-            "top": [{"name": name[:90], "launches": n, "ms": t / 1e3}
-                    for name, (n, t) in ranked]}
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "device_ops": sum(n for n, _ in by_name.values()),
+           "top": [{"name": name[:90], "launches": n, "ms": t / 1e3}
+                   for name, (n, t) in ranked]}
+    if with_flops:
+        out["matmul_flops"] = sum(
+            e.flops or 0 for e in prof.events()
+            if e.device_type == DeviceType.CPU and e.name in MATMUL_OPS)
+    return out
 
 
 def time_batch(torch, fn, reps: int = REPS):
@@ -3219,6 +3255,7 @@ def model_serve_phase(torch, np, card):
            "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
            "tok_per_s": stats["tok_per_s"], "steps_timed": stats["n"]}
     emit(row)
+    MEASURED["19a"] = row
     emit({"phase": "model_serve_profile", "arch": MODEL_ARCH, "card": card,
           **decode_profile(torch, np, cfg)})
     check = serve_card_vs_cpu(torch, np, cfg)
@@ -3856,6 +3893,10 @@ def train_full_phase(torch, np, card):
         float(metrics["loss"])
     one()                                          # warm-up after restore
     brk = device_breakdown(torch, one, top=1 << 20)
+    # phase 23's FLOPs from a step of their own: recording shapes adds host
+    # work to every operator, which the wall and idle share above leave out
+    flops = device_breakdown(torch, one, top=0, with_flops=True)
+    MEASURED["20a"] = dict(row, matmul_flops=flops["matmul_flops"])
     emit({"phase": "train_full_restore", "card": card,
           "leaves_bit_for_bit": n_leaves, "checkpoint_bytes": ckpt_bytes,
           "restore_and_compare_s": restore_s})
@@ -4466,35 +4507,6 @@ def reckoned_state_bytes(torch, cfg, shards) -> dict:
     return out
 
 
-class Transport:
-    """The bytes this rank sends to and receives from the other ranks
-    through the port's transport (``comm._d_gather`` and
-    ``comm._d_alltoall`` over whole axes), counted while installed."""
-
-    def __init__(self):
-        from repro_torch.core import comm
-        self.comm, self.sent, self.received = comm, 0, 0
-        self.gather, self.alltoall = comm._d_gather, comm._d_alltoall
-
-        def gather(ax, members, x):
-            n = len(members)
-            self.sent += x.numel() * x.element_size() * (n - 1)
-            self.received += x.numel() * x.element_size() * (n - 1)
-            return self.gather(ax, members, x)
-
-        def alltoall(ax, members, blocks):
-            g = len(members)
-            moved = blocks.numel() * blocks.element_size() * (g - 1) // g
-            self.sent += moved
-            self.received += moved
-            return self.alltoall(ax, members, blocks)
-        comm._d_gather, comm._d_alltoall = gather, alltoall
-
-    def close(self):
-        self.comm._d_gather, self.comm._d_alltoall = self.gather, \
-            self.alltoall
-
-
 def mesh_train_full_job(torch, np, mesh, dev, smoke, ckpt):
     """22a on one rank: ``train`` of granite at full width and
     MESH_TRAIN_DEPTH layers on the mesh through a crash and a restart;
@@ -4503,13 +4515,13 @@ def mesh_train_full_job(torch, np, mesh, dev, smoke, ckpt):
     step's whole leaves against the slices put together (rank 0 reads
     the files)."""
     import torch.distributed as dist
+    from repro_torch.core import comm
     from repro_torch.launch import train as TR
     from repro_torch.models.convert import resident_bytes
     from repro_torch.optim import tree as tr
     cfg = mesh_cfg(TRAIN_ARCH, smoke, n_layers=MESH_TRAIN_DEPTH)
     held = {"steps": []}
     build = TR.build_everything
-    wire = Transport()
 
     def keep(*a, **k):
         state, step_fn, shards = build(*a, **k)
@@ -4534,14 +4546,17 @@ def mesh_train_full_job(torch, np, mesh, dev, smoke, ckpt):
     t0 = time.perf_counter()
     TR.build_everything = keep
     try:
-        final, _ = TR.train(
-            cfg, mesh, steps=MESH_TRAIN_STEPS, batch=MESH_TRAIN_BATCH,
-            seq=MESH_TRAIN_SEQ, ckpt_dir=ckpt,
-            ckpt_every=MESH_TRAIN_CKPT_EVERY, log_every=1,
-            crash_at=MESH_TRAIN_CRASH_AT, logger=lines.append, device=dev)
+        # the bytes this rank sends and receives, counted at the port's
+        # transport seam (the counter the dry-run's op_cost reads)
+        with comm.count_wire() as wire:
+            final, _ = TR.train(
+                cfg, mesh, steps=MESH_TRAIN_STEPS, batch=MESH_TRAIN_BATCH,
+                seq=MESH_TRAIN_SEQ, ckpt_dir=ckpt,
+                ckpt_every=MESH_TRAIN_CKPT_EVERY, log_every=1,
+                crash_at=MESH_TRAIN_CRASH_AT, logger=lines.append,
+                device=dev)
     finally:
         TR.build_everything = build
-        wire.close()
     wall = time.perf_counter() - t0
     state, shards = held["state"], held["shards"]
     out = {"final": final, "wall_s": wall, "steps": held["steps"],
@@ -4792,6 +4807,67 @@ def close_to(a: float, b: float) -> bool:
                         abs_tol=MODEL_F32_TOL["atol"])
 
 
+def mesh_train_full(ranks, card, dev, smoke, dirs):
+    """22a on the ranks: ``train`` of granite at full width and
+    MESH_TRAIN_DEPTH layers on the mesh through a crash and a restart,
+    checked; its row kept for phase 23."""
+    a = ranks.run(("train", ("full", dev, smoke, dirs)))
+    cfg = mesh_cfg(TRAIN_ARCH, smoke, n_layers=MESH_TRAIN_DEPTH)
+    losses = [[s["loss"] for s in r["steps"]] for r in a]
+    ran = [s["step"] for s in a[0]["steps"]]
+    want = list(range(MESH_TRAIN_CRASH_AT)) + list(range(
+        MESH_TRAIN_CKPT_EVERY, MESH_TRAIN_STEPS))
+    first = {s["step"]: s["loss"] for s in
+             a[0]["steps"][:MESH_TRAIN_CRASH_AT]}
+    replayed = {s["step"]: s["loss"] for s in
+                a[0]["steps"][MESH_TRAIN_CRASH_AT:]
+                if s["step"] in first}
+    timed = [s for s in a[0]["steps"][1:]]
+    row = {"phase": "mesh_train", "arch": cfg.name, "card": card,
+           "mesh": dict(zip(("data", "model"), MESH_LAYOUT)),
+           "ranks": MESH_RANKS,
+           "transport": "gloo through the host, four processes "
+                        "sharing one card",
+           "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "remat": cfg.remat, "optimizer": cfg.optimizer,
+           "batch": MESH_TRAIN_BATCH, "seq": MESH_TRAIN_SEQ,
+           "steps": MESH_TRAIN_STEPS,
+           "ckpt_every": MESH_TRAIN_CKPT_EVERY,
+           "crash_at": MESH_TRAIN_CRASH_AT, "steps_ran": ran,
+           "losses": losses[0],
+           "losses_equal_on_every_rank": all(
+               x == losses[0] for x in losses),
+           "replayed": {str(k): [first[k], v]
+                        for k, v in replayed.items()},
+           "sent_bytes_per_step": statistics.median(
+               s["sent"] for s in timed),
+           "received_bytes_per_step": statistics.median(
+               s["received"] for s in timed),
+           "what": "host walls of eager steps of four ranks "
+                   "sharing one card through gloo; bytes are "
+                   "this rank's to and from the others"}
+    for k in ("resident_weight_bytes", "resident_opt_bytes",
+              "reckoned", "peak", "p50_ms", "p99_ms",
+              "tok_per_s", "steps_timed", "wall_s",
+              "saved_bit_for_bit", "compare_s"):
+        row[k] = [r.get(k) for r in a]
+    emit(row)
+    if ran != want or not row["losses_equal_on_every_rank"] \
+            or not all(math.isfinite(v) for v in losses[0]) \
+            or not replayed or any(first[k] != v for k, v in
+                                   replayed.items()) \
+            or any(r["final"] != MESH_TRAIN_STEPS for r in a) \
+            or any(r["resident_weight_bytes"] !=
+                   r["reckoned"]["weights"] or
+                   r["resident_opt_bytes"] != r["reckoned"]["opt"]
+                   for r in a) \
+            or not a[0]["saved_bit_for_bit"] \
+            or a[0]["saved_leaves"] == 0:
+        raise AssertionError(f"22a: {row}")
+    MEASURED["22a"] = row
+    return row
+
+
 def mesh_train_phase(torch, np, card):
     """Phase 22: training on a (data 2, model 2) mesh of four gloo ranks
     sharing the card: (a) granite at full width through a crash and a
@@ -4811,60 +4887,8 @@ def mesh_train_phase(torch, np, card):
         parts["ranks_up"] = time.perf_counter() - t
         try:
             t = time.perf_counter()
-            a = ranks.run(("train", ("full", dev, smoke, dirs)))
+            mesh_train_full(ranks, card, dev, smoke, dirs)
             parts["a"] = time.perf_counter() - t
-            cfg = mesh_cfg(TRAIN_ARCH, smoke, n_layers=MESH_TRAIN_DEPTH)
-            losses = [[s["loss"] for s in r["steps"]] for r in a]
-            ran = [s["step"] for s in a[0]["steps"]]
-            want = list(range(MESH_TRAIN_CRASH_AT)) + list(range(
-                MESH_TRAIN_CKPT_EVERY, MESH_TRAIN_STEPS))
-            first = {s["step"]: s["loss"] for s in
-                     a[0]["steps"][:MESH_TRAIN_CRASH_AT]}
-            replayed = {s["step"]: s["loss"] for s in
-                        a[0]["steps"][MESH_TRAIN_CRASH_AT:]
-                        if s["step"] in first}
-            timed = [s for s in a[0]["steps"][1:]]
-            row = {"phase": "mesh_train", "arch": cfg.name, "card": card,
-                   "mesh": dict(zip(("data", "model"), MESH_LAYOUT)),
-                   "ranks": MESH_RANKS,
-                   "transport": "gloo through the host, four processes "
-                                "sharing one card",
-                   "layers": cfg.n_layers, "dtype": cfg.dtype,
-                   "remat": cfg.remat, "optimizer": cfg.optimizer,
-                   "batch": MESH_TRAIN_BATCH, "seq": MESH_TRAIN_SEQ,
-                   "steps": MESH_TRAIN_STEPS,
-                   "ckpt_every": MESH_TRAIN_CKPT_EVERY,
-                   "crash_at": MESH_TRAIN_CRASH_AT, "steps_ran": ran,
-                   "losses": losses[0],
-                   "losses_equal_on_every_rank": all(
-                       x == losses[0] for x in losses),
-                   "replayed": {str(k): [first[k], v]
-                                for k, v in replayed.items()},
-                   "sent_bytes_per_step": statistics.median(
-                       s["sent"] for s in timed),
-                   "received_bytes_per_step": statistics.median(
-                       s["received"] for s in timed),
-                   "what": "host walls of eager steps of four ranks "
-                           "sharing one card through gloo; bytes are "
-                           "this rank's to and from the others"}
-            for k in ("resident_weight_bytes", "resident_opt_bytes",
-                      "reckoned", "peak", "p50_ms", "p99_ms",
-                      "tok_per_s", "steps_timed", "wall_s",
-                      "saved_bit_for_bit", "compare_s"):
-                row[k] = [r.get(k) for r in a]
-            emit(row)
-            if ran != want or not row["losses_equal_on_every_rank"] \
-                    or not all(math.isfinite(v) for v in losses[0]) \
-                    or not replayed or any(first[k] != v for k, v in
-                                           replayed.items()) \
-                    or any(r["final"] != MESH_TRAIN_STEPS for r in a) \
-                    or any(r["resident_weight_bytes"] !=
-                           r["reckoned"]["weights"] or
-                           r["resident_opt_bytes"] != r["reckoned"]["opt"]
-                           for r in a) \
-                    or not a[0]["saved_bit_for_bit"] \
-                    or a[0]["saved_leaves"] == 0:
-                raise AssertionError(f"22a: {row}")
 
             t = time.perf_counter()
             b = ranks.run(("train", ("check", dev, smoke, dirs)))
@@ -4933,6 +4957,128 @@ def mesh_train_phase(torch, np, card):
           "part_seconds": parts})
 
 
+def mesh_train_full_only(card):
+    """22a alone: the four gloo ranks up, 22a run and checked, the ranks
+    down (``--dryrun-only``)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
+        dirs = {"a": str(Path(tmp) / "a"), "b": str(Path(tmp) / "b")}
+        ranks = DistRanks(MESH_RANKS, "gloo", target=mesh_train_rank)
+        try:
+            mesh_train_full(ranks, card, MODEL_DEV, MESH_SMOKE, dirs)
+        finally:
+            ranks.close()
+
+
+def peak_rates(torch) -> dict:
+    """The card's achieved peaks: one bf16 (8192, 8192) x (8192, 8192)
+    ``torch.matmul`` and one 4 GiB device-to-device copy, each the median
+    of DRYRUN_REPS calls timed with CUDA events after a warm-up."""
+    n = DRYRUN_MATMUL_N
+    a = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    b = torch.randn((n, n), device="cuda", dtype=torch.bfloat16)
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(a, b), reps=DRYRUN_REPS)
+    del a, b
+    src = torch.empty(DRYRUN_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = cuda_ms(torch, lambda: dst.copy_(src), reps=DRYRUN_REPS)
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"matmul_n": n, "matmul_ms": mm_ms,
+            "matmul_tflop_per_s": 2 * n ** 3 / (mm_ms / 1e3) / 1e12,
+            "copy_bytes": DRYRUN_COPY_BYTES, "copy_ms": cp_ms,
+            # a copy reads and writes its bytes once each
+            "copy_tb_per_s": 2 * DRYRUN_COPY_BYTES / (cp_ms / 1e3) / 1e12,
+            "datasheet_tflop_per_s": 989.0, "datasheet_tb_per_s": 3.35}
+
+
+def dryrun_phase(torch, card):
+    """Phase 23: the dry-run (``launch/dryrun.py``, reckoned on the meta
+    device) held to what phases 19a, 20a and 22a measured in this run:
+    (a) the roofline of 19a's decode step and 20a's training step beside
+    their p50, the roofline fraction and 2·N·D or 6·N·D over the p50 at
+    the bf16 peak; (b) op_cost's matmul FLOPs of 20a's step against the
+    profiler's in 20a's profiled step, within 2 %; (c) the reckoned
+    argument + temp bytes beside the measured peaks of 20a and 22a;
+    (d) the reckoned bytes a rank sends a step of 22a, equal to what its
+    ranks counted; (e) the card's achieved matmul and copy rates."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.dist.sharding import MeshLayout
+    from repro_torch.launch import dryrun
+    t_all = time.perf_counter()
+    granite = get_config(MODEL_ARCH)
+    cells = {
+        "19a": (granite, ShapeConfig("serve", MODEL_CACHE, MODEL_BATCH,
+                                     "decode"), None),
+        "20a": (dataclasses.replace(get_config(TRAIN_ARCH),
+                                    n_layers=TRAIN_DEPTH),
+                ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), None),
+        "22a": (mesh_cfg(TRAIN_ARCH, MESH_SMOKE, n_layers=MESH_TRAIN_DEPTH),
+                ShapeConfig("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH,
+                            "train"),
+                MeshLayout.of_rank(("data", "model"), MESH_LAYOUT, 0))}
+    rec = {}
+    for name, (cfg, shape, mesh) in cells.items():
+        t = time.perf_counter()
+        rec[name] = dryrun.reckon(cfg, shape, mesh)
+        rec[name]["reckon_s"] = time.perf_counter() - t
+    # (a) the roofline beside the measured step
+    for name in ("19a", "20a"):
+        r, m = rec[name], MEASURED[name]
+        p50_s = m["p50_ms"] / 1e3
+        emit({"phase": "dryrun_roofline", "of": name, "card": card,
+              "arch": cells[name][0].name, "layers": cells[name][0].n_layers,
+              "shape": dataclasses.asdict(cells[name][1]),
+              "roofline": r["roofline"], "dominant": r["dominant"],
+              "flops": r["flops_per_device"],
+              "dot_flops": r["dot_flops_per_device"],
+              "bytes_min": r["bytes_per_device"],
+              "bytes_min_by_operator": r["bytes_min_by_operator"],
+              "bytes_upper": r["bytes_upper_per_device"],
+              "operators": r["operators"],
+              "p50_ms": m["p50_ms"],
+              "roofline_fraction": max(r["roofline"].values()) / p50_s,
+              "model_flops": r["model_flops_global"],
+              "model_flops_share_of_bf16_peak":
+                  r["model_flops_global"] / (p50_s * dryrun.PEAK_FLOPS),
+              "reckon_s": r["reckon_s"]})
+    # (b) matmul FLOPs: op_cost on meta against the profiler on the card
+    got, want = rec["20a"]["dot_flops_per_device"], MEASURED["20a"][
+        "matmul_flops"]
+    row = {"phase": "dryrun_matmul_flops", "of": "20a", "card": card,
+           "op_cost_dot_flops": got, "profiler_matmul_flops": want,
+           "profiler_ops": list(MATMUL_OPS),
+           "ratio": got / want if want else None, "tol": 0.02}
+    emit(row)
+    if not want or abs(got - want) > 0.02 * want:
+        raise AssertionError(f"23b: {row}")
+    # (c) peak memory: reckoned argument + temp against measured
+    for name, peak in (("20a", MEASURED["20a"]["max_memory_allocated"]),
+                       ("22a", max(MEASURED["22a"]["peak"]))):
+        mem = rec[name]["memory"]
+        held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        emit({"phase": "dryrun_memory", "of": name, "card": card, **mem,
+              "argument_plus_temp": held, "max_memory_allocated": peak,
+              "ratio": held / peak})
+    # (d) the transport's bytes a step of 22a: reckoned against counted
+    row = {"phase": "dryrun_transport", "of": "22a", "card": card,
+           "reckoned_sent": rec["22a"]["sent_bytes_per_device"],
+           "reckoned_received": rec["22a"]["received_bytes_per_device"],
+           "counted_sent": MEASURED["22a"]["sent_bytes_per_step"],
+           "counted_received": MEASURED["22a"]["received_bytes_per_step"],
+           "collective_bytes": rec["22a"]["collective_bytes_per_device"],
+           "links": rec["22a"]["links"],
+           "roofline": rec["22a"]["roofline"]}
+    emit(row)
+    if row["reckoned_sent"] != row["counted_sent"] or \
+            row["reckoned_received"] != row["counted_received"]:
+        raise AssertionError(f"23d: {row}")
+    # (e) the card's achieved peaks beside the data sheet's
+    emit({"phase": "dryrun_peaks", "card": card, **peak_rates(torch)})
+    emit({"phase": "dryrun_done", "seconds": time.perf_counter() - t_all})
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4988,6 +5134,18 @@ def main() -> int:
     if "--train-only" in sys.argv[1:]:          # phase 20 alone
         train_phase(torch, np, card)
         lap("20")
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--dryrun-only" in sys.argv[1:]:         # phase 23 and what it reads
+        model_serve_phase(torch, np, card)
+        train_full_phase(torch, np, card)
+        mesh_train_full_only(card)
+        lap("19a, 20a, 22a")
+        dryrun_phase(torch, card)
+        lap("23")
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -5246,6 +5404,10 @@ def main() -> int:
     # --- 22. training on a mesh ------------------------------------------------
     mesh_train_phase(torch, np, card)
     lap("22")
+
+    # --- 23. the dry-run against the card ---------------------------------
+    dryrun_phase(torch, card)
+    lap("23")
     emit({"phase": "seconds", "of": "all",
           "seconds": time.perf_counter() - start})
 

@@ -75,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -636,12 +637,16 @@ class _Axis:
     ranks: Tuple[int, ...]
     index: int
     slot: Tuple[int, ...]        # group rank of each axis position
+    name: str = AXIS             # the mesh axis, as the wire counts name it
 
     @classmethod
-    def of(cls, group, ranks, index) -> "_Axis":
+    def of(cls, group, ranks, index, name: str = AXIS) -> "_Axis":
         ranks = tuple(int(r) for r in ranks)
+        if group is None:        # the dry transport: no process group
+            return cls(None, ranks, int(index), tuple(range(len(ranks))),
+                       name)
         slot = tuple(tdist.get_group_rank(group, r) for r in ranks)
-        return cls(group, ranks, int(index), slot)
+        return cls(group, ranks, int(index), slot, name)
 
     @property
     def size(self) -> int:
@@ -671,25 +676,31 @@ class Distributed:
     def of(cls, mesh_or_group, axis: str = AXIS) -> "Distributed":
         """From a ``DeviceMesh`` (its ``axis`` dimension is the sort axis,
         when it has one) or a ``ProcessGroup`` (the sort axis itself, in
-        group-rank order)."""
-        if not tdist.is_available() or not tdist.is_initialized():
+        group-rank order).  Under :func:`dry` a mesh without process
+        groups (``dist.sharding.MeshLayout``) stands for one: its rank's
+        axes carry nothing."""
+        dry_layout = _DRY[0] and not hasattr(mesh_or_group, "get_group")
+        if not dry_layout and (not tdist.is_available()
+                               or not tdist.is_initialized()):
             raise RuntimeError("the distributed backend needs an initialised "
                                "torch.distributed process group")
         if not hasattr(mesh_or_group, "mesh_dim_names"):
             group = mesh_or_group
             ranks = tdist.get_process_group_ranks(group)
-            return cls(_Axis.of(group, ranks, tdist.get_rank(group)), {})
+            return cls(_Axis.of(group, ranks, tdist.get_rank(group), axis),
+                       {})
         mesh = mesh_or_group
         coord = mesh.get_coordinate()
         if coord is None:
-            raise ValueError(f"rank {tdist.get_rank()} is not in the mesh "
+            raise ValueError(f"this rank is not in the mesh "
                              f"{mesh.mesh.tolist()}")
         dims = {}
         for k, name in enumerate(mesh.mesh_dim_names):
             at = list(coord)
             at[k] = slice(None)
-            dims[name] = _Axis.of(mesh.get_group(name),
-                                  mesh.mesh[tuple(at)].tolist(), coord[k])
+            dims[name] = _Axis.of(None if dry_layout else mesh.get_group(name),
+                                  mesh.mesh[tuple(at)].tolist(), coord[k],
+                                  name)
         return cls(dims.get(axis), dims)
 
     def axis(self, name: Optional[str]) -> _Axis:
@@ -766,6 +777,126 @@ def _unwire(y: torch.Tensor, dtype) -> torch.Tensor:
     return y.view(torch.bool) if dtype == torch.bool else y
 
 
+# ---------------------------------------------------------------------------
+# The transport's seam: what it carries, counted, and the dry transport
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Wire:
+    """What the transport of this process carried while counted.
+
+    ``sent``/``received``: this rank's bytes to and from the other ranks
+    (an all-gather of b bytes a rank over n ranks sends and receives
+    b·(n − 1), an all-to-all of b bytes over g ranks b·(g − 1)/g, an
+    all-reduce 2·b·(n − 1)/n).  ``wire``: per kind the bytes by the
+    reference's conventions (``repro/launch/hlo_cost.py``): an all-gather
+    its result, an all-reduce twice its operand, the others the larger of
+    operand and result; ``counts`` one per collective, ``by_axis`` the
+    wire bytes per mesh axis, ``moved`` operand plus result bytes of each
+    collective.  A collective the port builds from others (an all-reduce
+    as a reduce-scatter and an all-gather) counts as one of its own kind
+    (:func:`carried_as`); its parts add only to ``sent``/``received``."""
+    sent: int = 0
+    received: int = 0
+    moved: int = 0
+    wire: Dict[str, int] = dataclasses.field(default_factory=dict)
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    by_axis: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def add(self, kind: str, axis: str, operand: int, result: int) -> None:
+        wire = result if kind == "all-gather" else (
+            2 * operand if kind == "all-reduce" else max(operand, result))
+        self.wire[kind] = self.wire.get(kind, 0) + wire
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        self.by_axis[axis] = self.by_axis.get(axis, 0) + wire
+        self.moved += operand + result
+
+
+# the open counters and the dry transport's depth: process-wide, because
+# autograd runs a collective's backward on its device's thread
+_WIRES: List[Wire] = []
+_WIRES_LOCK = threading.Lock()
+_DRY = [0]
+_SEAM = threading.local()
+
+
+@contextlib.contextmanager
+def count_wire():
+    """Count what the transport carries in this scope (every thread of the
+    process): yields the :class:`Wire`."""
+    w = Wire()
+    with _WIRES_LOCK:
+        _WIRES.append(w)
+    try:
+        yield w
+    finally:
+        with _WIRES_LOCK:
+            _WIRES.remove(w)
+
+
+@contextlib.contextmanager
+def dry():
+    """The dry transport: every collective of a :func:`distributed` scope
+    moves nothing and returns a meta tensor of the shape and dtype it
+    would return, counted as if it had run; a ``dist.sharding.MeshLayout``
+    stands for a mesh.  What a rank's step would send is reckoned without
+    a process group or a device.  It carries meta stand-ins only: a
+    collective on a tensor of any other device raises while it is open
+    (the scope is process-wide)."""
+    _DRY[0] += 1
+    try:
+        yield
+    finally:
+        _DRY[0] -= 1
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+@contextlib.contextmanager
+def carried_as(kind: str, axis: str, operand: int, result: int):
+    """The collectives in this scope are parts of one ``kind`` collective
+    over mesh ``axis`` of ``operand`` and ``result`` bytes a rank: it is
+    counted once, as that kind, and its parts add only their bytes sent
+    and received."""
+    outer = getattr(_SEAM, "kind", None)
+    if outer is None:
+        with _WIRES_LOCK:
+            for w in _WIRES:
+                w.add(kind, axis, operand, result)
+    _SEAM.kind = outer or kind
+    try:
+        yield
+    finally:
+        _SEAM.kind = outer
+
+
+@contextlib.contextmanager
+def _carry(kind: str, ax: _Axis, x: torch.Tensor, operand: int, result: int,
+           sent: int, received: int):
+    """One launch of the transport on ``ax`` with operand ``x``: counted,
+    with the bytes this rank sends and receives, unless it is part of a
+    launch already counted; yields whether the transport is dry (then
+    ``x`` must be a meta stand-in)."""
+    if _DRY[0] and x.device.type != "meta":
+        raise RuntimeError(
+            f"a {kind} on a {x.device.type} tensor inside comm.dry(): the "
+            "dry transport carries meta stand-ins only")
+    depth = getattr(_SEAM, "depth", 0)
+    if depth == 0:
+        with carried_as(kind, ax.name, operand, result), _WIRES_LOCK:
+            for w in _WIRES:
+                w.sent += sent
+                w.received += received
+    _SEAM.depth = depth + 1
+    try:
+        yield bool(_DRY[0])
+    finally:
+        _SEAM.depth = depth
+
+
 _gather_single = getattr(tdist, "all_gather_single", None) or getattr(
     tdist, "all_gather_into_tensor", None)
 
@@ -774,6 +905,16 @@ def _d_gather(ax: _Axis, members: Sequence[int], x: torch.Tensor
               ) -> torch.Tensor:
     """The values of ``members`` (axis positions, this rank among them),
     stacked in their order: ``(len(members),) + x.shape``."""
+    n, b = len(members), _nbytes(x)
+    with _carry("all-gather", ax, x, b, n * b, b * (n - 1),
+                b * (n - 1)) as is_dry:
+        if is_dry:
+            return x.new_empty((n,) + tuple(x.shape))
+        return _d_gather_now(ax, members, x)
+
+
+def _d_gather_now(ax: _Axis, members: Sequence[int], x: torch.Tensor
+                  ) -> torch.Tensor:
     if list(members) == list(range(ax.size)):
         src = _wire(x)
         out = src.new_empty(ax.size * src.numel())
@@ -788,6 +929,16 @@ def _d_alltoall(ax: _Axis, members: Sequence[int], blocks: torch.Tensor
                 ) -> torch.Tensor:
     """Block j of ``blocks`` to member j; returns the blocks the members
     sent here, in member order."""
+    g, b = len(members), _nbytes(blocks)
+    moved = b * (g - 1) // g
+    with _carry("all-to-all", ax, blocks, b, b, moved, moved) as is_dry:
+        if is_dry:
+            return blocks.new_empty(blocks.shape)
+        return _d_alltoall_now(ax, members, blocks)
+
+
+def _d_alltoall_now(ax: _Axis, members: Sequence[int], blocks: torch.Tensor
+                    ) -> torch.Tensor:
     members = list(members)
     g = len(members)
     src = _wire(blocks).view(g, blocks.numel() // g)
@@ -814,6 +965,19 @@ def _d_exchange(ax: _Axis, sends: Dict[int, torch.Tensor],
     position to the 1-D wire tensor it gets, ``recv`` a position to the
     number of elements it sends here; ``like`` gives their dtype and
     device.  Returns what arrived, by position."""
+    item = like.element_size()
+    out_b = sum(v.numel() for k, v in sends.items() if k != ax.index) * item
+    in_b = sum(n for k, n in recv.items() if k != ax.index) * item
+    with _carry("collective-permute", ax, like, out_b, in_b, out_b,
+                in_b) as is_dry:
+        if is_dry:
+            return {k: like.new_empty(int(n)) for k, n in recv.items()}
+        return _d_exchange_now(ax, sends, recv, like)
+
+
+def _d_exchange_now(ax: _Axis, sends: Dict[int, torch.Tensor],
+                    recv: Dict[int, int], like: torch.Tensor
+                    ) -> Dict[int, torch.Tensor]:
     size_in, size_out = [0] * ax.size, [0] * ax.size
     for k, v in sends.items():
         size_in[ax.slot[k]] = v.numel()
@@ -1113,17 +1277,23 @@ def psum(x: torch.Tensor, axis_index_groups=None,
     if _dist() is not None:
         _one_row(x)
         ax = _dist().axis(axis)
+        b = _nbytes(x)
         if axis_index_groups is None and not (x.dtype.is_floating_point
                                               or x.dtype == torch.bool):
             out = x.clone()
-            tdist.all_reduce(out, group=ax.group)
+            moved = 2 * b * (ax.size - 1) // ax.size
+            with _carry("all-reduce", ax, out, b, b, moved,
+                        moved) as is_dry:
+                if not is_dry:
+                    tdist.all_reduce(out, group=ax.group)
             return out
         members = ax.members(axis_index_groups)
 
         def total(xs):
             # floats and bools: the group's values summed in group order,
             # the emulated PEs' sum bit for bit
-            g = _d_gather(ax, members, xs[0])
+            with carried_as("all-reduce", ax.name, b, b):
+                g = _d_gather(ax, members, xs[0])
             return (g.reshape((1, 1) + tuple(g.shape[:1]) + tuple(
                 x.shape[1:])).sum(dim=2, dtype=x.dtype).reshape(x.shape),)
         return collective(total, total, x)[0]

@@ -455,9 +455,12 @@ def _reduce_scatter(g: torch.Tensor, mesh, axis: str, dim: int
     """Block i of ``g`` along ``dim`` (cut into the size of ``axis``)
     summed over the ranks of ``axis``, on the rank at position i: the
     transpose of a gather along ``dim``."""
+    from repro_torch.core import comm
     n = mesh_sizes(mesh)[axis]
     parts = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
-    return sum_rows(_exchange(parts, mesh, axis))
+    b = g.numel() * g.element_size()
+    with comm.carried_as("reduce-scatter", axis, b, b // n):
+        return sum_rows(_exchange(parts, mesh, axis))
 
 
 def gather_blocks(t: torch.Tensor, mesh, axes: Sequence[str],
@@ -531,7 +534,9 @@ def gather_model(shards: Sequence[torch.Tensor], dims: Sequence[int],
             m, -1) for g, d in zip(gs, dims)]
         buf, at = _packed(parts, m)
         del parts
-        got = _exchange(buf, mesh, axis)             # (m, total bytes)
+        with comm.carried_as("reduce-scatter", axis, buf.numel(),
+                             buf.numel() // m):
+            got = _exchange(buf, mesh, axis)         # (m, total bytes)
         del buf
         return tuple(sum_rows(got[:, off:off + n].view(g.dtype).reshape(
             (m,) + shape)) for g, (off, n), shape in zip(gs, at, shapes))
@@ -545,13 +550,16 @@ def _all_reduce(flat: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The 1-D ``flat`` summed over the ranks of ``axis``: each rank sums
     one block in rank order (a reduce-scatter), then every rank gathers
     the sums, so every rank holds the same bits."""
+    from repro_torch.core import comm
     n = mesh_sizes(mesh)[axis]
     size = flat.numel()
-    pad = -size % n
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    mine = sum_rows(_exchange(flat.view(n, -1), mesh, axis))
-    return _all_gather(mine, mesh, axis).reshape(-1)[:size]
+    b = size * flat.element_size()
+    with comm.carried_as("all-reduce", axis, b, b):
+        pad = -size % n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        mine = sum_rows(_exchange(flat.view(n, -1), mesh, axis))
+        return _all_gather(mine, mesh, axis).reshape(-1)[:size]
 
 
 def reduce_replicas(tensors: Sequence[torch.Tensor],

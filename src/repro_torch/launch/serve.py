@@ -28,9 +28,9 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.types import resolve_device
-from repro_torch.dist.sharding import (check_world, local_rows, make_mesh,
-                                       world_ranks)
+from repro_torch.dist.sharding import check_world, local_rows, world_ranks
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import make_mesh_shape
 from repro_torch.launch.sort_serve import _join_ranks, latency_stats
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import shard_params
@@ -132,7 +132,7 @@ def cli_mesh(spec, device):
                          f"{world_ranks()}")
     if not world_ranks():
         return None
-    return make_mesh(np.arange(dd * mm).reshape(dd, mm), ("data", "model"))
+    return make_mesh_shape((dd, mm), ("data", "model"))
 
 
 if __name__ == "__main__":

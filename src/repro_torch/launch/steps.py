@@ -1,7 +1,15 @@
-"""Train, serve and prefill step factories (counterpart of
-``repro/launch/steps.py``).  ``input_specs``, ``cache_specs``,
-``abstract_state`` and ``sharded_specs`` feed the reference's XLA dry-run
-and wait with it.
+"""Train, serve and prefill step factories, and the stand-ins of their
+inputs (counterpart of ``repro/launch/steps.py``).
+
+A stand-in is a tensor on the ``meta`` device: its shape and dtype, no
+storage.  :func:`abstract_state` gives the model and optimizer state of a
+config on meta with the placements ``make_shardings`` gives each leaf,
+:func:`input_specs` and :func:`cache_specs` the step's inputs and decode
+state with theirs, and :func:`sharded_specs` cuts each leaf to a rank's
+slice.  The dry-run (``launch/dryrun.py``) runs the port's own steps on
+them; ``train.py``/``serve.py`` feed real tensors of the same shapes.
+Token ids and labels are int64 (``batch_on``), where the reference's are
+int32.
 
 Every step runs on one device (the model's) or SPMD on the ranks of a
 mesh (``models.transformer``: every rank passes the whole batch, keeps
@@ -32,7 +40,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.sharding import (data_axes_of, mesh_sizes,
+from repro_torch.dist.sharding import (Sharding, act_axes, batch_axes_of,
+                                       data_axes_of, mesh_sizes,
                                        named_shardings, reduce_replicas,
                                        sum_rows, _all_gather)
 from repro_torch.models import transformer as T
@@ -206,3 +215,100 @@ def make_prefill_step(cfg, mesh):
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# Stand-ins on the meta device: abstract state, inputs, decode state
+# ---------------------------------------------------------------------------
+
+
+_META = torch.device("meta")
+
+
+def abstract_state(cfg, mesh, *, with_opt: bool = True):
+    """The model of ``cfg`` on meta (whole) and, ``with_opt``, its
+    optimizer state from ``opt_init``; beside them their shardings
+    (``named_shardings``, the weights' keyed by the reference's paths;
+    None without a mesh): ``((model, opt), (pshard, oshard))``, or
+    ``(model, pshard)``."""
+    model = T.Transformer(cfg, _META)
+    pshard = named_shardings(model, cfg, mesh) if mesh is not None else None
+    if not with_opt:
+        return model, pshard
+    opt_init, _ = make_optimizer(cfg.optimizer)
+    opt = opt_init(param_tree(model))
+    oshard = named_shardings(opt, cfg, mesh) if mesh is not None else None
+    return (model, opt), (pshard, oshard)
+
+
+def _own(leaf):
+    """A cut leaf with storage of its own (a view's storage is the
+    whole)."""
+    if isinstance(leaf, Stacked):
+        return Stacked(t.clone() for t in leaf)
+    return leaf.clone() if isinstance(leaf, torch.Tensor) else leaf
+
+
+def sharded_specs(shape_tree, shard_tree):
+    """Each leaf of ``shape_tree`` cut to the rank's slice its sharding
+    gives (``Sharding.cut``, on meta); no shardings: ``shape_tree``.  A
+    model is cut by ``convert.shard_params``, which keeps its weights
+    sharded at rest."""
+    if shard_tree is None:
+        return shape_tree
+    return tr.map_with(lambda leaf, sh: _own(sh.cut(leaf)), shape_tree,
+                       shard_tree)
+
+
+def _batch_sharding(mesh, axes, ndim: int):
+    """The placements of a leaf whose dimension 0 splits over ``axes``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return Sharding(mesh, tuple(Shard(0) if a in axes and ndim
+                                else Replicate()
+                                for a in mesh.mesh_dim_names))
+
+
+def input_specs(cfg, shape, mesh):
+    """(inputs, shardings): the step inputs of (arch × shape) on meta, the
+    whole global batch (token ids and labels int64), and each one's
+    placement: dimension 0 over ``batch_axes_of``'s axes (None without a
+    mesh).  Every rank of a mesh passes the whole batch to the port's
+    steps, which keep the rank's rows."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def t(*dims, dtype=torch.int64):
+        return torch.empty(dims, dtype=dtype, device=_META)
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            out = {"embeds": t(B, S, cfg.d_model, dtype=torch.bfloat16),
+                   "labels": t(B, S, cfg.n_codebooks)}
+        else:
+            out = {"tokens": t(B, S)}
+            if shape.kind == "train":
+                out["labels"] = t(B, S)
+    elif cfg.family == "audio":
+        out = {"embeds": t(B, 1, cfg.d_model, dtype=torch.bfloat16)}
+    else:
+        out = {"tokens": t(B, 1)}
+    if mesh is None:
+        return out, None
+    axes = batch_axes_of(mesh, cfg, batch=B)
+    return out, {k: _batch_sharding(mesh, axes, v.ndim)
+                 for k, v in out.items()}
+
+
+def cache_specs(cfg, shape, mesh):
+    """(state, shardings): the decode state of (arch × shape) on meta
+    (bf16 caches, the whole batch) and each leaf's placement: the batch
+    over the data axes when it divides them, every head of a rank's rows
+    whole, as the port's ``decode_step`` holds it (the reference also
+    splits a KV cache's heads, else its length, over ``model``; ROADMAP
+    §3).  None without a mesh."""
+    B, S = shape.global_batch, shape.seq_len
+    state = T.init_decode_state(cfg, B, S, torch.bfloat16, device=_META)
+    if mesh is None:
+        return state, None
+    axes = act_axes(mesh, B)
+    return state, tr.map_leaves(
+        lambda leaf: _batch_sharding(mesh, axes, len(getattr(leaf, "shape",
+                                                             ()))), state)

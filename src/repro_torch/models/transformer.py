@@ -43,9 +43,11 @@ shared block included), as the reference's ``jax.checkpoint`` of its scan
 body saves nothing; ``"none"`` keeps every activation.  A block's gather
 at use runs inside the recomputed function, so under ``"full"`` the
 backward gathers its weights again, as the reference's recompute does,
-and no layer's whole weights outlive its block.  ``"dots"`` (save
-the matmuls' outputs) is set only by the reference's dry-run variants,
-which are not ported.
+and no layer's whole weights outlive its block.  ``"dots"`` keeps the
+outputs of the matmuls without batch dimensions (``aten.mm``/``addmm``,
+an activation times a weight) and recomputes the rest, the reference's
+``checkpoint_dots_with_no_batch_dims`` (``torch.utils.checkpoint`` with a
+selective policy); its loss and gradients are ``"full"``'s.
 """
 from __future__ import annotations
 
@@ -278,20 +280,38 @@ def _on_mesh(inputs, mesh, cfg=None) -> Tuple[dict, tuple]:
         rows
 
 
+# the matmuls without batch dimensions: a (…, K) activation times a (K, N)
+# weight dispatches to one of these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``checkpoint_dots_with_no_batch_dims``: keep the
+    outputs of matmuls without batch dimensions, recompute everything
+    else (``bmm``, the attention's and the experts' batched products,
+    among them)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def _remat(fn, mode: str):
-    """``fn`` recomputed in the backward pass under ``"full"`` (only where
-    autograd records it), as it is under ``"none"``."""
-    if mode == "dots":
-        raise NotImplementedError(
-            'remat="dots" is set by the dry-run variants '
-            "(repro/launch/dryrun.py), which are not ported")
-    if mode != "full":
+    """``fn`` recomputed in the backward pass under ``"full"`` and, but
+    for its unbatched matmuls' outputs, which are kept, under ``"dots"``
+    (only where autograd records it); as it is under ``"none"``."""
+    if mode not in ("full", "dots"):
         return fn
+    kw = {"context_fn": _dots_context} if mode == "dots" else {}
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return run
 
 

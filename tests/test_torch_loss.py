@@ -2,7 +2,8 @@
 ``transformer.loss_fn``) and its gradients (``loss.backward()``) against
 the reference's (``jax.value_and_grad``) on the CPU, for every
 architecture's float32 smoke variant with the reference's weights; and
-``remat="full"`` against ``"none"``, bit for bit.  Tolerance: float32
+``remat="full"`` against ``"none"``, bit for bit, and ``"dots"`` against
+``"full"``.  Tolerance: float32
 rtol 1e-4, atol 1e-5 (``tests/torch_model_helpers.py``).  bf16:
 ``test_torch_loss_bf16.py``.
 """
@@ -102,10 +103,21 @@ def test_remat_full_equals_none_bit_for_bit(f32_runs, arch):
 
 
 def test_remat_dots_is_the_dry_runs():
+    """``"dots"`` (the dry-run's ``remat_dots`` variants) keeps the
+    unbatched matmuls' outputs and recomputes the rest: the loss and
+    every gradient of ``"full"``, within float32 rounding."""
     tc, model = model_pair("llama3.2-1b", "float32")[1::2]
     _, tb = train_batch(tc, 1, 8)
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        T.loss_fn(model, tb, dataclasses.replace(tc, remat="dots"))
+    runs = []
+    for remat in ("full", "dots"):
+        model.requires_grad_(True).zero_grad(set_to_none=True)
+        loss = T.loss_fn(model, tb, dataclasses.replace(tc, remat=remat))
+        loss.backward()
+        runs.append((loss.detach(), port_grads(model)))
+    (l0, g0), (l1, g1) = runs
+    torch.testing.assert_close(l1, l0)
+    for path in g0:
+        torch.testing.assert_close(g1[path], g0[path], msg=str(path))
 
 
 def test_serving_weights_take_no_gradient():
