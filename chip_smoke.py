@@ -235,21 +235,29 @@ Phases, each fatal on failure (no phase catches its own error):
    ``make_shardings`` places it and gathered whole over ``model`` at its
    block: (a) ``serve`` of granite-moe-1b-a400m at full size (bf16, batch
    32, 6 steps over a 1024-slot cache): each rank's resident weight
-   bytes (equal to the slices ``make_shardings`` reckons), the bytes it
+   bytes (equal to the slices ``make_shardings`` reckons) and cache bytes
+   (its rows and 4 of granite's 8 KV heads, as the reference's rule
+   splits them: equal to the slice ``cache_specs`` reckons, printed
+   beside its rows' whole cache), the bytes it
    receives a step, its peaks while drawing and while serving, p50/p99
    step ms and tok/s (walls of processes that share one card through
    the host, not a multi-GPU speed), every rank's tokens equal and their
    share equal to 19a's one-device serve at the same seed (reported: bf16
    on 16 rows may round apart from 32); (b) the mesh against one device,
-   granite at full width and depth 2 in float32, 8 greedy steps: tokens
-   equal, logits within 1e-4/1e-5; (c) context-parallel prefill of
+   granite at full width and depth 2 in float32, 8 greedy steps, the
+   caches split on their heads: tokens equal, each rank's logits of its
+   rows within 1e-4/1e-5 of one device's; (c) context-parallel prefill of
    llama3.2-1b at full width and depth 2 in float32 over (2, 2048)
    tokens in 1024-key blocks (query blocks over ``model``, rows over
    ``data``): the last-token logits within 1e-4/1e-5 of one device's
    ``forward`` on each rank's rows, the prefill step's tokens equal (the
    whole-batch forward's distance is printed beside it: cuBLAS sums 4096
-   rows in another order than 2048).  ``--mesh-only`` runs phases 1, 2
-   and 21 alone.
+   rows in another order than 2048); (d) the caches split on their
+   length: llama3.2-1b's smoke width (2 KV heads) on a (data 1, model 4)
+   mesh of the same ranks, float32, 64 teacher-forced steps over 64
+   slots (16 a rank, so every block takes writes): the logits within
+   1e-4/1e-5 of one device's.  ``--mesh-only`` runs phases 1, 2 and 21
+   alone.
 22. training on a mesh (``launch.train``, ``launch.steps``,
    ``runtime.checkpoint`` and ``rescale_state`` on a ``DeviceMesh``):
    four gloo ranks sharing the card on a (data 2, model 2) mesh, weights
@@ -261,7 +269,9 @@ Phases, each fatal on failure (no phase catches its own error):
    steps, a checkpoint every 2 and a crash injected at step 3 (cut from 6,
    3 and 4 for the script's time limit): each rank's resident bytes of weights and of optimizer state
    against the slices ``make_shardings`` reckons, the bytes it sends and
-   receives in a step, its peak, p50 step ms and tokens/s (walls of
+   receives in a step (the logits and the loss on its rows: under what
+   every rank moved when it gathered the whole logits), its peak (under
+   that layout's), p50 step ms and tokens/s (walls of
    processes that share one card through the host, not a multi-GPU
    speed), every rank's losses equal and finite, the replayed step's loss
    that of the first attempt, the saved checkpoint's whole leaves equal
@@ -511,10 +521,16 @@ TRAIN_DEV = "cuda"          # phase 20 runs here (a CPU rehearsal sets "cpu")
 # context-parallel prefill of llama3.2-1b (dense: granite's prefill takes
 # the expert-parallel dispatch on a mesh, which drops other items than the
 # one-device layer, as the reference's does) at full width and depth 2 in
-# float32 on (2, 2048) tokens in 1024-key blocks
+# float32 on (2, 2048) tokens in 1024-key blocks.  granite's 8 KV heads
+# split over model 2, so its caches split their heads; the length split
+# is held to one device on llama3.2-1b's smoke width (2 KV heads) on
+# (data 1, model 4): 64 teacher-forced steps over 64 slots, 16 a rank, so
+# every rank's block takes writes
 MESH_RANKS, MESH_LAYOUT = 4, (2, 2)
 MESH_TOKENS, MESH_SEED = 6, 21
 MESH_CP_ARCH, MESH_CP_SHAPE = "llama3.2-1b", (2, 2048)
+MESH_LENGTH_ARCH, MESH_LENGTH_LAYOUT = "llama3.2-1b", (1, 4)
+MESH_LENGTH_BATCH, MESH_LENGTH_CACHE, MESH_LENGTH_STEPS = 4, 64, 64
 MESH_SMOKE = False          # a CPU rehearsal sets True (smoke widths)
 # phase 22: training on a mesh.  Four gloo ranks share the card on a (data
 # 2, model 2) mesh: granite-moe-1b-a400m trained at full width through a
@@ -528,6 +544,11 @@ MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 2048
 # 4 steps, a checkpoint every 2, the crash at 3: cut from 6, 3 and 4 for
 # the script's time limit (a step is ~4.4 s of gloo traffic)
 MESH_TRAIN_STEPS, MESH_TRAIN_CKPT_EVERY, MESH_TRAIN_CRASH_AT = 4, 2, 3
+# what a rank of 22a sent a step and its peak when every rank gathered the
+# whole logits over data for the loss (PERF.md section 5): the logits and
+# the loss on a rank's rows must come in under both
+MESH_TRAIN_WHOLE_LOGITS_BYTES, MESH_TRAIN_WHOLE_LOGITS_PEAK = (
+    1_891_142_132, 10_123_124_736)
 MESH_CHECK_ARCH, MESH_CHECK_DEPTH = "llama3.2-1b", 2
 MESH_CHECK_BATCH, MESH_CHECK_SEQ, MESH_CHECK_STEPS = 2, 256, 3
 MESH_CPU_STEPS = 2
@@ -4191,6 +4212,25 @@ def reckoned_bytes(cfg, mesh) -> int:
     return total
 
 
+def reckoned_cache_bytes(torch, cfg, mesh) -> dict:
+    """The bytes of the decode state (bf16 caches of MODEL_BATCH rows over
+    MODEL_CACHE slots) this rank of ``mesh`` holds by the reference's
+    placement (``cache_specs`` cut to the rank's slice), and of its rows
+    whole, from the shapes alone."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist.sharding import local_rows
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    state, shards = S.cache_specs(cfg, ShapeConfig(
+        "serve", MODEL_CACHE, MODEL_BATCH, "decode"), mesh)
+    rows = local_rows(MODEL_BATCH, mesh)
+    return {"reckoned_cache_bytes": state_bytes(S.sharded_specs(state,
+                                                                shards)),
+            "rows_whole_cache_bytes": state_bytes(T.init_decode_state(
+                cfg, rows.stop - rows.start, MODEL_CACHE, torch.bfloat16,
+                device="meta"))}
+
+
 def mesh_serve_job(torch, np, mesh, dev, smoke):
     """21a on one rank: ``serve`` of granite at full size on the mesh, its
     tokens and stats, the weights it holds against the bytes
@@ -4203,10 +4243,18 @@ def mesh_serve_job(torch, np, mesh, dev, smoke):
     cfg = mesh_cfg(MODEL_ARCH, smoke)
     held = {}
     init, make_step = T.init_params, S.make_serve_step
+    init_state = T.init_decode_state
 
     def keep(c, gen, device=None):
         held["model"] = init(c, gen, device=device)
         return held["model"]
+
+    def keep_state(*a, **k):
+        st = init_state(*a, **k)
+        held["cache_bytes"] = state_bytes(st)
+        held["cache_split"] = sorted({getattr(c, "split", None)
+                                      for c in st.caches}, key=str)
+        return st
 
     def steps_start(c, m):               # serve's weights and state are made
         if dev == "cuda":
@@ -4222,12 +4270,14 @@ def mesh_serve_job(torch, np, mesh, dev, smoke):
     dist.barrier()
     t0 = time.perf_counter()
     T.init_params, S.make_serve_step = keep, steps_start
+    T.init_decode_state = keep_state
     try:
         toks, stats = SV.serve(cfg, mesh, batch=MODEL_BATCH,
                                tokens=MESH_TOKENS, cache_len=MODEL_CACHE,
                                logger=lambda s: None, device=dev)
     finally:
         T.init_params, S.make_serve_step = init, make_step
+        T.init_decode_state = init_state
     model, m = held["model"], MESH_LAYOUT[1]
     # a step gathers every split weight once (the tied embedding once for
     # the input and the head): the other model ranks' slices come in
@@ -4240,6 +4290,9 @@ def mesh_serve_job(torch, np, mesh, dev, smoke):
            "tok_per_s": stats["tok_per_s"], "steps_timed": stats["n"],
            "resident_bytes": resident_bytes(held["model"]),
            "reckoned_bytes": reckoned_bytes(cfg, mesh),
+           "cache_bytes": held["cache_bytes"],
+           "cache_split": held["cache_split"],
+           **reckoned_cache_bytes(torch, cfg, mesh),
            "whole_bytes": sum(t.numel() * t.element_size() for t in
                               T.Transformer(cfg, torch.device(
                                   "meta")).parameters())}
@@ -4251,13 +4304,14 @@ def mesh_serve_job(torch, np, mesh, dev, smoke):
     return out
 
 
-def mesh_decode_job(torch, np, mesh, dev, smoke, rank):
+def mesh_decode_job(torch, np, mesh, dev, smoke):
     """21b on one rank: granite at full width and depth 2 in float32, 8
-    greedy decode steps on the mesh (weights sharded at rest, this rank's
-    rows of a float32 state); rank 0 first runs the same steps on one
-    device from a whole copy and answers both runs' logits and tokens."""
-    import copy
-    from repro_torch.dist.sharding import local_rows
+    greedy decode steps on one device from a whole copy (the logits of
+    this rank's rows kept on the host), then on the mesh (weights sharded
+    at rest, this rank's slice of a float32 state: its rows, its KV heads)
+    with the tokens gathered over ``data`` as the next input: the two
+    runs' largest difference, their tokens and the mesh's wall."""
+    from repro_torch.dist.sharding import gather_rows, local_rows
     from repro_torch.models import transformer as T
     from repro_torch.models.convert import shard_params
     c = mesh_cfg(MODEL_ARCH, smoke, n_layers=MODEL_CHECK_DEPTH,
@@ -4265,45 +4319,89 @@ def mesh_decode_job(torch, np, mesh, dev, smoke, rank):
     model = T.init_params(c, torch.Generator(device=dev).manual_seed(
         MESH_SEED), device=dev)
     inp = decode_inputs(torch, np, c, MODEL_BATCH, MESH_SEED, dev)
-    out = {}
+    rows = local_rows(MODEL_BATCH, mesh)
     with torch.inference_mode():
-        if rank == 0:
-            st = T.init_decode_state(c, MODEL_BATCH, MODEL_CACHE,
-                                     torch.float32, device=dev)
-            x, one = inp, []
-            for _ in range(MODEL_CHECK_STEPS):
-                lg, st = T.decode_step(model, st, x, c)
-                x = {"tokens": lg[:, -1].argmax(-1)[:, None]}
-                one.append(lg.cpu())
-            out["one"] = one
-            model = copy.deepcopy(model)
-            del st
-        shard_params(model, c, mesh)
-        rows = local_rows(MODEL_BATCH, mesh)
-        st = T.init_decode_state(c, rows.stop - rows.start, MODEL_CACHE,
-                                 torch.float32, device=dev)
-        x, got = inp, []
-        t0 = time.perf_counter()
+        st = T.init_decode_state(c, MODEL_BATCH, MODEL_CACHE, torch.float32,
+                                 device=dev)
+        x, one, one_tok = inp, [], []
         for _ in range(MODEL_CHECK_STEPS):
-            lg, st = T.decode_step(model, st, x, c, mesh, ("data",))
+            lg, st = T.decode_step(model, st, x, c)
             x = {"tokens": lg[:, -1].argmax(-1)[:, None]}
-            got.append(lg.cpu())
-        out["wall_s"] = time.perf_counter() - t0
-    out["mesh"] = got if rank == 0 else None
-    out["tokens"] = [g[:, -1].argmax(-1).numpy() for g in got]
-    return out
+            one.append(lg[rows].cpu())
+            one_tok.append(x["tokens"][:, 0].cpu().numpy())
+        del st
+        shard_params(model, c, mesh)
+        st = T.init_decode_state(c, MODEL_BATCH, MODEL_CACHE, torch.float32,
+                                 device=dev, mesh=mesh)
+        splits = sorted({cache.split for cache in st.caches}, key=str)
+        x, err, close, toks = inp, 0.0, True, []
+        t0 = time.perf_counter()
+        for lo in one:
+            lg, st = T.decode_step(model, st, x, c, mesh, ("data",))
+            nxt = gather_rows(lg[:, -1].argmax(-1), mesh, MODEL_BATCH)
+            x = {"tokens": nxt[:, None]}
+            lg = lg.cpu()
+            err = max(err, float((lg - lo).abs().max()))
+            close &= bool(torch.allclose(lg, lo, **MODEL_F32_TOL))
+            toks.append(nxt.cpu().numpy())
+        wall = time.perf_counter() - t0
+    return {"max_abs_logit_err": err, "within_tol": close,
+            "tokens_equal": all(np.array_equal(a, b)
+                                for a, b in zip(toks, one_tok)),
+            "tokens": toks, "cache_split": splits, "wall_s": wall}
+
+
+def mesh_length_job(torch, np, dev):
+    """21d on one rank: llama3.2-1b's smoke width (2 KV heads) in float32
+    on a (data 1, model 4) mesh of the four ranks, where its caches split
+    their length: MESH_LENGTH_STEPS teacher-forced decode steps on one
+    device, then on the mesh (each rank a block of MESH_LENGTH_CACHE / 4
+    slots); the largest logit difference, the cache's shape a rank."""
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import shard_params
+    mesh = make_mesh(np.arange(MESH_RANKS).reshape(MESH_LENGTH_LAYOUT),
+                     ("data", "model"))
+    c = mesh_cfg(MESH_LENGTH_ARCH, True, dtype="float32")
+    model = T.init_params(c, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev)
+    feeds = [torch.from_numpy(np.random.default_rng(MESH_SEED + t).integers(
+        0, c.vocab, size=(MESH_LENGTH_BATCH, 1))).to(dev)
+        for t in range(MESH_LENGTH_STEPS)]
+    with torch.inference_mode():
+        st = T.init_decode_state(c, MESH_LENGTH_BATCH, MESH_LENGTH_CACHE,
+                                 torch.float32, device=dev)
+        one = []
+        for tok in feeds:
+            lg, st = T.decode_step(model, st, {"tokens": tok}, c)
+            one.append(lg)
+        shard_params(model, c, mesh)
+        st = T.init_decode_state(c, MESH_LENGTH_BATCH, MESH_LENGTH_CACHE,
+                                 torch.float32, device=dev, mesh=mesh)
+        err, close = 0.0, True
+        t0 = time.perf_counter()
+        for tok, lo in zip(feeds, one):
+            lg, st = T.decode_step(model, st, {"tokens": tok}, c, mesh,
+                                   ("data",))
+            err = max(err, float((lg - lo).abs().max()))
+            close &= bool(torch.allclose(lg, lo, **MODEL_F32_TOL))
+        wall = time.perf_counter() - t0
+    return {"max_abs_logit_err": err, "within_tol": close,
+            "cache_shape": list(st.caches[0].k.shape),
+            "cache_split": st.caches[0].split, "wall_s": wall}
 
 
 def mesh_prefill_job(torch, np, mesh, dev, smoke, rank):
     """21c on one rank: llama3.2-1b at full width and depth 2 in float32
     with context-parallel attention and ``prefill_last_only``: the prefill
     step on the mesh over (2, 2048) tokens (1024-key blocks: each model
-    index takes one query block, each data index one row).  Rank 0 first
-    runs ``forward`` on one device from a whole copy: on each data index's
-    rows (what a rank computes), on the whole batch, and on the whole
-    batch with the context-parallel attention of a (1, 1) layout."""
+    index takes one query block, each data index one row), the logits of
+    this rank's rows and its tokens.  Rank 0 first runs ``forward`` on one
+    device from a whole copy: on each data index's rows (what a rank
+    computes), on the whole batch, and on the whole batch with the
+    context-parallel attention of a (1, 1) layout."""
     import copy
-    from repro_torch.dist.sharding import MeshLayout
+    from repro_torch.dist.sharding import MeshLayout, local_rows
     from repro_torch.launch import steps as S
     from repro_torch.models import transformer as T
     from repro_torch.models.convert import shard_params
@@ -4314,14 +4412,15 @@ def mesh_prefill_job(torch, np, mesh, dev, smoke, rank):
         0, c.vocab, size=MESH_CP_SHAPE)).to(dev)
     model = T.init_params(c, torch.Generator(device=dev).manual_seed(
         MESH_SEED), device=dev)
-    out = {}
+    rows = local_rows(MESH_CP_SHAPE[0], mesh)
+    out = {"rows": (rows.start, rows.stop)}
     with torch.inference_mode():
         if rank == 0:
             def one(t, layout=None):
                 return T.forward(model, {"tokens": t}, c, layout,
                                  last_only=True)[0].cpu()
-            rows = MESH_CP_SHAPE[0] // MESH_LAYOUT[0]
-            out["one_rows"] = torch.cat([one(t) for t in tok.split(rows)])
+            n = MESH_CP_SHAPE[0] // MESH_LAYOUT[0]
+            out["one_rows"] = torch.cat([one(t) for t in tok.split(n)])
             out["one_whole"] = one(tok)
             out["one_cp"] = one(tok, MeshLayout(("data", "model"), (1, 1),
                                                 (0, 0)))
@@ -4340,7 +4439,8 @@ def mesh_prefill_job(torch, np, mesh, dev, smoke, rank):
 def mesh_rank(rank, world, port, backend, jobs, results):
     """One rank of phase 21 (spawned; every rank on the card 0): joins the
     gloo group, makes the (data 2, model 2) mesh, then runs each job
-    ("mesh", (part, device, smoke)) for part serve, decode or prefill."""
+    ("mesh", (part, device, smoke)) for part serve, decode, prefill or
+    length."""
     import datetime
     import traceback
     try:
@@ -4370,7 +4470,9 @@ def mesh_rank(rank, world, port, backend, jobs, results):
             if part == "serve":
                 out = mesh_serve_job(torch, np, mesh, dev, smoke)
             elif part == "decode":
-                out = mesh_decode_job(torch, np, mesh, dev, smoke, rank)
+                out = mesh_decode_job(torch, np, mesh, dev, smoke)
+            elif part == "length":
+                out = mesh_length_job(torch, np, dev)
             else:
                 out = mesh_prefill_job(torch, np, mesh, dev, smoke, rank)
             results.put((rank, "ok", out))
@@ -4385,10 +4487,13 @@ def mesh_rank(rank, world, port, backend, jobs, results):
 def mesh_phase(torch, np, card):
     """Phase 21: serving on a (data 2, model 2) mesh of four gloo ranks
     sharing the card; (a) granite served at full size against 19a's
-    one-device serve at the same seed, (b) the mesh against one device in
-    float32 at depth 2, (c) context-parallel prefill against one device.
-    The walls are of four processes that share one card through the host,
-    not a multi-GPU speed.  Each part prints its seconds."""
+    one-device serve at the same seed, each rank's cache (its rows, its KV
+    heads) against the slice the reference's rule reckons, (b) the mesh
+    against one device in float32 at depth 2, (c) context-parallel
+    prefill against one device, (d) caches split on their length, on a
+    (data 1, model 4) mesh of the same ranks, against one device.  The
+    walls are of four processes that share one card through the host, not
+    a multi-GPU speed.  Each part prints its seconds."""
     from repro_torch.launch.serve import serve
     dev, smoke = MODEL_DEV, MESH_SMOKE
     t_all = time.perf_counter()
@@ -4421,45 +4526,44 @@ def mesh_phase(torch, np, card):
                "share_equal_to_one_device": float(np.mean(toks == one)),
                "one_device_p50_ms": one_stats["p50_ms"],
                "whole_bytes": a[0]["whole_bytes"]}
-        for k in ("resident_bytes", "reckoned_bytes",
-                  "weight_bytes_received_per_step", "peak_init",
-                  "before_steps", "peak_steps", "p50_ms", "p99_ms",
-                  "tok_per_s", "steps_timed", "wall_s"):
+        for k in ("resident_bytes", "reckoned_bytes", "cache_bytes",
+                  "reckoned_cache_bytes", "rows_whole_cache_bytes",
+                  "cache_split", "weight_bytes_received_per_step",
+                  "peak_init", "before_steps", "peak_steps", "p50_ms",
+                  "p99_ms", "tok_per_s", "steps_timed", "wall_s"):
             row[k] = [r.get(k) for r in a]
         emit(row)
         if not row["tokens_equal_on_every_rank"] or toks.shape != (
                 MESH_TOKENS * MODEL_BATCH,) or any(
-                r["resident_bytes"] != r["reckoned_bytes"] for r in a) \
+                r["resident_bytes"] != r["reckoned_bytes"] or
+                r["cache_bytes"] != r["reckoned_cache_bytes"] or
+                r["cache_split"] != [2] for r in a) \
                 or any(r["p50_ms"] is None for r in a):
             raise AssertionError(f"21a: {row}")
 
         t = time.perf_counter()
         b = ranks.run(("mesh", ("decode", dev, smoke)))
         parts["b"] = time.perf_counter() - t
-        err, same = 0.0, True
-        for lo, lm in zip(b[0]["one"], b[0]["mesh"]):
-            err = max(err, float((lo - lm).abs().max()))
-            if not torch.allclose(lm, lo, **MODEL_F32_TOL):
-                raise AssertionError(f"21b: mesh logits differ from one "
-                                     f"device's by {err}")
-            same &= bool(torch.equal(lo[:, -1].argmax(-1),
-                                     lm[:, -1].argmax(-1)))
-        same &= all(np.array_equal(np.stack(r["tokens"]),
-                                   np.stack(b[0]["tokens"])) for r in b)
+        same = all(r["tokens_equal"] for r in b) and all(
+            np.array_equal(np.stack(r["tokens"]), np.stack(b[0]["tokens"]))
+            for r in b)
         row = {"phase": "mesh_vs_one_device", "arch": cfg.name,
                "card": card, "depth": MODEL_CHECK_DEPTH, "dtype": "float32",
                "steps": MODEL_CHECK_STEPS, "batch": MODEL_BATCH,
-               "tokens_equal": same, "max_abs_logit_err": err,
+               "cache_split": [r["cache_split"] for r in b],
+               "tokens_equal": same,
+               "max_abs_logit_err": max(r["max_abs_logit_err"] for r in b),
                "tol": MODEL_F32_TOL, "wall_s": [r["wall_s"] for r in b]}
         emit(row)
-        if not same:
+        if not same or not all(r["within_tol"] for r in b) or any(
+                r["cache_split"] != [2] for r in b):
             raise AssertionError(f"21b: {row}")
 
         t = time.perf_counter()
         c = ranks.run(("mesh", ("prefill", dev, smoke)))
         parts["c"] = time.perf_counter() - t
-        lm = c[0]["mesh"]
-        errs = {k: float((c[0][k] - lm).abs().max())
+        lm, (lo, hi) = c[0]["mesh"], c[0]["rows"]
+        errs = {k: float((c[0][k][lo:hi] - lm).abs().max())
                 for k in ("one_rows", "one_whole", "one_cp")}
         want = c[0]["one_rows"][:, -1].argmax(-1).numpy()
         row = {"phase": "mesh_cp_prefill", "arch": MESH_CP_ARCH,
@@ -4470,13 +4574,31 @@ def mesh_phase(torch, np, card):
                "max_abs_logit_err_whole_batch": errs["one_whole"],
                "max_abs_logit_err_one_device_cp": errs["one_cp"],
                "tol": MODEL_F32_TOL,
-               "tokens_equal": all(np.array_equal(r["tokens"], want)
-                                   for r in c),
+               "tokens_equal": all(np.array_equal(
+                   r["tokens"], want[r["rows"][0]:r["rows"][1]])
+                   for r in c),
                "wall_s": [r["wall_s"] for r in c]}
         emit(row)
-        if not torch.allclose(lm, c[0]["one_rows"], **MODEL_F32_TOL) \
-                or not row["tokens_equal"]:
+        if not torch.allclose(lm, c[0]["one_rows"][lo:hi],
+                              **MODEL_F32_TOL) or not row["tokens_equal"]:
             raise AssertionError(f"21c: {row}")
+
+        t = time.perf_counter()
+        d = ranks.run(("mesh", ("length", dev, smoke)))
+        parts["d"] = time.perf_counter() - t
+        row = {"phase": "mesh_length_split", "arch": MESH_LENGTH_ARCH,
+               "card": card, "width": "smoke", "dtype": "float32",
+               "mesh": dict(zip(("data", "model"), MESH_LENGTH_LAYOUT)),
+               "batch": MESH_LENGTH_BATCH, "cache_len": MESH_LENGTH_CACHE,
+               "steps": MESH_LENGTH_STEPS,
+               "cache_shape": [r["cache_shape"] for r in d],
+               "cache_split": [r["cache_split"] for r in d],
+               "max_abs_logit_err": max(r["max_abs_logit_err"] for r in d),
+               "tol": MODEL_F32_TOL, "wall_s": [r["wall_s"] for r in d]}
+        emit(row)
+        if not all(r["within_tol"] for r in d) or any(
+                r["cache_split"] != 1 for r in d):
+            raise AssertionError(f"21d: {row}")
     finally:
         ranks.close()
     emit({"phase": "mesh_done", "seconds": time.perf_counter() - t_all,
@@ -4843,6 +4965,12 @@ def mesh_train_full(ranks, card, dev, smoke, dirs):
                s["sent"] for s in timed),
            "received_bytes_per_step": statistics.median(
                s["received"] for s in timed),
+           "whole_logits_bytes_per_step": MESH_TRAIN_WHOLE_LOGITS_BYTES,
+           # the whole logits gathered over data and their gradient
+           # reduce-scattered: (d - 1) / d of the bf16 logits, twice
+           "logits_share": 2 * MESH_TRAIN_BATCH * MESH_TRAIN_SEQ * cfg.vocab
+           * 2 * (MESH_LAYOUT[0] - 1) // MESH_LAYOUT[0],
+           "whole_logits_peak": MESH_TRAIN_WHOLE_LOGITS_PEAK,
            "what": "host walls of eager steps of four ranks "
                    "sharing one card through gloo; bytes are "
                    "this rank's to and from the others"}
@@ -4862,7 +4990,10 @@ def mesh_train_full(ranks, card, dev, smoke, dirs):
                    r["resident_opt_bytes"] != r["reckoned"]["opt"]
                    for r in a) \
             or not a[0]["saved_bit_for_bit"] \
-            or a[0]["saved_leaves"] == 0:
+            or a[0]["saved_leaves"] == 0 \
+            or row["sent_bytes_per_step"] >= MESH_TRAIN_WHOLE_LOGITS_BYTES \
+            or (dev == "cuda" and max(row["peak"])
+                >= MESH_TRAIN_WHOLE_LOGITS_PEAK):
         raise AssertionError(f"22a: {row}")
     MEASURED["22a"] = row
     return row

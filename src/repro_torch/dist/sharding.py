@@ -239,6 +239,31 @@ def local_rows(batch: int, mesh, axes: Optional[Sequence[str]] = None
     return block_slices((batch,), [act_axes(mesh, batch, axes)], mesh)[0]
 
 
+def gather_rows(t: torch.Tensor, mesh, batch: int,
+                axes: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """The whole batch of ``batch`` rows from every rank's rows ``t`` (as
+    :func:`local_rows` cuts them), on every rank; ``t`` without a
+    mesh."""
+    if mesh is None:
+        return t
+    return gather_blocks(t, mesh, act_axes(mesh, batch, axes))
+
+
+def cache_split_dim(shape, mesh) -> Optional[int]:
+    """The dimension of a KV cache ``(B, S, KV, hd)`` that the reference's
+    rule (``repro/launch/steps.py`` ``cache_specs``) splits over ``model``:
+    the KV heads (2) when ``model`` divides them, else the length (1) when
+    it divides that, else none (None, as on a mesh without ``model``)."""
+    m = mesh_sizes(mesh).get("model") if mesh is not None else None
+    if m is None:
+        return None
+    if shape[2] % m == 0:
+        return 2
+    if shape[1] % m == 0:
+        return 1
+    return None
+
+
 def mesh_coord(mesh) -> Dict[str, int]:
     """This rank's index along each axis of ``mesh``, by name."""
     coord = mesh.get_coordinate()
@@ -541,6 +566,27 @@ def gather_model(shards: Sequence[torch.Tensor], dims: Sequence[int],
         return tuple(sum_rows(got[:, off:off + n].view(g.dtype).reshape(
             (m,) + shape)) for g, (off, n), shape in zip(gs, at, shapes))
     return list(comm.collective(gather, scatter, *shards))
+
+
+def sum_over(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The float32 scalar ``x`` summed over the ranks of ``axes`` (the
+    first major) in rank order, the same bits on every rank: each axis's
+    values gathered (one all-reduce of 4 bytes an axis), then summed.
+    Each rank's ``x`` is one term of the sum, so the backward hands each
+    rank the sum's gradient as its own term's."""
+    from repro_torch.core import comm
+    axes = tuple(a for a in axes if mesh_sizes(mesh)[a] > 1)
+    if not axes:
+        return x
+
+    def gather(xs):
+        t = xs[0].reshape(1)
+        for a in reversed(axes):
+            b = t.numel() * t.element_size()
+            with comm.carried_as("all-reduce", a, b, b):
+                t = _all_gather(t, mesh, a).reshape(-1)
+        return (sum_rows(t[:, None])[0],)
+    return comm.collective(gather, lambda gs: gs, x)[0]
 
 
 _BUCKET_BYTES = 1 << 26        # the most one reduction exchanges at a time

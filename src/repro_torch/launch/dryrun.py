@@ -11,7 +11,9 @@ A cell builds the production mesh as one rank's layout
 model and optimizer state of the config on the ``meta`` device cut to
 that rank's slices (``steps.abstract_state``, ``convert.shard_params``,
 ``sharded_specs``), the step's inputs (``input_specs``; decode:
-``cache_specs``, the rows the port's decode step holds), and runs one
+``cache_specs``, the reference's placement of the decode state: a rank's
+rows, and of each KV cache its heads, else its slots, over ``model``;
+the record's ``cache_layout`` says which), and runs one
 train, prefill or decode step of the port (``make_train_step``,
 ``make_prefill_step``, ``make_serve_step``) on them under ``op_cost``,
 with the dry transport (``core.comm.dry``):
@@ -32,10 +34,13 @@ host network, one 400 Gb/s NIC a card, 50 GB/s.  On (data 16, model 16)
 both axes span hosts: ``model``'s 16 ranks lie on two hosts, ``data``'s
 on sixteen.
 
-A rank of the port computes its rows whole, with a block's weights
-gathered at use (ROADMAP §3), where GSPMD splits the matmuls over
-``model``: its FLOPs per device are the whole batch's over the data axes,
-not over every chip, and ``useful_flops_ratio`` shows the redundancy.
+A rank holds what the reference's program holds there of the logits,
+the loss and the decode state: the logits and the token losses of its
+rows, the cache split over ``model``.  It computes its rows whole, with
+a block's weights gathered at use and the MoE layer on the whole batch
+(ROADMAP §3), where GSPMD splits the matmuls over ``model``: its FLOPs
+per device are the whole batch's over the data axes, not over every
+chip, and ``useful_flops_ratio`` shows the redundancy.
 """
 from __future__ import annotations
 
@@ -211,6 +216,16 @@ def reckon(cfg, shape, mesh) -> dict:
     )
 
 
+def cache_layout(cfg, shape, mesh) -> str:
+    """How a rank holds the KV caches of a decode on ``mesh``: split on
+    their ``"heads"`` or their ``"length"`` over ``model``, or its
+    ``"rows"`` whole (the recurrent states of rwkv6 and mamba2 too)."""
+    state, _ = S.cache_specs(cfg, shape, mesh)
+    caches = [c for g in (state.caches, state.shared_caches or ())
+              for c in g if getattr(c, "split", None) is not None]
+    return {1: "length", 2: "heads"}[caches[0].split] if caches else "rows"
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
              variant: str = "base", rank: int = 0):
 
@@ -229,8 +244,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
     mesh = make_production_mesh(multi_pod=multi_pod, rank=rank)
     rec["mesh"] = mesh_sizes(mesh)
     if shape.kind == "decode":
-        rec["cache_layout"] = "rows"     # the port's decode state: a rank's
-                                         # rows, every head (ROADMAP §3)
+        rec["cache_layout"] = cache_layout(cfg, shape, mesh)
     t0 = time.time()
     try:
         rec.update(reckon(cfg, shape, mesh))

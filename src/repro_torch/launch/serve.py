@@ -5,8 +5,12 @@ the caller passes ``device="cpu"``.
 
 On a ``(data, model)`` mesh of the ranks of a process group, ``serve`` is
 SPMD: every rank draws the same weights from the seed and keeps its
-slices of them (``convert.shard_params``), holds its rows of the decode
-state, and returns the same tokens, those of one device.  ``--mesh d,m``
+slices of them (``convert.shard_params``), holds its slice of the decode
+state (its rows, and of each KV cache its heads or its slots over
+``model``, ``init_decode_state(..., mesh=)``), takes the next tokens of
+its rows, and gathers those int32 tokens over the data axes where the
+host reads them: every rank returns the same tokens, those of one
+device.  ``--mesh d,m``
 joins the group ``torchrun`` describes (gloo for ``--device cpu``), as
 the query-serving CLI does; ranks sharing one card are gloo ranks
 spawned by the caller (``chip_smoke.py`` phase 21).
@@ -28,7 +32,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.types import resolve_device
-from repro_torch.dist.sharding import check_world, local_rows, world_ranks
+from repro_torch.dist.sharding import check_world, gather_rows, world_ranks
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_mesh_shape
 from repro_torch.launch.sort_serve import _join_ranks, latency_stats
@@ -63,9 +67,8 @@ def serve(cfg, mesh=None, *, batch: int, tokens: int, cache_len: int = 256,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = shard_params(T.init_params(cfg, gen, device=dev), cfg, mesh)
-    rows = local_rows(batch, mesh)
-    dstate = T.init_decode_state(cfg, rows.stop - rows.start, cache_len,
-                                 torch.bfloat16, device=dev)
+    dstate = T.init_decode_state(cfg, batch, cache_len, torch.bfloat16,
+                                 device=dev, mesh=mesh)
     step = S.make_serve_step(cfg, mesh)
 
     r = np.random.default_rng(seed)
@@ -82,6 +85,7 @@ def serve(cfg, mesh=None, *, batch: int, tokens: int, cache_len: int = 256,
         for _ in range(tokens):
             t0 = time.perf_counter()
             nxt, dstate = step(model, dstate, inp)
+            nxt = gather_rows(nxt, mesh, batch)      # the rows' tokens
             host = nxt.cpu().numpy()                 # waits for the step
             lat.append(time.perf_counter() - t0)
             out_tokens.append(host)

@@ -14,22 +14,28 @@ int32.
 Every step runs on one device (the model's) or SPMD on the ranks of a
 mesh (``models.transformer``: every rank passes the whole batch, keeps
 its rows over the data axes, and holds its slices of the weights,
-gathered whole at use).  The train step takes the reference's step: the
-loss and its gradients, the optimizer's update of the weights and
-moments (in place), and the metrics ``loss``, ``lr`` and ``grad_norm``
-(the square root of the float32 sum of squares over every gradient) as
-0-d tensors, the same on every rank.
+gathered whole at use, and of the decode state).  The train step takes
+the reference's step: the loss and its gradients, the optimizer's update
+of the weights and moments (in place), and the metrics ``loss``, ``lr``
+and ``grad_norm`` (the square root of the float32 sum of squares over
+every gradient) as 0-d tensors, the same on every rank.  The serve and
+prefill steps return the next tokens of the rank's rows (int32); a
+caller gathers them over the data axes where it reads them
+(``dist.sharding.gather_rows``, as ``launch.serve`` does).
 
-On a mesh (:func:`loss_and_grads`) each rank backpropagates its share of
-the global loss (``loss / ranks``); every gather passes the gradient back
-as a reduce-scatter, so a weight split over ``model`` has, on each rank,
-its slice's gradient of the rank's rows, and :func:`reduce_replicas`
-sums it over the axes the weight is replicated along (the data axes, and
-``model`` for a weight it does not split, or under ``cfg.ddp``), in rank
-order.  Each rank then holds its slices of the global gradient, the
-reference's under GSPMD.  The optimizer state is placed by
-``make_shardings`` on each state leaf's own shape
-(:func:`state_shardings`); ``grad_norm`` counts each element once.
+On a mesh (:func:`loss_and_grads`) each rank backpropagates its own part
+of the loss (``loss_fn``: its rows' token losses over the global count),
+scaled by one over the ranks that hold the same rows (those along
+``model``, whose identical parts meet in each gather's backward); every
+gather passes the gradient back as a reduce-scatter, so a weight split
+over ``model`` has, on each rank, its slice's gradient of the rank's
+rows, and :func:`reduce_replicas` sums it over the axes the weight is
+replicated along (the data axes, and ``model`` for a weight it does not
+split, or under ``cfg.ddp``), in rank order.  Each rank then holds its
+slices of the global gradient, the reference's under GSPMD.  The
+optimizer state is placed by ``make_shardings`` on each state leaf's own
+shape (:func:`state_shardings`); ``grad_norm`` counts each element
+once.
 """
 from __future__ import annotations
 
@@ -41,10 +47,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.dist.sharding import (Sharding, act_axes, batch_axes_of,
-                                       data_axes_of, mesh_sizes,
-                                       named_shardings, reduce_replicas,
-                                       sum_rows, _all_gather)
+                                       cache_split_dim, data_axes_of,
+                                       mesh_sizes, named_shardings,
+                                       reduce_replicas, sum_rows,
+                                       _all_gather)
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import KVCache
 from repro_torch.optim import cosine_schedule, make_optimizer
 from repro_torch.optim import tree as tr
 from repro_torch.optim.tree import Stacked, layers, param_tree
@@ -94,9 +102,14 @@ def loss_and_grads(model, batch: Dict[str, torch.Tensor], cfg, mesh=None,
     if mesh is None:
         loss.backward()
     else:
-        # each rank backpropagates its share of the loss every rank holds
-        ranks = math.prod(mesh_sizes(mesh).values())
-        loss.backward(torch.full_like(loss, 1.0 / ranks))
+        # each rank backpropagates its own part; the ranks that hold the
+        # same rows (blocks of them over the row axes) share it
+        sizes = mesh_sizes(mesh)
+        labels = batch["labels"]
+        blocks = math.prod(sizes[a] for a in T.row_axes(
+            mesh, cfg, labels.shape[0]))
+        loss.backward(torch.full_like(
+            loss, blocks / math.prod(sizes.values())))
     params = param_tree(model)
     grads = {k: tuple(t.grad if t.grad is not None else torch.zeros_like(t)
                       for t in layers(v)) for k, v in params.items()}
@@ -197,6 +210,7 @@ def make_serve_step(cfg, mesh):
     dax = data_axes_of(mesh) if mesh is not None else ("data",)
 
     def serve_step(model, dstate, inputs):
+        """(the next tokens of the rank's rows, the new state)."""
         logits, new_state = T.decode_step(model, dstate, inputs, cfg, mesh,
                                           dax)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
@@ -209,6 +223,7 @@ def make_prefill_step(cfg, mesh):
     dax = data_axes_of(mesh) if mesh is not None else ("data",)
 
     def prefill_step(model, inputs):
+        """The next tokens of the rank's rows."""
         logits, _ = T.forward(model, inputs, cfg, mesh, dax,
                               last_only=getattr(cfg, "prefill_last_only",
                                                 False))
@@ -260,12 +275,14 @@ def sharded_specs(shape_tree, shard_tree):
                        shard_tree)
 
 
-def _batch_sharding(mesh, axes, ndim: int):
-    """The placements of a leaf whose dimension 0 splits over ``axes``."""
+def _batch_sharding(mesh, axes, ndim: int, model_dim: Optional[int] = None):
+    """The placements of a leaf whose dimension 0 splits over ``axes``
+    (and ``model_dim``, where given, over ``model``)."""
     from torch.distributed.tensor import Replicate, Shard
-    return Sharding(mesh, tuple(Shard(0) if a in axes and ndim
-                                else Replicate()
-                                for a in mesh.mesh_dim_names))
+    return Sharding(mesh, tuple(
+        Shard(0) if a in axes and ndim else
+        Shard(model_dim) if a == "model" and model_dim is not None else
+        Replicate() for a in mesh.mesh_dim_names))
 
 
 def input_specs(cfg, shape, mesh):
@@ -299,16 +316,33 @@ def input_specs(cfg, shape, mesh):
 
 def cache_specs(cfg, shape, mesh):
     """(state, shardings): the decode state of (arch × shape) on meta
-    (bf16 caches, the whole batch) and each leaf's placement: the batch
-    over the data axes when it divides them, every head of a rank's rows
-    whole, as the port's ``decode_step`` holds it (the reference also
-    splits a KV cache's heads, else its length, over ``model``; ROADMAP
-    §3).  None without a mesh."""
+    (bf16 caches, the whole batch) and each leaf's placement, the
+    reference's: the batch over the data axes when it divides them, and
+    a KV cache's heads, else its length, over ``model`` by the reference's
+    rule (``dist.sharding.cache_split_dim``; each cache records which in
+    ``split``, as ``init_decode_state`` on the mesh makes it).  The
+    recurrent states of rwkv6 and mamba2 keep every head of a rank's
+    rows.  No mesh: the state and None."""
     B, S = shape.global_batch, shape.seq_len
     state = T.init_decode_state(cfg, B, S, torch.bfloat16, device=_META)
     if mesh is None:
         return state, None
     axes = act_axes(mesh, B)
-    return state, tr.map_leaves(
-        lambda leaf: _batch_sharding(mesh, axes, len(getattr(leaf, "shape",
-                                                             ()))), state)
+
+    def place(c):
+        if not isinstance(c, KVCache):
+            return c, tr.map_leaves(lambda leaf: _batch_sharding(
+                mesh, axes, len(getattr(leaf, "shape", ()))), c)
+        split = cache_split_dim(c.k.shape, mesh)
+        kv = _batch_sharding(mesh, axes, c.k.ndim, split)
+        whole = _batch_sharding(mesh, (), 0)
+        return (c._replace(split=split), KVCache(
+            kv, kv, whole, None if split is None else whole))
+
+    labelled, shards = {}, {"pos": _batch_sharding(mesh, (), 0)}
+    for g in ("caches", "shared_caches"):
+        if getattr(state, g) is not None:
+            pairs = [place(c) for c in getattr(state, g)]
+            labelled[g] = [c for c, _ in pairs]
+            shards[g] = [sh for _, sh in pairs]
+    return state._replace(**labelled), state._replace(**shards)

@@ -6,8 +6,10 @@ Runs real steps on one device, the card unless the caller passes
 checkpointing, crash recovery and the straggler watchdog around the
 train step.  On a mesh every rank draws the same weights from the seed,
 keeps its slices of them and of the optimizer state (as
-``make_shardings`` places each leaf), passes the whole batch and gets
-the global loss; the checkpoints hold the whole leaves, the reference's
+``make_shardings`` places each leaf), passes the whole batch and
+computes the loss of its rows, which ``loss_fn`` sums over the ranks
+into the global loss: the one logged, the same on every rank; the
+checkpoints hold the whole leaves, the reference's
 layout, and a crash injected at a step fires on every rank, which all
 restart from the same checkpoint.  ``--mesh d,m`` joins the process group
 ``torchrun`` describes (gloo for ``--device cpu``), as ``serve --mesh``

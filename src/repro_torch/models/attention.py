@@ -8,7 +8,9 @@ blocks at or before it with a running (max, denominator), as the
 reference's ``lax.map`` over query blocks and ``lax.scan`` over key blocks
 do, masked steps included.  ``banded`` scans only the key blocks of the
 sliding-window band.  On a mesh with ``cfg.attn_context_parallel``,
-``_attend_cp`` splits the query blocks over ``model``.  Plain torch, as
+``_attend_cp`` splits the query blocks over ``model``, and a decode
+cache split over ``model`` by the reference's rule (its KV heads, else
+its length) is attended over the rank's heads or slots.  Plain torch, as
 the reference is plain ``jnp``.
 """
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from repro_torch.dist.sharding import gather_blocks, mesh_coord, mesh_sizes
+from repro_torch.dist.sharding import (cache_split_dim, gather_blocks,
+                                       mesh_coord, mesh_sizes)
 
 from .layers import apply_rope, init_rms, normal, rms_norm
 
@@ -200,31 +203,54 @@ def _attend_chunked(q, k, v, n_rep, window, block, banded):
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor       # (B, S_max, KV, hd)
+    k: torch.Tensor       # (B, S_max, KV, hd); on a mesh, the rank's slice
     v: torch.Tensor
     pos: int              # next write position (same for the batch)
+    # on a mesh, the dimension of the whole cache split over ``model``: 1
+    # the length, 2 the KV heads (``dist.sharding.cache_split_dim``); None
+    # where the rank holds every slot and head of its rows
+    split: Optional[int] = None
 
 
-def init_cache(B: int, S_max: int, cfg, dtype, device) -> KVCache:
+def init_cache(B: int, S_max: int, cfg, dtype, device, mesh=None
+               ) -> KVCache:
+    """Zeros for ``B`` rows and ``S_max`` slots; on a mesh, the rank's
+    slice over ``model`` by the reference's rule: its ``KV / model``
+    heads, else its ``S_max / model`` slots, else every one."""
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    return KVCache(k=torch.zeros((B, S_max, KV, hd), dtype=dtype,
-                                 device=device),
-                   v=torch.zeros((B, S_max, KV, hd), dtype=dtype,
-                                 device=device),
-                   pos=0)
+    shape = [B, S_max, KV, hd]
+    split = cache_split_dim(shape, mesh)
+    if split is not None:
+        shape[split] //= mesh_sizes(mesh)["model"]
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=0, split=split)
 
 
-def decode_attention(x: torch.Tensor, p, cfg, cache: KVCache):
+def decode_attention(x: torch.Tensor, p, cfg, cache: KVCache, mesh=None):
     """One-token decode: x (B, 1, D); returns (out (B, 1, D), new cache).
 
     The new key and value are written into the cache's buffers in place
     (the reference donates them to its step), at the absolute position, or
     for a sliding window at its slot in the ring; like the reference's
     ``dynamic_update_slice`` a write past the end lands on the last slot,
-    and keys of another dtype than the cache's are refused."""
+    and keys of another dtype than the cache's are refused.
+
+    On a mesh a cache split over ``model`` holds the rank's slice
+    (``cache.split``).  Heads: the rank attends with the query heads of
+    its KV heads' groups (``_repeat_kv`` is contiguous: query head h reads
+    KV head h // (H / KV)) and the heads' outputs are gathered over
+    ``model`` before ``wo``.  Length: the rank owns a contiguous block of
+    slots, and only the owner of the slot writes; each rank reduces its
+    block to a (max, sum of exponentials, weighted values) per head, and
+    the partials, gathered over ``model``, are combined in rank order."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    S_max = cache.k.shape[1]
+    split = cache.split if mesh is not None else None
+    m = mesh_sizes(mesh)["model"] if split is not None else 1
+    mi = mesh_coord(mesh)["model"] if split is not None else 0
+    S_loc = cache.k.shape[1]
+    S_max = S_loc * m if split == 1 else S_loc
     window = cfg.sliding_window
     abs_pos = int(cache.pos)
     slot = min(abs_pos % S_max if window else abs_pos, S_max - 1)
@@ -233,18 +259,51 @@ def decode_attention(x: torch.Tensor, p, cfg, cache: KVCache):
         raise TypeError(f"lax.dynamic_update_slice requires arguments to "
                         f"have the same dtypes, got {cache.k.dtype}, "
                         f"{k.dtype}")
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
+    lo = mi * S_loc if split == 1 else 0
+    if split == 2:                  # this rank's KV heads and their queries
+        q = q[:, :, mi * (H // m):(mi + 1) * (H // m)]
+        k = k[:, :, mi * (KV // m):(mi + 1) * (KV // m)]
+        v = v[:, :, mi * (KV // m):(mi + 1) * (KV // m)]
+    if lo <= slot < lo + S_loc:
+        cache.k[:, slot - lo] = k[:, 0]
+        cache.v[:, slot - lo] = v[:, 0]
     kk = _repeat_kv(cache.k, H // KV)
     vv = _repeat_kv(cache.v, H // KV)
     s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * (1.0 / math.sqrt(hd))
-    kpos = torch.arange(S_max, device=x.device)
+    kpos = lo + torch.arange(S_loc, device=x.device)
     if window:                      # ring: every filled slot is in window
         valid = kpos < min(abs_pos + 1, S_max)
     else:
         valid = kpos <= abs_pos
-    s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    pr = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", pr, vv)
+    if split == 1:
+        out = _combine_blocks(s, valid, vv, mesh).to(x.dtype)
+    else:
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        pr = torch.softmax(s, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", pr, vv)
+        if split == 2:
+            out = gather_blocks(out, mesh, ("model",), dim=2)
     out = out.reshape(B, 1, H * hd) @ p.wo
-    return out, KVCache(cache.k, cache.v, abs_pos + 1)
+    return out, cache._replace(pos=abs_pos + 1)
+
+
+def _combine_blocks(s, valid, vv, mesh):
+    """Decode attention over slots split over ``model``: this rank's
+    scores ``s`` (B, H, 1, block) of its slots, ``valid`` (block,), and
+    values ``vv`` (B, block, H, hd) give a (max, sum of exponentials,
+    weighted values) per head; every rank's are gathered over ``model``
+    and combined in rank order: (B, 1, H, hd) float32.  A block with no
+    valid slot (its max −inf) weighs 0."""
+    s = torch.where(valid[None, None, None, :], s, -math.inf)
+    mx = s.amax(dim=-1)                                  # (B, H, 1)
+    e = torch.exp(s - torch.where(torch.isfinite(mx), mx, 0.0)[..., None])
+    num = torch.einsum("bhqk,bkhd->bhqd", e.to(vv.dtype), vv).float()
+    part = torch.cat([num, mx[..., None], e.sum(dim=-1)[..., None]], dim=-1)
+    parts = gather_blocks(part[None], mesh, ("model",))  # (m, B, H, 1, hd+2)
+    top = parts[..., -2].amax(dim=0)
+    num, den = 0.0, 0.0
+    for r in range(parts.shape[0]):
+        w = torch.exp(parts[r, ..., -2] - top)[..., None]
+        num = num + w * parts[r, ..., :-2]
+        den = den + w * parts[r, ..., -1:]
+    return (num / den).transpose(1, 2)                  # (B, 1, H, hd)

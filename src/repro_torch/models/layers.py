@@ -78,16 +78,31 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+def _token_losses(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 1e-4) -> torch.Tensor:
-    """Mean next-token CE; logits (..., V) f32-accumulated, labels int."""
+    """Each token's CE, z-loss included, in float32; logits (..., V)
+    f32-accumulated, labels int."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse.square()
-    return loss.mean()
+    return loss
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token CE; logits (..., V) f32-accumulated, labels int."""
+    return _token_losses(logits, labels, z_loss).mean()
+
+
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                      z_loss: float = 1e-4) -> torch.Tensor:
+    """The sum of :func:`_token_losses` (float32): on a mesh, a rank's
+    rows' share of the mean, before the division by the global count of
+    tokens and the sum over the ranks' rows."""
+    return _token_losses(logits, labels, z_loss).sum()
 
 
 # --- Initialisation ----------------------------------------------------------

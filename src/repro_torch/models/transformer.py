@@ -20,22 +20,30 @@ card unless the caller passes ``device="cpu"``.
 On a mesh (a ``DeviceMesh`` with ``data``/``pod`` and ``model`` axes)
 ``forward`` and ``decode_step`` run SPMD: every rank passes the whole
 batch, keeps its rows (``dist.sharding.shard_act``), runs each block on
-them with the block's weights whole, and gets the whole logits back.  A
-model sharded at rest (``convert.shard_params``) holds each rank's slice
-of every weight, as ``make_shardings`` places it; a block's slices are
+them with the block's weights whole, and returns the logits of its rows,
+where the reference's GSPMD keeps them.  A model sharded at rest
+(``convert.shard_params``) holds each rank's slice of every weight, as
+``make_shardings`` places it; a block's slices are
 gathered over ``model`` when the block starts and dropped after it, so
 one block's weights are whole at a time.  Where rows mix, the MoE layer,
 the rows are gathered and it runs on the whole batch, as the reference's
 does under jit; context-parallel attention splits the query blocks over
 ``model``.  The gathers only concatenate, so each rank computes what one
-device computes on its rows.
+device computes on its rows.  The decode state holds a rank's rows, each
+KV cache split over ``model`` by the reference's rule
+(``init_decode_state(..., mesh=)``): its KV heads when ``model`` divides
+them, else its length, and decode attention runs over the rank's heads
+or slots (``attention.decode_attention``).
 
 Gradients on a mesh pass every gather as its transpose, a reduce-scatter
-(``dist.sharding``), and each rank computes the global loss: a caller
-that takes its share of it (``loss / ranks``, as
-``launch.steps.loss_and_grads`` does) and then sums each weight's
-gradient over the axes it is replicated along gets the global gradient
-of its slices.
+(``dist.sharding``).  ``loss_fn`` sums the token losses of a rank's rows
+over the global token count and sums that over the axes the rows split
+over (``dist.sharding.sum_over``: every rank gets the global loss, and
+its backward is the rank's own part).  The ranks along ``model`` hold
+the same rows, so a caller that backpropagates ``1 / (ranks sharing the
+rows)`` of it (``launch.steps.loss_and_grads``) and then sums each
+weight's gradient over the axes it is replicated along gets the global
+gradient of its slices.
 
 ``cfg.remat`` applies where gradients are taken: ``"full"`` recomputes
 each block in the backward pass (``torch.utils.checkpoint``, hybrid's
@@ -51,6 +59,7 @@ selective policy); its loss and gradients are ``"full"``'s.
 """
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -61,14 +70,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.types import resolve_device
 from repro_torch.dist.sharding import (act_axes, batch_axes_of,
                                        gather_blocks, gather_model,
-                                       mesh_sizes, shard_act)
+                                       local_rows, mesh_sizes, shard_act,
+                                       sum_over)
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .attention import (Attention, KVCache, attention, decode_attention,
                         init_cache)
-from .layers import MLP, cross_entropy, embed, init_rms, mlp, normal, \
-    rms_norm
+from .layers import MLP, cross_entropy, cross_entropy_sum, embed, \
+    init_rms, mlp, normal, rms_norm
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -266,16 +276,24 @@ def _top(model, cfg, whole):
                                                       _head_names(cfg))
 
 
+def row_axes(mesh, cfg, batch: int) -> tuple:
+    """The axes a batch of ``batch`` rows splits over on ``mesh``:
+    ``shard_act``'s default, or under ``cfg.ddp`` ``batch_axes_of``'s (()
+    without a mesh)."""
+    if mesh is None:
+        return ()
+    return act_axes(mesh, batch, batch_axes_of(mesh, cfg, batch=batch)
+                    if getattr(cfg, "ddp", False) else None)
+
+
 def _on_mesh(inputs, mesh, cfg=None) -> Tuple[dict, tuple]:
     """(``inputs`` with this rank's rows of the token ids or embeddings,
-    the axes those rows split over: ``shard_act``'s default, or under
-    ``cfg.ddp`` ``batch_axes_of``); every row and () without a mesh."""
+    the axes those rows split over, :func:`row_axes`); every row and ()
+    without a mesh."""
     if mesh is None:
         return inputs, ()
     key = "embeds" if "embeds" in inputs else "tokens"
-    B = inputs[key].shape[0]
-    rows = act_axes(mesh, B, batch_axes_of(mesh, cfg, batch=B)
-                    if getattr(cfg, "ddp", False) else None)
+    rows = row_axes(mesh, cfg, inputs[key].shape[0])
     return dict(inputs, **{key: shard_act(inputs[key], mesh, axes=rows)}), \
         rows
 
@@ -320,7 +338,7 @@ def forward(model: Transformer, inputs: Dict[str, torch.Tensor], cfg,
     """Returns (logits, aux_loss).  inputs: {'tokens'} or {'embeds'}; on a
     mesh the whole batch on every rank, which keeps its rows (the data
     axes, and ``model`` under ``cfg.ddp``, as ``batch_axes_of`` drops
-    them) and returns the whole logits."""
+    them) and returns the logits of those rows (:func:`row_axes`)."""
     whole = _whole(model, mesh)
     inputs, rows = _on_mesh(inputs, mesh, cfg)
     first, head = _top(model, cfg, whole)
@@ -343,8 +361,7 @@ def forward(model: Transformer, inputs: Dict[str, torch.Tensor], cfg,
     if last_only:
         x = x[:, -1:]                # prefill serves next-token logits only
     top = head()
-    return gather_blocks(_logits(rms_norm(x, top.norm_f), top, cfg), mesh,
-                         rows), aux
+    return _logits(rms_norm(x, top.norm_f), top, cfg), aux
 
 
 def _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows):
@@ -372,10 +389,26 @@ def _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows):
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor], cfg,
             mesh=None, data_axes=("data",)) -> torch.Tensor:
+    """The mean token loss (z-loss included) plus 0.01 of the MoE aux.  On
+    a mesh each rank sums the token losses of its rows over the global
+    token count, and the parts are summed over the axes the rows split
+    over (one float32 all-reduce of a scalar, in rank order): every rank
+    returns the global loss.  Its backward on a rank is the rank's own
+    part, and ``1 / blocks`` of the aux's gradient (``blocks`` the row
+    blocks: every rank computes the aux alike); backpropagated on every
+    rank scaled by one over the ranks that share a row block
+    (``launch.steps.loss_and_grads``), each term counts once."""
     logits, aux = forward(model, batch, cfg, mesh, data_axes)
     # audio: logits (B,S,Cb,V) vs labels (B,S,Cb); LM: (B,S,V) vs (B,S)
-    loss = cross_entropy(logits, batch["labels"])
-    return loss + 0.01 * aux
+    if mesh is None:
+        return cross_entropy(logits, batch["labels"]) + 0.01 * aux
+    labels = batch["labels"]
+    rows = row_axes(mesh, cfg, labels.shape[0])
+    part = cross_entropy_sum(logits, shard_act(labels, mesh, axes=rows)) \
+        / labels.numel()
+    blocks = math.prod(mesh_sizes(mesh)[a] for a in rows)
+    aux = aux.detach() + (aux - aux.detach()) / blocks
+    return sum_over(part, mesh, rows) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -389,14 +422,22 @@ class DecodeState(NamedTuple):
     pos: int
 
 
-def init_decode_state(cfg, B: int, cache_len: int, dtype,
-                      device=None) -> DecodeState:
+def init_decode_state(cfg, B: int, cache_len: int, dtype, device=None,
+                      mesh=None) -> DecodeState:
+    """The decode state of ``B`` sequences over ``cache_len`` slots (a
+    sliding window's ring: the window's).  On a mesh ``B`` is the whole
+    batch and the state holds the rank's slice: its rows
+    (``dist.sharding.local_rows``), and of each KV cache the part the
+    reference's rule puts on its ``model`` index (``init_cache``)."""
     dev = resolve_device(device)
     L = cfg.n_layers
+    if mesh is not None:
+        rows = local_rows(B, mesh)
+        B = rows.stop - rows.start
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         S = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
             else cache_len
-        return DecodeState([init_cache(B, S, cfg, dtype, dev)
+        return DecodeState([init_cache(B, S, cfg, dtype, dev, mesh)
                             for _ in range(L)], None, 0)
     if cfg.family == "ssm":
         hd = cfg.d_model // cfg.n_heads
@@ -415,8 +456,9 @@ def init_decode_state(cfg, B: int, cache_len: int, dtype,
                              dtype=_dtype(cfg), device=dev))
             for _ in range(L)]
         n_sh = cfg.n_layers // cfg.attn_every
-        return DecodeState(caches, [init_cache(B, cache_len, cfg, dtype, dev)
-                                    for _ in range(n_sh)], 0)
+        return DecodeState(caches, [init_cache(B, cache_len, cfg, dtype, dev,
+                                               mesh) for _ in range(n_sh)],
+                           0)
     raise ValueError(cfg.family)
 
 
@@ -425,9 +467,10 @@ def decode_step(model: Transformer, state: DecodeState,
                 data_axes=("data",)):
     """One-token decode.  inputs: {'tokens': (B, 1)} or {'embeds': (B, 1,
     D)}.  Returns (logits, new state); the KV caches are updated in
-    place.  On a mesh every rank passes the whole batch and gets the whole
-    logits, and ``state`` holds this rank's rows: those ``shard_act``
-    gives it (``dist.sharding.local_rows``)."""
+    place.  On a mesh every rank passes the whole batch and gets the
+    logits of its rows, and ``state`` holds this rank's slice: its rows,
+    those ``shard_act`` gives it, and of each KV cache its part over
+    ``model`` (:func:`init_decode_state` with the mesh)."""
     whole = _whole(model, mesh)
     inputs, rows = _on_mesh(inputs, mesh)
     first, head = _top(model, cfg, whole)
@@ -443,8 +486,8 @@ def decode_step(model: Transformer, state: DecodeState,
         for i, (p, cache) in enumerate(zip(model.blocks, state.caches)):
             p = whole(p, f"blocks.{i}.")
             a, new_cache = decode_attention(
-                rms_norm(x, p.ln1), p.attn, cfg,
-                KVCache(cache.k, cache.v, pos))
+                rms_norm(x, p.ln1), p.attn, cfg, cache._replace(pos=pos),
+                mesh)
             x = x + a
             if hasattr(p, "moe"):
                 y, _ = _moe(rms_norm(x, p.ln2), p.moe, cfg, mesh, data_axes,
@@ -481,7 +524,7 @@ def decode_step(model: Transformer, state: DecodeState,
             sh = whole(model.shared, "shared.")
             shc = state.shared_caches[g]
             a, nshc = decode_attention(rms_norm(x, sh.ln1), sh.attn, cfg,
-                                       KVCache(shc.k, shc.v, pos))
+                                       shc._replace(pos=pos), mesh)
             x = x + a
             x = x + mlp(rms_norm(x, sh.ln2), sh.mlp, cfg.act)
             shared.append(nshc)
@@ -492,8 +535,7 @@ def decode_step(model: Transformer, state: DecodeState,
     else:
         raise ValueError(cfg.family)
     top = head()
-    return gather_blocks(_logits(rms_norm(x, top.norm_f), top, cfg), mesh,
-                         rows), new_state
+    return _logits(rms_norm(x, top.norm_f), top, cfg), new_state
 
 
 def _state_rows(state) -> Optional[int]:

@@ -8,7 +8,8 @@ device, where nothing is allocated.
   ``jax.sharding.Mesh`` built directly; a ``MeshLayout`` in the port):
   leaf shapes, dtypes and placements, for each family's smoke variant
   and each shape (token ids are int64 in the port, int32 in the
-  reference);
+  reference); every KV cache leaf placed as the reference's, and
+  ``init_decode_state`` on the mesh holding that slice;
 - (ii) ``op_cost``'s ``dot_flops`` of the train, prefill and decode
   steps against the dot FLOPs of the reference's compiled steps (its
   ``hlo_cost`` walk, counting only ``dot`` instructions through
@@ -22,7 +23,8 @@ device, where nothing is allocated.
   full width, 2 layers, bf16, remat ``full``, AdamW, batch 4 × 2048,
   (data 2, model 2)) on each of the four ranks: the bytes sent and
   received a step and the resident weights and moments that the card's
-  ranks measured (1 891 142 132; 157 432 832 and 629 444 608 bytes);
+  ranks measured (1 085 786 616, the logits and the loss on a rank's
+  rows; 157 432 832 and 629 444 608 bytes);
 - (v) ``remat="dots"``: loss and gradients equal the reference's
   ``"dots"`` within the model tests' 1e-4/1e-5, and the dry-run's FLOPs
   order ``"none"`` < ``"dots"`` < ``"full"``;
@@ -54,6 +56,7 @@ from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import (make_mesh_shape, make_production_mesh,
                                      make_sort_mesh)
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import KVCache
 from repro_torch.models.convert import shard_params
 from repro_torch.optim import tree as tr
 from torch_model_helpers import F32, assert_f32, configs, model_pair
@@ -151,19 +154,25 @@ def test_specs_equal_the_reference(family, shape_name):
             assert _dtype_name(t) == str(v.dtype), k
         assert tsh[k].spec(t.ndim) == _ref_spec(v.sharding, t.ndim), k
     # the decode state: a layer's leaf against the reference's stacked
-    # (L, …) leaf; the port places the batch as the reference does and
-    # keeps every head of a rank's rows, where the reference also splits
-    # the heads (or the length) over ``model`` by its rule
+    # (L, …) leaf.  A KV cache is placed as the reference places it (the
+    # batch over the data axes, its heads, else its length, over
+    # ``model``), and ``init_decode_state`` on the mesh holds that slice.
+    # The recurrent states of rwkv6 and mamba2 keep every head of a rank's
+    # rows, where the reference also splits them over ``model``: the slice
+    # queued after this one (ROADMAP queue 1)
     if kind != "decode":
         return
     jst = JS.cache_specs(jc, JSHAPES[shape_name], jmesh)
     st, sh = S.cache_specs(tc, shape, layout)
+    held = T.init_decode_state(tc, shape.global_batch, shape.seq_len,
+                               torch.bfloat16, device="meta", mesh=layout)
     for group in ("caches", "shared_caches"):
         ref_g = getattr(jst, group)
         if ref_g is None:
             assert getattr(st, group) is None
             continue
         mine, mine_sh = getattr(st, group), getattr(sh, group)
+        kv = isinstance(mine[0], KVCache)
         for field in type(ref_g)._fields:
             r = getattr(ref_g, field)
             if field == "pos":            # the port's position is an int
@@ -173,15 +182,24 @@ def test_specs_equal_the_reference(family, shape_name):
             assert rspec[0] == (), (group, field)
             assert rspec[2:] == _reference_cache_rule(r.shape[1:], 4), (
                 group, field)
-            for layer, layer_sh in zip(mine, mine_sh):
+            shard = tuple(r.sharding.shard_shape(r.shape)[1:])
+            for layer, layer_sh, own in zip(mine, mine_sh,
+                                            getattr(held, group)):
                 t, tsh_ = getattr(layer, field), getattr(layer_sh, field)
                 assert tuple(t.shape) == tuple(r.shape[1:]), (group, field)
                 assert _dtype_name(t) == str(r.dtype), (group, field)
+                cut = tuple(S.sharded_specs(t, tsh_).shape)
+                if kv:
+                    assert tsh_.spec(t.ndim) == rspec[1:], (group, field)
+                    assert cut == shard, (group, field)
+                    assert tuple(getattr(own, field).shape) == shard
+                    split = 2 if rspec[3] else 1 if rspec[2] else None
+                    assert own.split == layer.split == split, (group, field)
+                    continue
                 assert tsh_.spec(t.ndim) == [rspec[1]] + [()] * (
                     t.ndim - 1), (group, field)
-                rows = r.sharding.shard_shape(r.shape)[1]
-                assert tuple(S.sharded_specs(t, tsh_).shape) == (
-                    (rows,) + tuple(t.shape[1:])), (group, field)
+                assert cut == (shard[0],) + tuple(t.shape[1:]), (group,
+                                                                 field)
 
 
 def _reference_cache_rule(shape, model):
@@ -438,8 +456,8 @@ def test_mesh_training_bytes_equal_the_cards(rank):
                               n_layers=2)
     rec = dryrun.reckon(cfg, ShapeConfig("mesh_train", 2048, 4, "train"),
                         MeshLayout.of_rank(NAMES, (2, 2), rank))
-    assert rec["sent_bytes_per_device"] == 1_891_142_132
-    assert rec["received_bytes_per_device"] == 1_891_142_132
+    assert rec["sent_bytes_per_device"] == 1_085_786_616
+    assert rec["received_bytes_per_device"] == 1_085_786_616
     assert rec["resident_bytes"] == {"weights": 157_432_832,
                                      "opt": 629_444_608}
     assert rec["links"] == {"data": "nvlink", "model": "nvlink"}

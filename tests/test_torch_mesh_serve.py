@@ -4,13 +4,21 @@ model 4) ``DeviceMesh``, against the reference under GSPMD on the same
 directly: its ``Auto`` axes; ROADMAP §3 for ``make_mesh_shape``).
 
 Each rank holds its slices of the weights (``params_from_jax(...,
-mesh=...)``, as ``make_shardings`` places them) and its rows of the
-batch and the decode state; a block's weights are gathered whole at use
-and the MoE layer runs on the whole batch.  Float32 results are held to
-the reference within ``F32`` (``tests/torch_model_helpers.py``), tokens
-exactly:
+mesh=...)``, as ``make_shardings`` places them), its rows of the batch
+and of the logits, and its slice of the decode state (its rows, and of
+each KV cache its heads, else its slots, over ``model``); a block's
+weights are gathered whole at use and the MoE layer runs on the whole
+batch.  Float32 results are held to the reference within ``F32``
+(``tests/torch_model_helpers.py``), each rank's logits against the
+reference's rows of that rank, tokens exactly:
 
 - greedy decode of a dense, an MoE and an SSM architecture;
+- teacher-forced decode of each attention family's smoke variant (2 KV
+  heads) with the reference's decode state placed by its
+  ``cache_specs``: on the (2, 4) ``Mesh`` the caches split their length
+  (mixtral's 32-slot window ring wraps), on a (4, 2) ``Mesh`` of the same
+  devices their heads, and zamba2's shared caches (4 KV heads) their
+  heads on (2, 4); each rank's cache is the reference's shard;
 - context-parallel prefill (qwen3-14b, S > block, with the query blocks
   split over ``model`` and not) and granite's prefill through the
   expert-parallel dispatch;
@@ -30,14 +38,16 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+from repro.configs import ShapeConfig as JShape
 from repro.dist.sharding import data_axes_of, make_shardings
+from repro.launch import steps as JS
 from repro.models import transformer as JT
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.launch import serve as SV
 from repro_torch.models.transformer import Transformer
 from torch_dist_helpers import (RankPool, mesh_decode_job, mesh_errors_job,
-                                mesh_prefill_job, mesh_serve_job,
-                                resident_job, serve_cli_job)
+                                mesh_forced_decode_job, mesh_prefill_job,
+                                mesh_serve_job, resident_job, serve_cli_job)
 from torch_model_helpers import F32, assert_f32, configs, npt
 
 STEPS = 3
@@ -64,13 +74,6 @@ def _ref(arch, jmesh, dtype="float32", **kw):
     placed = jax.tree.map(jax.device_put, params, make_shardings(
         jax.eval_shape(lambda: params), jc, jmesh))
     return jc, npt(params), placed
-
-
-def _same_on_every_rank(results):
-    for r in results[1:]:
-        for a, b in zip(jax.tree.leaves(r), jax.tree.leaves(results[0])):
-            np.testing.assert_array_equal(a, b)
-    return results[0]
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m",
@@ -100,12 +103,74 @@ def test_decode_on_a_mesh_equals_the_reference(pool, jmesh, arch):
             logits, nxt, st = step(placed, st, t)
             want.append((logits, np.asarray(nxt)))
             t = nxt[:, None]
-    got = _same_on_every_rank(pool.run(mesh_decode_job, arch, tree, tok,
-                                       STEPS, cache_len))
-    for (gl, gt), (wl, wt) in zip(got, want):
-        assert gl.shape == wl.shape
-        assert_f32(gl, wl)
-        np.testing.assert_array_equal(gt, wt)
+    for (lo, hi), got in pool.run(mesh_decode_job, arch, tree, tok, STEPS,
+                                  cache_len):
+        for (gl, gt), (wl, wt) in zip(got, want):
+            assert gl.shape == wl[lo:hi].shape
+            assert_f32(gl, wl[lo:hi])
+            np.testing.assert_array_equal(gt, wt)
+
+
+DECODE_CASES = [(arch, layout) for layout in ((2, 4), (4, 2)) for arch in (
+    "llama3.2-1b", "chameleon-34b", "musicgen-large",
+    "granite-moe-1b-a400m", "mixtral-8x22b")] + [("zamba2-2.7b", (2, 4))]
+
+
+@pytest.mark.parametrize("arch,layout", DECODE_CASES,
+                         ids=[f"{a}-{d}x{m}" for a, (d, m) in DECODE_CASES])
+def test_decode_splits_the_cache_as_the_reference(pool, arch, layout):
+    """Teacher-forced decode on a ``layout`` mesh, the reference's decode
+    state placed by its ``cache_specs`` (the port's made on the mesh by
+    ``init_decode_state``): every step's logits of each rank's rows
+    within F32, and each rank's KV cache the reference's shard of it,
+    split as its rule says (the length where 2 KV heads do not divide
+    ``model`` 4, the heads on ``model`` 2 and zamba2's 4 on 4).  Eight
+    steps over 8 slots write every rank's block (past the end the
+    reference's program on a split length leaves its own one-device
+    program, which the port follows: ROADMAP §3); mixtral's window of 32
+    is a ring: 36 steps wrap it, so its writes move from the last rank's
+    block back to the first's."""
+    jmesh = Mesh(np.array(jax.devices()[:8]).reshape(layout),
+                 ("data", "model"))
+    jc, tree, placed = _ref(arch, jmesh)
+    B, cache_len = 4, 8
+    steps = cache_len
+    if jc.sliding_window:
+        cache_len, steps = 64, jc.sliding_window + 4
+    r = np.random.default_rng(11)
+    if jc.family == "audio":
+        feeds = [{"embeds": r.normal(size=(B, 1, jc.d_model)).astype(
+            np.float32)} for _ in range(steps)]
+    else:
+        feeds = [{"tokens": r.integers(0, jc.vocab, size=(B, 1))}
+                 for _ in range(steps)]
+    pool.submit(mesh_forced_decode_job, arch, tree, feeds, cache_len,
+                layout)
+    specs = JS.cache_specs(jc, JShape("decode", cache_len, B, "decode"),
+                           jmesh)
+    st = jax.tree.map(lambda a, sp: jax.device_put(a, sp.sharding),
+                      JT.init_decode_state(jc, B, cache_len, jnp.float32),
+                      specs)
+    step = jax.jit(lambda p, s, i: JT.decode_step(p, s, i, jc, jmesh,
+                                                  data_axes_of(jmesh)))
+    want = []
+    with jmesh:
+        for feed in feeds:
+            logits, st = step(placed, st, {k: jnp.asarray(
+                v, jnp.int32 if k == "tokens" else jnp.float32)
+                for k, v in feed.items()})
+            want.append(np.asarray(logits))
+    kv = specs.shared_caches if jc.family == "hybrid" else specs.caches
+    spec = kv.k.sharding.spec
+    split = 2 if spec[3] == "model" else 1 if spec[2] == "model" else None
+    assert split == (2 if layout[1] == 2 or jc.family == "hybrid" else 1)
+    shard = tuple(kv.k.sharding.shard_shape(kv.k.shape)[1:])
+    for (lo, hi), got, caches in pool.collect(mesh_forced_decode_job):
+        assert len(caches) == kv.k.shape[0]
+        assert all(c == (shard, shard, split) for c in caches), caches
+        for gl, wl in zip(got, want):
+            assert gl.shape == wl[lo:hi].shape
+            assert_f32(gl, wl[lo:hi])
 
 
 @pytest.mark.parametrize("arch,S,kw", [
@@ -128,13 +193,14 @@ def test_prefill_on_a_mesh_equals_the_reference(pool, jmesh, arch, S, kw):
                                           last_only=jc.prefill_last_only))
     with jmesh:
         logits, aux = fwd(placed, jnp.asarray(tok, jnp.int32))
-    got = _same_on_every_rank(pool.run(mesh_prefill_job, arch, kw, tree,
-                                       tok))
-    assert got[0].shape == logits.shape
-    assert_f32(got[0], logits)
-    np.testing.assert_allclose(got[1], float(aux), **F32)
-    np.testing.assert_array_equal(got[2], np.asarray(
-        jnp.argmax(logits[:, -1], axis=-1)))
+    tokens = np.asarray(jnp.argmax(logits[:, -1], axis=-1))
+    results = pool.run(mesh_prefill_job, arch, kw, tree, tok)
+    for (lo, hi), got, got_aux, nxt in results:
+        assert got.shape == logits[lo:hi].shape
+        assert_f32(got, logits[lo:hi])
+        assert got_aux == results[0][2]
+        np.testing.assert_allclose(got_aux, float(aux), **F32)
+        np.testing.assert_array_equal(nxt, tokens[lo:hi])
 
 
 @pytest.mark.parametrize("arch,dtype", [("rwkv6-1.6b", "float32"),

@@ -5,6 +5,9 @@ directly: its ``Auto`` axes; ROADMAP §3 for ``make_mesh_shape``).
 Everything is float32 at smoke size and within ``F32``
 (``tests/torch_model_helpers.py``); checkpoints bit for bit.
 
+- Each rank's logits are those of its rows only (the data axes, and
+  ``model`` under ``ddp``), equal to the reference's rows, and the loss
+  is the global one, the same bits on every rank.
 - The loss and every gradient leaf, put together whole from the ranks'
   slices, against the reference's ``value_and_grad(loss_fn)`` on the
   mesh: dense, the expert-parallel MoE dispatch (granite, recomputed
@@ -48,9 +51,10 @@ from repro.launch import train as JTR
 from repro.models import transformer as JT
 from repro.runtime import CheckpointManager as JCheckpointManager
 from repro.runtime import elastic as JE
-from torch_dist_helpers import (RankPool, mesh_grad_job, mesh_restore_job,
-                                mesh_step_job, mesh_train_errors_job,
-                                mesh_train_job, train_cli_job)
+from torch_dist_helpers import (RankPool, mesh_grad_job, mesh_loss_job,
+                                mesh_restore_job, mesh_step_job,
+                                mesh_train_errors_job, mesh_train_job,
+                                train_cli_job)
 from torch_model_helpers import F32, configs, npt
 from torch_train_helpers import by_path
 
@@ -89,6 +93,41 @@ def _same_on_every_rank(values):
     for v in values[1:]:
         assert v == values[0]
     return values[0]
+
+
+@pytest.mark.parametrize("arch,kw,B,rows", [
+    ("llama3.2-1b", {}, 4, 2),
+    ("granite-moe-1b-a400m", {}, 4, 2),
+    ("llama3.2-1b", {"ddp": True}, 8, 1),
+], ids=["dense", "moe", "ddp"])
+def test_logits_on_a_rank_rows_and_one_global_loss(pool, arch, kw, B, rows):
+    """``forward`` on the mesh returns the logits of the rank's ``rows``
+    rows only (B / 2 over ``data``; under ``ddp`` B / 8 over ``data`` and
+    ``model``), the reference's rows within F32, and ``loss_fn`` the
+    reference's global loss (granite's with its MoE aux) within F32, the
+    same float32 bits on every rank."""
+    jc, _ = configs(arch, "float32")
+    jc = dataclasses.replace(jc, **kw)
+    jmesh = _mesh()
+    params = JT.init_params(jax.random.PRNGKey(1), jc)
+    batch = _batch(jc, B, 16)
+    pool.submit(mesh_loss_job, arch, kw, npt(params), batch)
+    dax = data_axes_of(jmesh)
+    placed = _placed(params, jc, jmesh)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    with jmesh:
+        logits = jax.jit(lambda p, b: JT.forward(p, b, jc, jmesh, dax)[0])(
+            placed, jb)
+        loss = jax.jit(lambda p, b: JT.loss_fn(p, b, jc, jmesh, dax))(
+            placed, jb)
+    results = pool.collect(mesh_loss_job)
+    logits = np.asarray(logits)
+    assert len({r[0] for r in results}) == B // rows
+    for (lo, hi), got, got_loss, bits in results:
+        assert hi - lo == rows and got.shape == logits[lo:hi].shape
+        np.testing.assert_allclose(got, logits[lo:hi], **F32)
+        assert bits == results[0][3]
+        np.testing.assert_allclose(got_loss, float(loss), **F32)
 
 
 @pytest.mark.parametrize("arch,kw,B,S", [

@@ -127,8 +127,9 @@ def f32_caches(monkeypatch):
                         lambda cfg, B, L, dtype: j_init(
                             cfg, B, L, jnp.dtype(cfg.dtype)))
     monkeypatch.setattr(T, "init_decode_state",
-                        lambda cfg, B, L, dtype, device=None: t_init(
-                            cfg, B, L, getattr(torch, cfg.dtype), device))
+                        lambda cfg, B, L, dtype, device=None, mesh=None:
+                        t_init(cfg, B, L, getattr(torch, cfg.dtype), device,
+                               mesh))
 
 
 def _serve_both(arch, dtype, monkeypatch, batch=2, tokens=5, cache_len=16):

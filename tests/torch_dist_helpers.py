@@ -441,35 +441,68 @@ def _f32(t):
 
 def mesh_decode_job(arch, tree, tokens, steps, cache_len):
     """Greedy float32 decode on the (2, 4) mesh from the reference's
-    weights ``tree``, each rank holding its slices and its rows of a
-    float32 decode state: every step's whole logits and tokens."""
+    weights ``tree``, each rank holding its slices and its slice of a
+    float32 decode state: (this rank's rows as (start, stop), every step's
+    logits of those rows and the whole batch's tokens, gathered over
+    ``data``)."""
     import torch
-    from repro_torch.dist.sharding import local_rows
+    from repro_torch.dist.sharding import gather_rows, local_rows
     from repro_torch.models import transformer as T
     from repro_torch.models.convert import params_from_jax
     cfg = smoke_cfg(arch, "float32")
     mesh = model_mesh()
     model = params_from_jax(cfg, tree, device="cpu", mesh=mesh)
-    rows = local_rows(tokens.shape[0], mesh)
-    st = T.init_decode_state(cfg, rows.stop - rows.start, cache_len,
-                             torch.float32, device="cpu")
+    B = tokens.shape[0]
+    st = T.init_decode_state(cfg, B, cache_len, torch.float32, device="cpu",
+                             mesh=mesh)
     tok = torch.from_numpy(tokens).long()
     out = []
     with torch.inference_mode():
         for _ in range(steps):
             logits, st = T.decode_step(model, st, {"tokens": tok}, cfg, mesh,
                                        ("data",))
-            tok = logits[:, -1].argmax(-1)[:, None]
+            tok = gather_rows(logits[:, -1].argmax(-1), mesh, B)[:, None]
             out.append((_f32(logits), tok[:, 0].numpy()))
-    return out
+    rows = local_rows(B, mesh)
+    return (rows.start, rows.stop), out
+
+
+def mesh_forced_decode_job(arch, tree, feeds, cache_len, layout):
+    """Teacher-forced float32 decode on the ``layout`` mesh from the
+    reference's weights ``tree``, one step for each input of ``feeds``
+    (numpy dicts of the whole batch's tokens or embeddings): this rank's
+    rows, every step's logits of them, and each KV cache's (shape of k,
+    shape of v, split): zamba2's shared caches, the layers' elsewhere."""
+    import torch
+    from repro_torch.dist.sharding import local_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+    cfg = smoke_cfg(arch, "float32")
+    mesh = model_mesh(layout)
+    model = params_from_jax(cfg, tree, device="cpu", mesh=mesh)
+    B = next(iter(feeds[0].values())).shape[0]
+    st = T.init_decode_state(cfg, B, cache_len, torch.float32, device="cpu",
+                             mesh=mesh)
+    out = []
+    with torch.inference_mode():
+        for feed in feeds:
+            inp = {k: torch.from_numpy(v) for k, v in feed.items()}
+            logits, st = T.decode_step(model, st, inp, cfg, mesh, ("data",))
+            out.append(_f32(logits))
+    kv = st.shared_caches if cfg.family == "hybrid" else st.caches
+    caches = [(tuple(c.k.shape), tuple(c.v.shape), c.split) for c in kv]
+    rows = local_rows(B, mesh)
+    return (rows.start, rows.stop), out, caches
 
 
 def mesh_prefill_job(arch, cfg_kw, tree, tokens):
     """``forward`` on the (2, 4) mesh in float32 from the reference's
     weights (``cfg_kw`` on the smoke config, ``last_only`` as its
-    ``prefill_last_only``), and the prefill step's tokens: (logits, aux,
-    tokens)."""
+    ``prefill_last_only``), and the prefill step's tokens: (this rank's
+    rows as (start, stop), the logits of its rows, aux, the tokens of its
+    rows)."""
     import torch
+    from repro_torch.dist.sharding import local_rows
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
     from repro_torch.models.convert import params_from_jax
@@ -481,7 +514,8 @@ def mesh_prefill_job(arch, cfg_kw, tree, tokens):
         logits, aux = T.forward(model, inp, cfg, mesh, ("data",),
                                 last_only=cfg.prefill_last_only)
         nxt = steps.make_prefill_step(cfg, mesh)(model, inp)
-    return _f32(logits), float(aux), nxt.numpy()
+    rows = local_rows(tokens.shape[0], mesh)
+    return (rows.start, rows.stop), _f32(logits), float(aux), nxt.numpy()
 
 
 def mesh_serve_job(arch, dtype, batch, tokens, cache_len):
@@ -594,6 +628,28 @@ def mesh_grad_job(arch, cfg_kw, tree, batch):
     whole = dict(zip(grads, _whole_host(grads, {k: shards[k]
                                                  for k in grads})))
     return float(loss), {"/".join(k): v for k, v in whole.items()}
+
+
+def mesh_loss_job(arch, cfg_kw, tree, batch):
+    """``forward`` and ``loss_fn`` of the float32 smoke config of ``arch``
+    (``cfg_kw`` replaced) on the (2, 4) mesh from the reference's weights
+    ``tree``: this rank's rows as (start, stop), the logits it returns,
+    and the loss (as a float and as its float32 bits)."""
+    import torch
+    from repro_torch.dist.sharding import local_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+    cfg = smoke_cfg(arch, "float32", **cfg_kw)
+    mesh = model_mesh()
+    model = params_from_jax(cfg, tree, device="cpu", mesh=mesh)
+    b = _torch_batch(batch)
+    with torch.no_grad():
+        logits, _ = T.forward(model, b, cfg, mesh, ("data",))
+        loss = T.loss_fn(model, b, cfg, mesh, ("data",))
+    B = b["labels"].shape[0]
+    rows = local_rows(B, mesh, T.row_axes(mesh, cfg, B))
+    return ((rows.start, rows.stop), _f32(logits), float(loss),
+            int(loss.reshape(1).view(torch.int32)))
 
 
 def mesh_step_job(arch, state_tree, batch, step_kw, ckpt_dir=None):
