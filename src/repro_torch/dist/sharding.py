@@ -27,14 +27,31 @@ reference's ``NamedSharding``), which cuts a whole leaf to a rank's slice
 and puts the slices back together.  ``shard_act`` is the rule for which
 block of an activation a rank holds: its rows over the data axes when
 the batch divides them (every row otherwise), and ``gather_blocks`` puts
-the blocks of every rank back together.  A mesh changes where data
-lives, never what is computed: the gathers only concatenate.
+the blocks of every rank back together.
 
-Gradients pass the gathers: a gather of a tensor that takes gradients
-is recorded by autograd, and its backward is the transposed collective,
-a reduce-scatter over the same axes (each rank's share of the whole
-gradient summed in rank order, the sum of its own block kept).  Tensors
-that take no gradient move as bytes.
+A mesh also changes what is computed.  The ranks along ``model`` split
+the products of a tensor-parallel block (``models.layers.tp_project``):
+each multiplies its slice of an activation or its slice of a weight, and
+the partial products are added up over ``model`` in rank order, so every
+rank holds the same bits (:func:`sum_partials`, an all-reduce, or
+:func:`scatter_partials`, a reduce-scatter onto a dimension such as the
+heads).  A rank's results therefore agree with one device's within
+float tolerance, not bit for bit.  :func:`recut` moves a leaf split on
+one dimension to the same leaf split on another (one all-to-all), and
+:func:`max_over` takes a maximum over the ranks.  The gathers still only
+concatenate.
+
+Gradients pass every collective as its transpose.  Along ``model`` each
+rank holds a share of the gradient of an activation that every rank of
+``model`` holds alike (``launch.steps.loss_and_grads`` backpropagates
+one over ``model`` of the loss on each), and the whole gradient is the
+sum of the shares.  So the backward of a gather is a reduce-scatter (the
+shares of each block summed onto its owner, in rank order), that of
+:func:`sum_partials` the same all-reduce (each partial needs the whole
+gradient of the sum), and that of :func:`scatter_partials` an all-gather
+(each partial needs the gradient of every block); a rank's slice of a
+replicated activation passes its gradient back as its share, with no
+transfer.  Tensors that take no gradient move as bytes.
 """
 from __future__ import annotations
 
@@ -344,6 +361,22 @@ def make_shardings(tree, cfg, mesh):
     return map_leaves(_placer(cfg, mesh), tree)
 
 
+def split_dims(model, cfg, mesh) -> Dict[str, int]:
+    """For each weight of ``model`` (by its name) that ``make_shardings``
+    splits over ``model`` on ``mesh``, the dimension of the weight that
+    it splits (a ``Stacked`` leaf's dimension i is i − 1 of a layer)."""
+    from repro_torch.optim.tree import Stacked, layers, param_tree
+    params = param_tree(model)
+    placements = make_shardings(params, cfg, mesh)
+    names = {id(t): n for n, t in model.named_parameters()}
+    dims = {}
+    for path, leaf in params.items():
+        split = [pl.dim for pl in placements[path] if pl.is_shard()]
+        for t in layers(leaf) if split else ():
+            dims[names[id(t)]] = split[0] - isinstance(leaf, Stacked)
+    return dims
+
+
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """A leaf's placements on a mesh (the reference's ``NamedSharding``):
@@ -638,3 +671,77 @@ def reduce_replicas(tensors: Sequence[torch.Tensor],
                                                for k in ks])):
                 out[k] = part.view(out[k].shape)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel collectives: partial products over ``model``
+# ---------------------------------------------------------------------------
+
+
+def sum_partials(x: torch.Tensor, mesh, axis: str = "model"
+                 ) -> torch.Tensor:
+    """The partial products ``x`` of the ranks along ``axis`` added up in
+    rank order (in float32, back in ``x``'s dtype): the same bits on
+    every rank, one all-reduce.  Its backward is the same all-reduce:
+    each rank holds a share of the sum's gradient, and each partial needs
+    the whole of it.  One rank along ``axis``: ``x``."""
+    from repro_torch.core import comm
+    if mesh_sizes(mesh).get(axis, 1) == 1:
+        return x
+    shape = x.shape
+
+    def total(xs):
+        return (_all_reduce(xs[0].reshape(-1), mesh, axis).view(shape),)
+    return comm.collective(total, total, x)[0]
+
+
+def scatter_partials(x: torch.Tensor, mesh, dim: int = -1,
+                     axis: str = "model") -> torch.Tensor:
+    """Block i of ``x``'s dimension ``dim`` (cut into the size of
+    ``axis``) summed over the ranks along ``axis`` in rank order, on the
+    rank at position i: a reduce-scatter of partial products onto, say,
+    a rank's heads.  Its backward gathers the blocks' gradients: each
+    partial needs the gradient of every block."""
+    from repro_torch.core import comm
+    if mesh_sizes(mesh).get(axis, 1) == 1:
+        return x
+    dim = dim % x.ndim
+
+    def scatter(xs):
+        return (_reduce_scatter(xs[0], mesh, axis, dim),)
+
+    def gather(gs):
+        g = _all_gather(gs[0], mesh, axis)
+        return (g.movedim(0, dim).flatten(dim, dim + 1),)
+    return comm.collective(scatter, gather, x)[0]
+
+
+def max_over(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks along ``axis``, the
+    same bits on every rank (one all-reduce; no gradient)."""
+    from repro_torch.core import comm
+    if mesh_sizes(mesh).get(axis, 1) == 1:
+        return x.detach()
+    b = x.numel() * x.element_size()
+    with comm.carried_as("all-reduce", axis, b, b):
+        return _all_gather(x.detach(), mesh, axis).amax(dim=0)
+
+
+def recut(t: torch.Tensor, mesh, src: int, dst: int,
+          axis: str = "model") -> torch.Tensor:
+    """This rank's slice of a leaf split over ``axis`` on dimension
+    ``src`` (``t``) as its slice of the same leaf split on dimension
+    ``dst``: each rank sends the others their blocks of ``dst``, one
+    all-to-all.  It only moves bytes, and its backward is the inverse
+    move."""
+    from repro_torch.core import comm
+    n = mesh_sizes(mesh).get(axis, 1)
+    if n == 1:
+        return t
+
+    def move(x, a, b):
+        parts = x.unflatten(b, (n, x.shape[b] // n)).movedim(b, 0)
+        got = _exchange(parts, mesh, axis)
+        return got.movedim(0, a).flatten(a, a + 1)
+    return comm.collective(lambda xs: (move(xs[0], src, dst),),
+                           lambda gs: (move(gs[0], dst, src),), t)[0]

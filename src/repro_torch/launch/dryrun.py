@@ -36,11 +36,13 @@ on sixteen.
 
 A rank holds what the reference's program holds there of the logits,
 the loss and the decode state: the logits and the token losses of its
-rows, the cache split over ``model``.  It computes its rows whole, with
-a block's weights gathered at use and the MoE layer on the whole batch
-(ROADMAP §3), where GSPMD splits the matmuls over ``model``: its FLOPs
-per device are the whole batch's over the data axes, not over every
-chip, and ``useful_flops_ratio`` shows the redundancy.
+rows, the cache split over ``model``.  It splits the products of the
+attention, the dense MLP and the head over ``model`` as GSPMD does, with
+the weights where ``make_shardings`` puts them, and sums the partial
+products over ``model``.  The MoE layer still takes the whole batch's
+rows with its experts gathered, and rwkv6's and mamba2's blocks run on
+a rank's rows with theirs, as on one device (ROADMAP queue 1);
+``useful_flops_ratio`` shows the redundancy that remains.
 """
 from __future__ import annotations
 
@@ -153,11 +155,12 @@ def _tensor_bytes(tree) -> int:
     return sum(seen.values())
 
 
-def reckon(cfg, shape, mesh) -> dict:
+def reckon(cfg, shape, mesh, cache_dtype=torch.bfloat16) -> dict:
     """One rank's step of ``cfg`` on ``shape`` (a ``ShapeConfig``) on
     ``mesh`` (a ``MeshLayout``, or None for one device), on meta under
     ``op_cost`` with the dry transport: the counts, the roofline, the
-    memory, and the 6·N·D yardstick."""
+    memory, and the 6·N·D yardstick.  A decode's caches are of
+    ``cache_dtype`` (the reference's bf16 unless given)."""
     inputs, _ = S.input_specs(cfg, shape, mesh)
     with comm.dry():
         if shape.kind == "train":
@@ -177,7 +180,7 @@ def reckon(cfg, shape, mesh) -> dict:
                 step_fn = S.make_prefill_step(cfg, mesh)
                 args = (model, inputs)
             else:
-                cache, csh = S.cache_specs(cfg, shape, mesh)
+                cache, csh = S.cache_specs(cfg, shape, mesh, cache_dtype)
                 cache = S.sharded_specs(cache, csh)
                 resident["cache"] = _tensor_bytes(cache)
                 step_fn = S.make_serve_step(cfg, mesh)

@@ -13,8 +13,10 @@ int32.
 
 Every step runs on one device (the model's) or SPMD on the ranks of a
 mesh (``models.transformer``: every rank passes the whole batch, keeps
-its rows over the data axes, and holds its slices of the weights,
-gathered whole at use, and of the decode state).  The train step takes
+its rows over the data axes, holds its slices of the weights and of the
+decode state, and multiplies its slices of the attention's, the dense
+MLP's and the head's weights, the partial products summed over
+``model``).  The train step takes
 the reference's step: the loss and its gradients, the optimizer's update
 of the weights and moments (in place), and the metrics ``loss``, ``lr``
 and ``grad_norm`` (the square root of the float32 sum of squares over
@@ -26,10 +28,13 @@ caller gathers them over the data axes where it reads them
 On a mesh (:func:`loss_and_grads`) each rank backpropagates its own part
 of the loss (``loss_fn``: its rows' token losses over the global count),
 scaled by one over the ranks that hold the same rows (those along
-``model``, whose identical parts meet in each gather's backward); every
-gather passes the gradient back as a reduce-scatter, so a weight split
-over ``model`` has, on each rank, its slice's gradient of the rank's
-rows, and :func:`reduce_replicas` sums it over the axes the weight is
+``model``): each then holds a share of the gradient of what the ranks
+along ``model`` hold alike.  The shares meet where they must: a sum of
+partial products over ``model`` passes its gradient back as the same
+all-reduce, so a weight a rank multiplies in place gets its slice's
+whole gradient of the rank's rows; a gather passes it back as a
+reduce-scatter, so a weight gathered at use gets the same.  Then
+:func:`reduce_replicas` sums each over the axes the weight is
 replicated along (the data axes, and ``model`` for a weight it does not
 split, or under ``cfg.ddp``), in rank order.  Each rank then holds its
 slices of the global gradient, the reference's under GSPMD.  The
@@ -224,10 +229,9 @@ def make_prefill_step(cfg, mesh):
 
     def prefill_step(model, inputs):
         """The next tokens of the rank's rows."""
-        logits, _ = T.forward(model, inputs, cfg, mesh, dax,
-                              last_only=getattr(cfg, "prefill_last_only",
-                                                False))
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return T.next_tokens(model, inputs, cfg, mesh, dax,
+                             last_only=getattr(cfg, "prefill_last_only",
+                                               False))
 
     return prefill_step
 
@@ -314,9 +318,10 @@ def input_specs(cfg, shape, mesh):
                  for k, v in out.items()}
 
 
-def cache_specs(cfg, shape, mesh):
+def cache_specs(cfg, shape, mesh, dtype=torch.bfloat16):
     """(state, shardings): the decode state of (arch × shape) on meta
-    (bf16 caches, the whole batch) and each leaf's placement, the
+    (caches of ``dtype``, bf16 as the reference's, the whole batch) and
+    each leaf's placement, the
     reference's: the batch over the data axes when it divides them, and
     a KV cache's heads, else its length, over ``model`` by the reference's
     rule (``dist.sharding.cache_split_dim``; each cache records which in
@@ -324,7 +329,7 @@ def cache_specs(cfg, shape, mesh):
     recurrent states of rwkv6 and mamba2 keep every head of a rank's
     rows.  No mesh: the state and None."""
     B, S = shape.global_batch, shape.seq_len
-    state = T.init_decode_state(cfg, B, S, torch.bfloat16, device=_META)
+    state = T.init_decode_state(cfg, B, S, dtype, device=_META)
     if mesh is None:
         return state, None
     axes = act_axes(mesh, B)

@@ -12,6 +12,21 @@ sliding-window band.  On a mesh with ``cfg.attn_context_parallel``,
 cache split over ``model`` by the reference's rule (its KV heads, else
 its length) is attended over the rank's heads or slots.  Plain torch, as
 the reference is plain ``jnp``.
+
+With its weights where ``make_shardings`` puts them (``p.tp``, a
+``layers.Split``), a rank multiplies its slice of the input by its rows
+of ``wq``/``wk``/``wv`` (their input, ``d``, split over ``model``).
+Where ``model`` divides the query heads the partial products are
+reduce-scattered onto the rank's query heads, and onto its KV heads when
+``model`` divides those too; otherwise k and v are summed whole and the
+rank keeps the KV heads its query heads read (query head h reads KV head
+h // (H / KV), so they are contiguous).  The rank runs RoPE, qk-norm and
+attention on its heads, multiplies by its rows of ``wo`` (its heads) and
+sums over ``model`` once.  Context-parallel attention, a decode cache
+split on its length or not at all, and query heads ``model`` does not
+divide (or divides into blocks that straddle KV groups) take q, k and v
+summed whole and attend as on one device, and ``wo`` multiplies the
+rank's rows of the heads' output.
 """
 from __future__ import annotations
 
@@ -24,7 +39,8 @@ from torch import nn
 from repro_torch.dist.sharding import (cache_split_dim, gather_blocks,
                                        mesh_coord, mesh_sizes)
 
-from .layers import apply_rope, init_rms, normal, rms_norm
+from .layers import (apply_rope, init_rms, normal, rms_norm, tp_matmul,
+                     tp_project)
 
 NEG_INF = -1e30
 
@@ -47,24 +63,61 @@ class Attention(nn.Module):
         self.k_norm = init_rms(head_dim, device) if qk_norm else None
 
 
-def _qkv(x, p, cfg, positions):
+def _qkv(x, p, cfg, positions, heads: bool = False):
+    """(q, k, v, rep): (B, S, ·, hd) each, and the number of consecutive
+    query heads that read one KV head (:func:`_repeat_kv`).  With
+    ``p.tp`` and ``heads`` the rank's query heads and the KV heads they
+    read; with ``p.tp`` alone every head, summed over ``model``."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p.wq).reshape(B, S, H, hd)
-    k = (x @ p.wk).reshape(B, S, KV, hd)
-    v = (x @ p.wv).reshape(B, S, KV, hd)
+    sp = getattr(p, "tp", None)
+    rep = H // KV
+    if sp is None:
+        q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    else:
+        kv_split = heads and KV % sp.m == 0
+        q, k, v = tp_project(x, sp, [("wq", p.wq, heads),
+                                     ("wk", p.wk, kv_split),
+                                     ("wv", p.wv, kv_split)])
+        if heads and not kv_split:       # the KV heads of the rank's heads
+            h0, h1 = sp.r * H // sp.m, (sp.r + 1) * H // sp.m
+            lo, hi = h0 // rep, (h1 - 1) // rep + 1
+            k, v = k[..., lo * hd:hi * hd], v[..., lo * hd:hi * hd]
+            rep = min(rep, h1 - h0)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if getattr(p, "q_norm", None) is not None:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, rep
 
 
 def _repeat_kv(k, n_rep: int):
     if n_rep == 1:
         return k
     return k.repeat_interleave(n_rep, dim=2)
+
+
+def _heads(cfg, sp) -> bool:
+    """Whether a rank of a tensor-parallel block attends with its own
+    query heads: ``model`` divides them, and they read whole groups of
+    one or more KV heads or lie in one group."""
+    if sp is None or cfg.n_heads % sp.m:
+        return False
+    mine, rep = cfg.n_heads // sp.m, cfg.n_heads // cfg.n_kv_heads
+    return mine % rep == 0 or rep % mine == 0
+
+
+def _out(out, p, sp, heads: bool):
+    """``out @ wo``: whole, or with ``p.tp`` the rank's rows of ``wo``
+    times its heads' (``heads``) or its block of every head's output,
+    summed over ``model``."""
+    if sp is None:
+        return out @ p.wo
+    return tp_matmul(out, "wo", p.wo, sp, heads)
 
 
 def attention(x: torch.Tensor, p, cfg, *, block: int = 1024,
@@ -75,19 +128,22 @@ def attention(x: torch.Tensor, p, cfg, *, block: int = 1024,
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _qkv(x, p, cfg, positions)
+    cp = getattr(cfg, "attn_context_parallel", False) and mesh is not None \
+        and S > block
+    sp = getattr(p, "tp", None)
+    heads = _heads(cfg, sp) and not cp
+    q, k, v, rep = _qkv(x, p, cfg, positions, heads)
     window = cfg.sliding_window
     if banded is None:
         banded = bool(window) and getattr(cfg, "swa_banded", False)
 
-    if getattr(cfg, "attn_context_parallel", False) and mesh is not None \
-            and S > block:
-        out = _attend_cp(q, k, v, H // KV, window, block, mesh, batch_axes)
+    if cp:
+        out = _attend_cp(q, k, v, rep, window, block, mesh, batch_axes)
     elif S <= block:
-        out = _attend_dense(q, k, v, H // KV, window)
+        out = _attend_dense(q, k, v, rep, window)
     else:
-        out = _attend_chunked(q, k, v, H // KV, window, block, banded)
-    return out.reshape(B, S, H * hd) @ p.wo
+        out = _attend_chunked(q, k, v, rep, window, block, banded)
+    return _out(out.reshape(B, S, q.shape[2] * hd), p, sp, heads)
 
 
 def _attend_cp(q, k, v, n_rep, window, block, mesh, batch_axes=()):
@@ -239,11 +295,13 @@ def decode_attention(x: torch.Tensor, p, cfg, cache: KVCache, mesh=None):
     On a mesh a cache split over ``model`` holds the rank's slice
     (``cache.split``).  Heads: the rank attends with the query heads of
     its KV heads' groups (``_repeat_kv`` is contiguous: query head h reads
-    KV head h // (H / KV)) and the heads' outputs are gathered over
-    ``model`` before ``wo``.  Length: the rank owns a contiguous block of
-    slots, and only the owner of the slot writes; each rank reduces its
-    block to a (max, sum of exponentials, weighted values) per head, and
-    the partials, gathered over ``model``, are combined in rank order."""
+    KV head h // (H / KV)); with ``p.tp`` its q, k and v are those heads'
+    alone and its rows of ``wo`` take their output, else the heads'
+    outputs are gathered over ``model`` before ``wo``.  Length: the rank
+    owns a contiguous block of slots, and only the owner of the slot
+    writes; each rank reduces its block to a (max, sum of exponentials,
+    weighted values) per head, and the partials, gathered over
+    ``model``, are combined in rank order."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     split = cache.split if mesh is not None else None
@@ -254,21 +312,24 @@ def decode_attention(x: torch.Tensor, p, cfg, cache: KVCache, mesh=None):
     window = cfg.sliding_window
     abs_pos = int(cache.pos)
     slot = min(abs_pos % S_max if window else abs_pos, S_max - 1)
-    q, k, v = _qkv(x, p, cfg, torch.full((B, 1), abs_pos, device=x.device))
+    sp = getattr(p, "tp", None)
+    heads = sp is not None and split == 2
+    q, k, v, rep = _qkv(x, p, cfg, torch.full((B, 1), abs_pos,
+                                             device=x.device), heads)
     if k.dtype != cache.k.dtype:
         raise TypeError(f"lax.dynamic_update_slice requires arguments to "
                         f"have the same dtypes, got {cache.k.dtype}, "
                         f"{k.dtype}")
     lo = mi * S_loc if split == 1 else 0
-    if split == 2:                  # this rank's KV heads and their queries
+    if split == 2 and not heads:    # this rank's KV heads and their queries
         q = q[:, :, mi * (H // m):(mi + 1) * (H // m)]
         k = k[:, :, mi * (KV // m):(mi + 1) * (KV // m)]
         v = v[:, :, mi * (KV // m):(mi + 1) * (KV // m)]
     if lo <= slot < lo + S_loc:
         cache.k[:, slot - lo] = k[:, 0]
         cache.v[:, slot - lo] = v[:, 0]
-    kk = _repeat_kv(cache.k, H // KV)
-    vv = _repeat_kv(cache.v, H // KV)
+    kk = _repeat_kv(cache.k, rep)
+    vv = _repeat_kv(cache.v, rep)
     s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * (1.0 / math.sqrt(hd))
     kpos = lo + torch.arange(S_loc, device=x.device)
     if window:                      # ring: every filled slot is in window
@@ -281,9 +342,9 @@ def decode_attention(x: torch.Tensor, p, cfg, cache: KVCache, mesh=None):
         s = torch.where(valid[None, None, None, :], s, NEG_INF)
         pr = torch.softmax(s, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", pr, vv)
-        if split == 2:
+        if split == 2 and not heads:
             out = gather_blocks(out, mesh, ("model",), dim=2)
-    out = out.reshape(B, 1, H * hd) @ p.wo
+    out = _out(out.reshape(B, 1, q.shape[2] * hd), p, sp, heads)
     return out, cache._replace(pos=abs_pos + 1)
 
 

@@ -16,8 +16,8 @@ model's dtype elsewhere).
 On a mesh (``params_from_jax(..., mesh=...)``, or ``shard_params`` of a
 model drawn with a seed) each rank keeps only its slice of every weight,
 as ``dist.sharding.make_shardings`` places the reference's leaf: the
-weights sharded at rest, gathered whole at use by ``forward`` and
-``decode_step``.
+weights sharded at rest, where ``forward`` and ``decode_step`` multiply
+them (``models.transformer``), a few gathered whole at use.
 
 ``train_state_from_jax`` carries a whole training state across: the
 reference's ``TrainState`` (weights, AdamW or Adafactor state, step) as
@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.core.types import resolve_device
 from repro_torch.dist.sharding import (leaf_slices, make_shardings,
-                                       mesh_sizes)
+                                       mesh_sizes, split_dims)
 
 from repro_torch.launch.steps import TrainState
 from repro_torch.optim import AdafactorState, AdamWState
@@ -79,18 +79,15 @@ def shard_params(model: Transformer, cfg, mesh) -> Transformer:
         raise ValueError("the model's weights are sharded already")
     params = tr.param_tree(model)
     placements = make_shardings(params, cfg, mesh)
-    names = {id(t): n for n, t in model.named_parameters()}
-    dims = {}
+    dims = split_dims(model, cfg, mesh)
     with torch.no_grad():
         for path, leaf in params.items():
-            split = [pl.dim for pl in placements[path] if pl.is_shard()]
-            if not split:
+            if not any(pl.is_shard() for pl in placements[path]):
                 continue
             cut = leaf_slices(tuple(leaf.shape), placements[path], mesh)
             stacked = isinstance(leaf, tr.Stacked)
             for t in tr.layers(leaf):
                 t.data = t.data[cut[1:] if stacked else cut].clone()
-                dims[names[id(t)]] = split[0] - (1 if stacked else 0)
     model.at_rest = {"mesh": mesh_sizes(mesh), "dims": dims}
     return model
 

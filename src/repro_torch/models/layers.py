@@ -5,12 +5,20 @@ Plain functions on tensors; a module's weights are read by name (``p.up``,
 ``p.gate``, …), the keys of the reference's parameter dicts.  Dtypes
 follow the reference: norms in float32, activations and weights in the
 model's dtype.  Weights are made without gradients (serving); training
-turns them on (``model.requires_grad_(True)``)."""
+turns them on (``model.requires_grad_(True)``).
+
+On a mesh a part whose weights stay where ``make_shardings`` puts them
+carries a :class:`Split` (``p.tp``): each rank multiplies with its slice
+of each weight (:func:`tp_project`, :func:`tp_matmul`) and the partial
+products are summed over ``model``.  The dense MLP takes the rank's
+columns of ``up``/``gate`` and its rows of ``down`` and sums once;
+:func:`cross_entropy_sum` takes a rank's slice of the vocabulary."""
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,20 +63,124 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+# --- Tensor parallelism ----------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a part's weights lie over ``model`` on a mesh: its size ``m``,
+    this rank's index ``r`` along it, and for each weight split there the
+    dimension of the layer's weight that ``make_shardings`` splits
+    (``dims``; a weight not in it is whole on every rank)."""
+    mesh: object
+    m: int
+    r: int
+    dims: Dict[str, int]
+
+    def block(self, n: int) -> slice:
+        """This rank's block of a dimension of ``n`` cut into ``m``."""
+        return slice(self.r * (n // self.m), (self.r + 1) * (n // self.m))
+
+
+def tp_project(x: torch.Tensor, sp: Split,
+               specs: Sequence[Tuple[str, torch.Tensor, bool]]
+               ) -> List[torch.Tensor]:
+    """``x @ w`` for each ``(name, w, split)`` of ``specs``, ``x`` the
+    same on every rank along ``model`` and ``w`` this rank's slice of the
+    weight ``name``: with ``split`` this rank's block of the product's
+    columns (cut into ``m``), else the whole product.  A weight split on
+    its columns gives its block with no transfer; one split on its rows
+    multiplies the rank's slice of ``x`` and the partial products are
+    reduce-scattered onto the blocks, or summed, over ``model``, the
+    products of one kind in one collective; a whole weight multiplies
+    its block of columns.  Columns split for the whole product are
+    gathered."""
+    from repro_torch.dist.sharding import (gather_blocks, scatter_partials,
+                                           sum_partials)
+    out: List[Optional[torch.Tensor]] = [None] * len(specs)
+    pending = {True: [], False: []}
+    for i, (name, w, split) in enumerate(specs):
+        dim = sp.dims.get(name)
+        if dim == 1:
+            y = x @ w
+            out[i] = y if split else gather_blocks(y, sp.mesh, ("model",),
+                                                   dim=y.ndim - 1)
+        elif dim == 0:
+            pending[split].append((i, x[..., sp.block(x.shape[-1])] @ w))
+        else:
+            out[i] = x @ (w[:, sp.block(w.shape[1])] if split else w)
+    if pending[True]:
+        # one reduce-scatter: each product's blocks for rank j side by side
+        parts = [y.unflatten(-1, (sp.m, y.shape[-1] // sp.m))
+                 for _, y in pending[True]]
+        got = scatter_partials(torch.cat(parts, -1).flatten(-2), sp.mesh)
+        for (i, _), y in zip(pending[True], got.split(
+                [p.shape[-1] for p in parts], -1)):
+            out[i] = y
+    if pending[False]:                  # one all-reduce of them all
+        got = sum_partials(torch.cat([y for _, y in pending[False]], -1),
+                           sp.mesh)
+        for (i, _), y in zip(pending[False], got.split(
+                [y.shape[-1] for _, y in pending[False]], -1)):
+            out[i] = y
+    return out
+
+
+def tp_matmul(x: torch.Tensor, name: str, w: torch.Tensor, sp: Split,
+              x_split: bool) -> torch.Tensor:
+    """The whole ``x @ w``, the same on every rank along ``model``, for
+    this rank's slice ``w`` of the weight ``name`` and ``x`` whole
+    (``x_split`` False) or this rank's block of its last dimension (cut
+    into ``m``).  A weight split on its rows multiplies the rank's block
+    of ``x`` and the partial products are summed over ``model``; one
+    split on its columns needs ``x`` whole (its blocks gathered) and its
+    product's columns gathered; a whole weight takes the rows of the
+    rank's block of ``x``."""
+    from repro_torch.dist.sharding import gather_blocks, sum_partials
+    dim = sp.dims.get(name)
+    if dim == 1:
+        if x_split:
+            x = gather_blocks(x, sp.mesh, ("model",), dim=x.ndim - 1)
+        y = x @ w
+        return gather_blocks(y, sp.mesh, ("model",), dim=y.ndim - 1)
+    if dim == 0:
+        y = (x if x_split else x[..., sp.block(x.shape[-1])]) @ w
+    elif x_split:
+        y = x @ w[sp.block(w.shape[0])]
+    else:
+        return x @ w
+    return sum_partials(y, sp.mesh)
+
+
 # --- MLPs ------------------------------------------------------------------
 
 
-def mlp(x: torch.Tensor, p, act: str) -> torch.Tensor:
-    h = x @ p.up
+def _act(h: torch.Tensor, g: Optional[torch.Tensor], act: str
+         ) -> torch.Tensor:
     if act == "silu":                        # gated SiLU (llama family)
-        h = F.silu(x @ p.gate) * h
-    elif act == "relu2":                     # squared ReLU (nemotron)
-        h = F.relu(h).square()
-    elif act == "gelu":                      # jax.nn.gelu: the tanh form
-        h = F.gelu(h, approximate="tanh")
-    else:
-        raise ValueError(act)
-    return h @ p.down
+        return F.silu(g) * h
+    if act == "relu2":                       # squared ReLU (nemotron)
+        return F.relu(h).square()
+    if act == "gelu":                        # jax.nn.gelu: the tanh form
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(act)
+
+
+def mlp(x: torch.Tensor, p, act: str) -> torch.Tensor:
+    """The MLP; with ``p.tp`` on the rank's columns of ``up``/``gate``
+    (the hidden width cut into ``model`` where it divides, else whole)
+    and its rows of ``down``, the partial products summed once over
+    ``model``."""
+    sp = getattr(p, "tp", None)
+    if sp is None:
+        return _act(x @ p.up, x @ p.gate if act == "silu" else None,
+                    act) @ p.down
+    hidden = p.up.shape[1] * (sp.m if sp.dims.get("up") == 1 else 1)
+    split = hidden % sp.m == 0
+    names = ("up", "gate") if act == "silu" else ("up",)
+    hs = tp_project(x, sp, [(n, getattr(p, n), split) for n in names])
+    return tp_matmul(_act(hs[0], hs[-1] if act == "silu" else None, act),
+                     "down", p.down, sp, split)
 
 
 # --- Embedding ---------------------------------------------------------------
@@ -97,12 +209,42 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return _token_losses(logits, labels, z_loss).mean()
 
 
+def _vocab_token_losses(logits: torch.Tensor, labels: torch.Tensor,
+                        lo: int, mesh, z_loss: float) -> torch.Tensor:
+    """:func:`_token_losses` of ``logits``, this rank's vocabulary
+    ``[lo, lo + logits.shape[-1])`` of the ranks along ``model``: the
+    largest logit taken over ``model``, the sum of the exponentials and
+    each label's logit (from the rank that holds it) summed over
+    ``model`` in float32; every rank gets the same losses."""
+    from repro_torch.dist.sharding import max_over, sum_partials
+    lf = logits.float()
+    top = max_over(lf.amax(dim=-1), mesh)
+    exps = torch.exp(lf - top[..., None]).sum(dim=-1)
+    at = labels.long() - lo
+    mine = (at >= 0) & (at < lf.shape[-1])
+    ll = torch.gather(lf, -1, at.clamp(0, lf.shape[-1] - 1)[..., None])
+    ll = torch.where(mine, ll[..., 0], 0.0)
+    both = sum_partials(torch.stack([exps, ll], dim=-1), mesh)
+    lse = top + torch.log(both[..., 0])
+    loss = lse - both[..., 1]
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss
+
+
 def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
-                      z_loss: float = 1e-4) -> torch.Tensor:
+                      z_loss: float = 1e-4, *, mesh=None,
+                      vocab_lo: Optional[int] = None) -> torch.Tensor:
     """The sum of :func:`_token_losses` (float32): on a mesh, a rank's
     rows' share of the mean, before the division by the global count of
-    tokens and the sum over the ranks' rows."""
-    return _token_losses(logits, labels, z_loss).sum()
+    tokens and the sum over the ranks' rows.  With ``vocab_lo`` the
+    logits are this rank's slice of the vocabulary from ``vocab_lo`` on,
+    the ranks along ``model`` holding the others: the losses are
+    reckoned over every slice without putting the vocabulary together."""
+    if vocab_lo is None:
+        return _token_losses(logits, labels, z_loss).sum()
+    return _vocab_token_losses(logits, labels, vocab_lo, mesh,
+                               z_loss).sum()
 
 
 # --- Initialisation ----------------------------------------------------------

@@ -20,30 +20,48 @@ card unless the caller passes ``device="cpu"``.
 On a mesh (a ``DeviceMesh`` with ``data``/``pod`` and ``model`` axes)
 ``forward`` and ``decode_step`` run SPMD: every rank passes the whole
 batch, keeps its rows (``dist.sharding.shard_act``), runs each block on
-them with the block's weights whole, and returns the logits of its rows,
-where the reference's GSPMD keeps them.  A model sharded at rest
-(``convert.shard_params``) holds each rank's slice of every weight, as
-``make_shardings`` places it; a block's slices are
-gathered over ``model`` when the block starts and dropped after it, so
-one block's weights are whole at a time.  Where rows mix, the MoE layer,
-the rows are gathered and it runs on the whole batch, as the reference's
+them, and returns the logits of its rows, where the reference's GSPMD
+keeps them.  With ``model`` > 1 and no ``cfg.ddp`` the ranks along
+``model`` split the products as GSPMD does: an attention block and a
+dense MLP multiply each rank's slices of their weights, where
+``make_shardings`` puts them, and sum the partial products over
+``model`` (``layers.tp_project``, ``attention``); the head and the loss
+work on a rank's slice of the vocabulary, which a tied embedding takes
+from its slice of ``d`` by one all-to-all (``dist.sharding.recut``) and
+looks its tokens up in, summed over ``model``; an untied embedding looks
+up its slice of ``d`` and gathers the rows' vectors.  ``forward`` and
+``decode_step`` gather the logits over ``model`` once, at the end;
+``loss_fn`` never holds the whole vocabulary.  The residual stream is a
+rank's rows, whole over ``d``, the same bits on every rank along
+``model``.  What stays gathered at use, one block at a time and in one
+transfer (``dist.sharding.gather_model``): the norms, the MoE experts
+and router, rwkv6's and mamba2's blocks, musicgen's codebook heads where
+the rule splits their ``d``, and a tied embedding whose vocabulary
+``model`` does not divide (its logits and loss then whole on every
+rank).  A model sharded at rest (``convert.shard_params``) holds each
+rank's slices; a whole model on a mesh cuts the same slices of its
+weights at use, with the same bits.  Where rows mix, the MoE layer, the
+rows are gathered and it runs on the whole batch, as the reference's
 does under jit; context-parallel attention splits the query blocks over
-``model``.  The gathers only concatenate, so each rank computes what one
-device computes on its rows.  The decode state holds a rank's rows, each
-KV cache split over ``model`` by the reference's rule
-(``init_decode_state(..., mesh=)``): its KV heads when ``model`` divides
-them, else its length, and decode attention runs over the rank's heads
-or slots (``attention.decode_attention``).
+``model``.  The decode state holds a rank's rows, each KV cache split
+over ``model`` by the reference's rule (``init_decode_state(...,
+mesh=)``): its KV heads when ``model`` divides them, which are then the
+heads the rank attends with, else its length, and decode attention runs
+over the rank's heads or slots (``attention.decode_attention``).
 
-Gradients on a mesh pass every gather as its transpose, a reduce-scatter
+Gradients on a mesh pass every collective as its transpose
 (``dist.sharding``).  ``loss_fn`` sums the token losses of a rank's rows
 over the global token count and sums that over the axes the rows split
 over (``dist.sharding.sum_over``: every rank gets the global loss, and
 its backward is the rank's own part).  The ranks along ``model`` hold
-the same rows, so a caller that backpropagates ``1 / (ranks sharing the
-rows)`` of it (``launch.steps.loss_and_grads``) and then sums each
-weight's gradient over the axes it is replicated along gets the global
-gradient of its slices.
+the same rows, so a caller backpropagates ``1 / (ranks sharing the
+rows)`` of it on each (``launch.steps.loss_and_grads``): each rank along
+``model`` then holds a share of the gradient of every activation they
+hold alike, the sums over ``model`` hand each partial product the whole
+gradient, a weight the rank multiplies in place gets its slice's
+gradient of the rank's rows, and one gathered or replicated gets a share
+that the gather's reduce-scatter, or the sum over the axes it is
+replicated along, adds up.
 
 ``cfg.remat`` applies where gradients are taken: ``"full"`` recomputes
 each block in the backward pass (``torch.utils.checkpoint``, hybrid's
@@ -70,14 +88,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.types import resolve_device
 from repro_torch.dist.sharding import (act_axes, batch_axes_of,
                                        gather_blocks, gather_model,
-                                       local_rows, mesh_sizes, shard_act,
-                                       sum_over)
+                                       local_rows, mesh_coord, mesh_sizes,
+                                       recut, shard_act, split_dims,
+                                       sum_over, sum_partials)
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .attention import (Attention, KVCache, attention, decode_attention,
                         init_cache)
-from .layers import MLP, cross_entropy, cross_entropy_sum, embed, \
+from .layers import MLP, Split, cross_entropy, cross_entropy_sum, embed, \
     init_rms, mlp, normal, rms_norm
 
 
@@ -193,18 +212,40 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Transformer:
     return Transformer(cfg, resolve_device(device), generator)
 
 
-def _logits(x, model, cfg):
+def _logits(x, top, cfg):
+    """(logits, the first word of the rank's slice of the vocabulary
+    they cover, or None where they cover all of it)."""
+    sp = getattr(top, "tp", None)
+    dims = sp.dims if sp is not None else {}
     if cfg.family == "audio":
-        return torch.einsum("bsd,cdv->bscv", x, model.heads)
+        lo = sp.r * top.heads.shape[2] if dims.get("heads") == 2 else None
+        return torch.einsum("bsd,cdv->bscv", x, top.heads), lo
     if cfg.tie_embeddings:
-        return x @ model.embed.T
-    return x @ model.head
+        lo = sp.r * top.embed.shape[0] if dims.get("embed") == 0 else None
+        return x @ top.embed.T, lo
+    lo = sp.r * top.head.shape[1] if dims.get("head") == 1 else None
+    return x @ top.head, lo
 
 
-def _inputs(model, inputs, cfg):
+def _inputs(top, inputs, cfg):
+    """The input vectors: a lookup in the whole embedding, in the rank's
+    slice of the vocabulary (the rows outside it zero, summed over
+    ``model``), or in its slice of ``d`` (gathered over ``model``)."""
     if cfg.family == "audio":
         return inputs["embeds"].to(_dtype(cfg))
-    return embed(inputs["tokens"], model.embed)
+    tokens = inputs["tokens"]
+    sp = getattr(top, "tp", None)
+    dim = sp.dims.get("embed") if sp is not None else None
+    if dim == 0:
+        n = top.embed.shape[0]
+        at = tokens - sp.r * n
+        mine = (at >= 0) & (at < n)
+        rows = embed(at.clamp(0, n - 1), top.embed)
+        return sum_partials(torch.where(mine[..., None], rows, 0), sp.mesh)
+    if dim == 1:
+        return gather_blocks(embed(tokens, top.embed), sp.mesh, ("model",),
+                             dim=tokens.ndim)
+    return embed(tokens, top.embed)
 
 
 def _moe(x, p, cfg, mesh, data_axes, rows):
@@ -219,45 +260,22 @@ def _moe(x, p, cfg, mesh, data_axes, rows):
 
 
 # ---------------------------------------------------------------------------
-# On a mesh: weights whole at use, the batch's rows
+# On a mesh: the weights where make_shardings puts them, the batch's rows
 # ---------------------------------------------------------------------------
 
+# the weights a tensor-parallel block multiplies where they lie, by part
+_TP = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("up", "gate", "down")}
 
-def _namespace(mod, full, path: str, only):
+
+def _namespace(mod, values, path: str, only):
     ns = SimpleNamespace()
     for n, t in mod.named_parameters(recurse=False):
         if only is None or n in only:
-            setattr(ns, n, full.get(path + n, t))
+            setattr(ns, n, values.get(path + n, t))
     if only is None:
         for n, child in mod.named_children():
-            setattr(ns, n, _namespace(child, full, f"{path}{n}.", None))
+            setattr(ns, n, _namespace(child, values, f"{path}{n}.", None))
     return ns
-
-
-def _whole(model, mesh):
-    """``whole(part, prefix, only=None)``: ``part`` of ``model`` (a block
-    named ``prefix``, or the model itself for the top-level weights named
-    in ``only``) with every weight whole.  On a model sharded at rest the
-    part's slices are gathered over ``model`` in one transfer and handed
-    out in a namespace of the part's layout, freed when the caller drops
-    it; a whole model gives the part itself."""
-    at_rest = getattr(model, "at_rest", None)
-    if at_rest is None:
-        return lambda part, prefix, only=None: part
-    if mesh is None or mesh_sizes(mesh) != at_rest["mesh"]:
-        raise ValueError(f"the weights are sharded at rest on the mesh "
-                         f"{at_rest['mesh']}; got "
-                         f"{None if mesh is None else mesh_sizes(mesh)}")
-    dims = at_rest["dims"]
-
-    def whole(part, prefix, only=None):
-        split = [n for n, _ in part.named_parameters(recurse=only is None)
-                 if prefix + n in dims and (only is None or n in only)]
-        full = dict(zip(split, gather_model(
-            [part.get_parameter(n) for n in split],
-            [dims[prefix + n] for n in split], mesh)))
-        return _namespace(part, full, "", only)
-    return whole
 
 
 def _head_names(cfg) -> set:
@@ -266,14 +284,100 @@ def _head_names(cfg) -> set:
     return {"norm_f", "embed" if cfg.tie_embeddings else "head"}
 
 
-def _top(model, cfg, whole):
-    """(the input embedding's part, a function giving the head's): a tied
-    embedding is gathered once, for the input and the head both."""
-    if "embed" in _head_names(cfg):
-        top = whole(model, "", _head_names(cfg))
-        return top, lambda: top
-    return whole(model, "", {"embed"}), lambda: whole(model, "",
-                                                      _head_names(cfg))
+class _Held:
+    """A model's weights as this rank uses them.  ``part(mod, prefix,
+    only=None)`` hands out a part of the model (a block named ``prefix``,
+    or the model itself for the top-level weights in ``only``) in a
+    namespace of its layout.  No mesh: the part itself.  On a mesh the
+    weights ``_TP`` names, a V-split head and the embedding (see the
+    module's docstring) are this rank's slices, and a part holding them
+    carries their :class:`~repro_torch.models.layers.Split` as ``tp``;
+    every other split weight is gathered whole over ``model`` in one
+    transfer, freed when the caller drops the namespace.  A model
+    sharded at rest holds the slices; a whole model's are cut from its
+    weights (contiguous copies, so the products are the at-rest ones)."""
+
+    def __init__(self, model, cfg, mesh):
+        at_rest = getattr(model, "at_rest", None)
+        if at_rest is not None and (mesh is None
+                                    or mesh_sizes(mesh) != at_rest["mesh"]):
+            raise ValueError(f"the weights are sharded at rest on the mesh "
+                             f"{at_rest['mesh']}; got "
+                             f"{None if mesh is None else mesh_sizes(mesh)}")
+        self.model, self.cfg, self.mesh = model, cfg, mesh
+        self.at_rest = at_rest is not None
+        if mesh is None:
+            return
+        self.dims = at_rest["dims"] if at_rest is not None else split_dims(
+            model, cfg, mesh)
+        self.m = mesh_sizes(mesh).get("model", 1)
+        self.tp = self.m > 1 and not getattr(cfg, "ddp", False)
+        self.r = mesh_coord(mesh)["model"] if self.tp else 0
+
+    def _slice(self, t, dim: int, at: int = None):
+        """This rank's slice of a weight split on ``dim`` (held at rest,
+        or cut from the whole), or of a whole weight on ``at``."""
+        if at is None and self.at_rest:
+            return t
+        at = dim if at is None else at
+        n = t.shape[at] // self.m
+        t = t.narrow(at, self.r * n, n)
+        return t if t.is_contiguous() else t.contiguous()
+
+    def _local(self, name: str, t, dim: int):
+        """(this rank's slice of the weight ``name`` split on ``dim``, its
+        part's name, the weight's name there, the dimension the slice
+        splits), or None where the weight is gathered."""
+        owner, _, leaf = name.rpartition(".")
+        if leaf in _TP.get(owner, ()):
+            return self._slice(t, dim), owner, leaf, dim
+        if owner:
+            return None
+        if (name, dim) in (("head", 1), ("heads", 2)):
+            return self._slice(t, dim), "", name, dim
+        if name == "embed" and dim == 1 and not self.cfg.tie_embeddings:
+            return self._slice(t, dim), "", name, 1
+        if name == "embed" and dim == 1 and t.shape[0] % self.m == 0:
+            # a tied embedding serves the head and the lookup from its
+            # slice of the vocabulary, re-cut from its slice of d
+            v = recut(t, self.mesh, 1, 0) if self.at_rest else \
+                self._slice(t, 1, at=0)
+            return v, "", name, 0
+        return None
+
+    def part(self, mod, prefix: str, only=None):
+        if self.mesh is None:
+            return mod
+        values, splits, gather = {}, {}, []
+        for n, t in mod.named_parameters(recurse=only is None):
+            dim = self.dims.get(prefix + n)
+            if dim is None or (only is not None and n not in only):
+                continue
+            got = self._local(n, t, dim) if self.tp else None
+            if got is None:
+                gather.append((n, t, dim))
+                continue
+            values[n], owner, leaf, d = got
+            splits.setdefault(owner, {})[leaf] = d
+        if gather and self.at_rest:
+            values.update(zip([n for n, _, _ in gather], gather_model(
+                [t for _, t, _ in gather], [d for _, _, d in gather],
+                self.mesh)))
+        ns = _namespace(mod, values, "", only)
+        for owner, dims in splits.items():
+            sub = getattr(ns, owner) if owner else ns
+            sub.tp = Split(self.mesh, self.m, self.r, dims)
+        return ns
+
+    def top(self):
+        """(the input embedding's part, a function giving the head's): a
+        tied embedding is taken once, for the input and the head both."""
+        names = _head_names(self.cfg)
+        if "embed" in names:
+            top = self.part(self.model, "", names)
+            return top, lambda: top
+        return self.part(self.model, "", {"embed"}), \
+            lambda: self.part(self.model, "", names)
 
 
 def row_axes(mesh, cfg, batch: int) -> tuple:
@@ -339,43 +443,71 @@ def forward(model: Transformer, inputs: Dict[str, torch.Tensor], cfg,
     mesh the whole batch on every rank, which keeps its rows (the data
     axes, and ``model`` under ``cfg.ddp``, as ``batch_axes_of`` drops
     them) and returns the logits of those rows (:func:`row_axes`)."""
-    whole = _whole(model, mesh)
+    logits, lo, aux = _forward(model, inputs, cfg, mesh, data_axes,
+                               last_only)
+    return _whole_vocab(logits, lo, mesh), aux
+
+
+def next_tokens(model: Transformer, inputs: Dict[str, torch.Tensor], cfg,
+                mesh=None, data_axes=("data",), last_only: bool = False):
+    """The greedy next token (int32) of each of the rank's rows after
+    :func:`forward`: the argmax of the last position's logits.  Where the
+    head splits the vocabulary over ``model``, only that position's
+    logits are gathered."""
+    logits, lo, _ = _forward(model, inputs, cfg, mesh, data_axes, last_only)
+    last = _whole_vocab(logits[:, -1], lo, mesh)
+    return torch.argmax(last, dim=-1).to(torch.int32)
+
+
+def _whole_vocab(logits, lo, mesh):
+    """Logits over the whole vocabulary: a rank's slice (``lo`` not None)
+    gathered over ``model``."""
+    if lo is None:
+        return logits
+    return gather_blocks(logits, mesh, ("model",), dim=logits.ndim - 1)
+
+
+def _forward(model, inputs, cfg, mesh, data_axes, last_only=False):
+    """:func:`forward`'s (logits, the first word of the rank's slice of
+    the vocabulary they cover or None, aux)."""
+    parts = _Held(model, cfg, mesh)
     inputs, rows = _on_mesh(inputs, mesh, cfg)
-    first, head = _top(model, cfg, whole)
+    first, head = parts.top()
     x = _inputs(first, inputs, cfg)
     del first
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         block = _remat(lambda h, i: _apply_attn_block(
-            h, whole(model.blocks[i], f"blocks.{i}."), cfg, mesh, data_axes,
-            rows), cfg.remat)
+            h, parts.part(model.blocks[i], f"blocks.{i}."), cfg, mesh,
+            data_axes, rows), cfg.remat)
     elif cfg.family == "ssm":
         block = _remat(lambda h, i: _apply_rwkv_block(
-            h, whole(model.blocks[i], f"blocks.{i}."), cfg), cfg.remat)
+            h, parts.part(model.blocks[i], f"blocks.{i}."), cfg), cfg.remat)
     if cfg.family != "hybrid":
         for i in range(len(model.blocks)):
             x, a = block(x, i)
             aux = aux + a
     else:
-        x, aux = _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows)
+        x, aux = _hybrid_forward(x, model, cfg, mesh, data_axes, parts, rows)
     if last_only:
         x = x[:, -1:]                # prefill serves next-token logits only
     top = head()
-    return _logits(rms_norm(x, top.norm_f), top, cfg), aux
+    logits, lo = _logits(rms_norm(x, top.norm_f), top, cfg)
+    return logits, lo, aux
 
 
-def _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows):
+def _hybrid_forward(x, model, cfg, mesh, data_axes, parts, rows):
     """zamba2: groups of ``attn_every`` mamba layers + the shared attn
     block after each group; the remaining layers last."""
     every = cfg.attn_every
     n_groups = cfg.n_layers // every
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     mamba = _remat(lambda h, i: _apply_mamba_block(
-        h, whole(model.blocks[i], f"blocks.{i}."), cfg), cfg.remat)
-    # the shared block is gathered at each of its uses; its gradient is
-    # the sum over them
+        h, parts.part(model.blocks[i], f"blocks.{i}."), cfg), cfg.remat)
+    # the shared block is taken at each of its uses; its gradient is the
+    # sum over them
     shared = _remat(lambda h: _apply_attn_block(
-        h, whole(model.shared, "shared."), cfg, mesh, data_axes, rows),
+        h, parts.part(model.shared, "shared."), cfg, mesh, data_axes, rows),
         cfg.remat)
     for g in range(n_groups):
         for i in range(g * every, (g + 1) * every):
@@ -390,22 +522,23 @@ def _hybrid_forward(x, model, cfg, mesh, data_axes, whole, rows):
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor], cfg,
             mesh=None, data_axes=("data",)) -> torch.Tensor:
     """The mean token loss (z-loss included) plus 0.01 of the MoE aux.  On
-    a mesh each rank sums the token losses of its rows over the global
-    token count, and the parts are summed over the axes the rows split
+    a mesh each rank sums the token losses of its rows (over its slice of
+    the vocabulary, where the head splits it) over the global token
+    count, and the parts are summed over the axes the rows split
     over (one float32 all-reduce of a scalar, in rank order): every rank
     returns the global loss.  Its backward on a rank is the rank's own
     part, and ``1 / blocks`` of the aux's gradient (``blocks`` the row
     blocks: every rank computes the aux alike); backpropagated on every
     rank scaled by one over the ranks that share a row block
     (``launch.steps.loss_and_grads``), each term counts once."""
-    logits, aux = forward(model, batch, cfg, mesh, data_axes)
+    logits, lo, aux = _forward(model, batch, cfg, mesh, data_axes)
     # audio: logits (B,S,Cb,V) vs labels (B,S,Cb); LM: (B,S,V) vs (B,S)
     if mesh is None:
         return cross_entropy(logits, batch["labels"]) + 0.01 * aux
     labels = batch["labels"]
     rows = row_axes(mesh, cfg, labels.shape[0])
-    part = cross_entropy_sum(logits, shard_act(labels, mesh, axes=rows)) \
-        / labels.numel()
+    part = cross_entropy_sum(logits, shard_act(labels, mesh, axes=rows),
+                             mesh=mesh, vocab_lo=lo) / labels.numel()
     blocks = math.prod(mesh_sizes(mesh)[a] for a in rows)
     aux = aux.detach() + (aux - aux.detach()) / blocks
     return sum_over(part, mesh, rows) + 0.01 * aux
@@ -471,9 +604,9 @@ def decode_step(model: Transformer, state: DecodeState,
     logits of its rows, and ``state`` holds this rank's slice: its rows,
     those ``shard_act`` gives it, and of each KV cache its part over
     ``model`` (:func:`init_decode_state` with the mesh)."""
-    whole = _whole(model, mesh)
+    parts = _Held(model, cfg, mesh)
     inputs, rows = _on_mesh(inputs, mesh)
-    first, head = _top(model, cfg, whole)
+    first, head = parts.top()
     x = _inputs(first, inputs, cfg)
     del first
     held = _state_rows(state)
@@ -484,7 +617,7 @@ def decode_step(model: Transformer, state: DecodeState,
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         caches = []
         for i, (p, cache) in enumerate(zip(model.blocks, state.caches)):
-            p = whole(p, f"blocks.{i}.")
+            p = parts.part(p, f"blocks.{i}.")
             a, new_cache = decode_attention(
                 rms_norm(x, p.ln1), p.attn, cfg, cache._replace(pos=pos),
                 mesh)
@@ -500,7 +633,7 @@ def decode_step(model: Transformer, state: DecodeState,
     elif cfg.family == "ssm":
         caches = []
         for i, (p, st) in enumerate(zip(model.blocks, state.caches)):
-            p = whole(p, f"blocks.{i}.")
+            p = parts.part(p, f"blocks.{i}.")
             a, new_st = ssm_mod.rwkv6_decode(rms_norm(x, p.ln1), p.time,
                                              cfg, st)
             x = x + a
@@ -516,12 +649,12 @@ def decode_step(model: Transformer, state: DecodeState,
         caches, shared = [], []
         for g in range(cfg.n_layers // every):
             for i in range(g * every, (g + 1) * every):
-                p = whole(model.blocks[i], f"blocks.{i}.")
+                p = parts.part(model.blocks[i], f"blocks.{i}.")
                 out, st = ssm_mod.mamba2_decode(rms_norm(x, p.ln), p.mamba,
                                                 cfg, state.caches[i])
                 x = x + out
                 caches.append(st)
-            sh = whole(model.shared, "shared.")
+            sh = parts.part(model.shared, "shared.")
             shc = state.shared_caches[g]
             a, nshc = decode_attention(rms_norm(x, sh.ln1), sh.attn, cfg,
                                        shc._replace(pos=pos), mesh)
@@ -535,7 +668,8 @@ def decode_step(model: Transformer, state: DecodeState,
     else:
         raise ValueError(cfg.family)
     top = head()
-    return _logits(rms_norm(x, top.norm_f), top, cfg), new_state
+    logits, lo = _logits(rms_norm(x, top.norm_f), top, cfg)
+    return _whole_vocab(logits, lo, mesh), new_state
 
 
 def _state_rows(state) -> Optional[int]:

@@ -51,10 +51,11 @@ from repro.launch import train as JTR
 from repro.models import transformer as JT
 from repro.runtime import CheckpointManager as JCheckpointManager
 from repro.runtime import elastic as JE
-from torch_dist_helpers import (RankPool, mesh_grad_job, mesh_loss_job,
-                                mesh_restore_job, mesh_step_job,
-                                mesh_train_errors_job, mesh_train_job,
-                                train_cli_job)
+from repro.models.layers import cross_entropy as jcross_entropy
+from torch_dist_helpers import (RankPool, mesh_ce_job, mesh_grad_job,
+                                mesh_loss_job, mesh_restore_job,
+                                mesh_step_job, mesh_train_errors_job,
+                                mesh_train_job, train_cli_job)
 from torch_model_helpers import F32, configs, npt
 from torch_train_helpers import by_path
 
@@ -128,6 +129,32 @@ def test_logits_on_a_rank_rows_and_one_global_loss(pool, arch, kw, B, rows):
         np.testing.assert_allclose(got, logits[lo:hi], **F32)
         assert bits == results[0][3]
         np.testing.assert_allclose(got_loss, float(loss), **F32)
+
+
+@pytest.mark.parametrize("V", [256, 250], ids=["vocab-split",
+                                             "vocab-whole"])
+def test_vocab_parallel_loss_equals_the_reference(pool, V):
+    """The loss over a rank's slice of the vocabulary (``model`` 4 divides
+    256: its largest logit and sum of exponentials over ``model``, each
+    label's logit from its owner) and over the whole vocabulary where
+    ``model`` does not divide it (250), each rank its rows over
+    ``data``: the global mean, z-loss included, the same bits on every
+    rank, within F32 of the reference's ``cross_entropy``; and the
+    gradient of each rank's logits the reference's there (whole rows:
+    each rank along ``model`` holds a quarter of it)."""
+    r = np.random.default_rng(5)
+    logits = (4 * r.normal(size=(4, 8, V))).astype(np.float32)
+    labels = r.integers(0, V, size=(4, 8))
+    loss, grad = jax.value_and_grad(lambda x: jcross_entropy(
+        x, jnp.asarray(labels, jnp.int32)))(jnp.asarray(logits))
+    grad = np.asarray(grad)
+    results = pool.run(mesh_ce_job, logits, labels, V % 4 == 0)
+    share = 1 if V % 4 == 0 else 4
+    assert len({r[1] for r in results}) == (4 if V % 4 == 0 else 1)
+    for (lo, hi), (a, b), got, bits, g in results:
+        assert bits == results[0][3]
+        np.testing.assert_allclose(got, float(loss), **F32)
+        np.testing.assert_allclose(share * g, grad[lo:hi, :, a:b], **F32)
 
 
 @pytest.mark.parametrize("arch,kw,B,S", [

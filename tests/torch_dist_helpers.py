@@ -652,6 +652,75 @@ def mesh_loss_job(arch, cfg_kw, tree, batch):
             int(loss.reshape(1).view(torch.int32)))
 
 
+def mesh_ce_job(logits, labels, split):
+    """The mean token loss (z-loss included) of float32 ``logits`` (B, S,
+    V) against ``labels`` on the (2, 4) mesh, each rank holding its rows
+    and, with ``split``, its slice of the vocabulary (the loss reckoned
+    over the slices), else every word; and the gradient of the logits it
+    holds, each rank backpropagating one over ``model`` of the loss, as
+    ``loss_and_grads`` does: (its rows, its words, the loss, its float32
+    bits, the gradient)."""
+    import torch
+    from repro_torch.dist.sharding import (local_rows, mesh_coord,
+                                           mesh_sizes, sum_over)
+    from repro_torch.models.layers import cross_entropy_sum
+    mesh = model_mesh()
+    B, _, V = logits.shape
+    rows = local_rows(B, mesh)
+    m = mesh_sizes(mesh)["model"]
+    words = slice(0, V)
+    if split:
+        words = slice(mesh_coord(mesh)["model"] * (V // m),
+                      (mesh_coord(mesh)["model"] + 1) * (V // m))
+    x = torch.from_numpy(logits[rows, :, words]).requires_grad_(True)
+    part = cross_entropy_sum(
+        x, torch.from_numpy(labels[rows]).long(), mesh=mesh,
+        vocab_lo=words.start if split else None) / labels.size
+    loss = sum_over(part, mesh, ("data",))
+    loss.backward(torch.full_like(loss, 1.0 / m))
+    return ((rows.start, rows.stop), (words.start, words.stop),
+            float(loss), int(loss.detach().reshape(1).view(torch.int32)),
+            x.grad.numpy())
+
+
+def mesh_rest_vs_whole_job(arch, tree, feed):
+    """The float32 smoke config of ``arch`` on the (2, 4) mesh from the
+    reference's weights ``tree``, sharded at rest and whole, on ``feed``
+    (numpy: the whole batch's tokens or frame embeddings, and labels for
+    audio): ``forward``'s logits, ``loss_fn`` and two decode steps' logits
+    of each, as numpy arrays: (this rank's rows, at rest, whole)."""
+    import torch
+    from repro_torch.dist.sharding import local_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+    cfg = smoke_cfg(arch, "float32")
+    mesh = model_mesh()
+    key = "embeds" if "embeds" in feed else "tokens"
+    x = torch.from_numpy(feed[key])
+    x = x.long() if key == "tokens" else x
+    labels = torch.from_numpy(feed["labels"]).long() if "labels" in feed \
+        else torch.roll(x, 1, dims=1)
+    B = x.shape[0]
+    out = []
+    for at_rest in (mesh, None):
+        model = params_from_jax(cfg, tree, device="cpu", mesh=at_rest)
+        got = []
+        with torch.no_grad():
+            got.append(_f32(T.forward(model, {key: x}, cfg, mesh,
+                                      ("data",))[0]))
+            got.append(_f32(T.loss_fn(model, {key: x, "labels": labels},
+                                      cfg, mesh, ("data",))))
+            st = T.init_decode_state(cfg, B, 4, torch.float32, device="cpu",
+                                     mesh=mesh)
+            for t in range(2):
+                lg, st = T.decode_step(model, st, {key: x[:, t:t + 1]}, cfg,
+                                       mesh, ("data",))
+                got.append(_f32(lg))
+        out.append(got)
+    rows = local_rows(B, mesh)
+    return (rows.start, rows.stop), out[0], out[1]
+
+
 def mesh_step_job(arch, state_tree, batch, step_kw, ckpt_dir=None):
     """One ``make_train_step`` on the (2, 4) mesh from the reference's
     float32 ``TrainState`` (leaves as numpy): this rank's slices of every
