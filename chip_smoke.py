@@ -241,9 +241,12 @@ Phases, each fatal on failure (no phase catches its own error):
    model 2) ``DeviceMesh``, every weight sharded at rest as
    ``make_shardings`` places it, the attention and the head multiplying
    their slices in place (the partial products summed over ``model``),
-   the norms, the MoE layers and granite's tied embedding (49 155 words,
-   which 2 does not divide) gathered whole over ``model`` at their
-   block; each part counts the bytes a rank sends and receives a step at
+   the MoE layer on a rank's rows with its experts where the
+   reference's layouts hold them (``moe_local`` in decode: the slices in
+   place; the expert-parallel dispatch: the rank's experts, re-cut by one
+   all-to-all), the norms, the MoE routers and granite's tied embedding
+   (49 155 words, which 2 does not divide) gathered whole over ``model``
+   at their block; each part counts the bytes a rank sends and receives a step at
    the port's transport seam (``core.comm.count_wire``) and holds them
    equal to the dry-run's reckoning for that rank (``launch/dryrun.py``
    on the meta device, printed beside them): (a) ``serve`` of
@@ -281,8 +284,10 @@ Phases, each fatal on failure (no phase catches its own error):
    four gloo ranks sharing the card on a (data 2, model 2) mesh, weights
    and optimizer state sharded at rest as ``make_shardings`` places them,
    the attention, the dense MLP and the head multiplying their slices in
-   place, gradients through the sums' all-reduces, the gathers'
-   reduce-scatters and the expert-parallel dispatch; each part's bytes a
+   place, the MoE layer on a rank's rows with the rank's experts,
+   gradients through the sums' all-reduces, the gathers'
+   reduce-scatters, the experts' re-cuts and the expert-parallel
+   dispatch; each part's bytes a
    step on every rank equal to the dry-run's reckoning, as in 21: (a)
    ``train`` of granite-moe-1b-a400m at full
    width and 2 of its 24 layers (bf16, remat ``full``, AdamW, batch 4 ×
@@ -4452,8 +4457,9 @@ def mesh_serve_job(torch, np, mesh, dev, smoke):
         T.init_decode_state, T.gather_model = init_state, gather_model
     wall = time.perf_counter() - t0
     # the weights a step gathers at use (the other model ranks' slices
-    # come in): the norms, the MoE layers' and the tied embedding, whose
-    # 49 155 words model 2 does not divide; attention is split in place
+    # come in): the norms, the MoE routers and the tied embedding, whose
+    # 49 155 words model 2 does not divide; attention and the experts
+    # multiply in place
     out = {"wall_s": wall, "tokens": toks,
            "weight_bytes_received_per_step": held["gathered"],
            "wire": held["wire"],

@@ -734,14 +734,30 @@ def recut(t: torch.Tensor, mesh, src: int, dst: int,
     ``dst``: each rank sends the others their blocks of ``dst``, one
     all-to-all.  It only moves bytes, and its backward is the inverse
     move."""
+    return recut_many([t], mesh, [src], [dst], axis)[0]
+
+
+def recut_many(ts: Sequence[torch.Tensor], mesh, srcs: Sequence[int],
+               dsts: Sequence[int], axis: str = "model"
+               ) -> List[torch.Tensor]:
+    """:func:`recut` of each of ``ts`` from its dimension in ``srcs`` to
+    its dimension in ``dsts``: each rank sends the others their blocks of
+    the new dimension, all of them in one all-to-all of their bytes (each
+    rank's block of each padded to 16 bytes).  Its backward is the
+    inverse move, in one all-to-all too."""
     from repro_torch.core import comm
     n = mesh_sizes(mesh).get(axis, 1)
-    if n == 1:
-        return t
+    if n == 1 or not ts:
+        return list(ts)
 
-    def move(x, a, b):
-        parts = x.unflatten(b, (n, x.shape[b] // n)).movedim(b, 0)
-        got = _exchange(parts, mesh, axis)
-        return got.movedim(0, a).flatten(a, a + 1)
-    return comm.collective(lambda xs: (move(xs[0], src, dst),),
-                           lambda gs: (move(gs[0], dst, src),), t)[0]
+    def move(xs, froms, tos):
+        parts = [x.unflatten(b, (n, x.shape[b] // n)).movedim(b, 0)
+                 for x, b in zip(xs, tos)]
+        buf, at = _packed([p.reshape(n, -1) for p in parts], n)
+        got = _exchange(buf, mesh, axis)
+        del buf
+        return tuple(got[:, off:off + nb].view(p.dtype).reshape(
+            p.shape).movedim(0, a).flatten(a, a + 1)
+            for p, (off, nb), a in zip(parts, at, froms))
+    return list(comm.collective(lambda xs: move(xs, srcs, dsts),
+                                lambda gs: move(gs, dsts, srcs), *ts))

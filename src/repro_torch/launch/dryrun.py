@@ -39,10 +39,13 @@ the loss and the decode state: the logits and the token losses of its
 rows, the cache split over ``model``.  It splits the products of the
 attention, the dense MLP and the head over ``model`` as GSPMD does, with
 the weights where ``make_shardings`` puts them, and sums the partial
-products over ``model``.  The MoE layer still takes the whole batch's
-rows with its experts gathered, and rwkv6's and mamba2's blocks run on
-a rank's rows with theirs, as on one device (ROADMAP queue 1);
-``useful_flops_ratio`` shows the redundancy that remains.
+products over ``model``.  The MoE layer takes a rank's rows with its
+experts where the reference's layouts hold them (the expert-parallel
+dispatch the rank's experts, re-cut from where ``make_shardings`` puts
+them; ``moe_local`` the slices in place).  rwkv6's and mamba2's blocks
+run on a rank's rows with their weights gathered, as on one device
+(ROADMAP queue 1); ``useful_flops_ratio`` shows the redundancy that
+remains.
 """
 from __future__ import annotations
 

@@ -344,7 +344,8 @@ def decode_attention(x: torch.Tensor, p, cfg, cache: KVCache, mesh=None):
         out = torch.einsum("bhqk,bkhd->bqhd", pr, vv)
         if split == 2 and not heads:
             out = gather_blocks(out, mesh, ("model",), dim=2)
-    out = _out(out.reshape(B, 1, q.shape[2] * hd), p, sp, heads)
+    # the heads ``out`` holds: the rank's with ``p.tp``, else every one
+    out = _out(out.reshape(B, 1, out.shape[2] * hd), p, sp, heads)
     return out, cache._replace(pos=abs_pos + 1)
 
 

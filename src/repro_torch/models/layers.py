@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,11 +71,17 @@ class Split:
     """How a part's weights lie over ``model`` on a mesh: its size ``m``,
     this rank's index ``r`` along it, and for each weight split there the
     dimension of the layer's weight that ``make_shardings`` splits
-    (``dims``; a weight not in it is whole on every rank)."""
+    (``dims``; a weight not in it is whole on every rank).  ``take``,
+    where a layer needs its weights split otherwise than they lie (the
+    MoE experts), gives this rank's slices split as asked: ``take({name:
+    dim})`` → ``{name: slice}``, a dimension of None for the whole
+    weight."""
     mesh: object
     m: int
     r: int
     dims: Dict[str, int]
+    take: Optional[Callable[[Dict[str, Optional[int]]],
+                            Dict[str, torch.Tensor]]] = None
 
     def block(self, n: int) -> slice:
         """This rank's block of a dimension of ``n`` cut into ``m``."""
@@ -94,7 +100,9 @@ def tp_project(x: torch.Tensor, sp: Split,
     reduce-scattered onto the blocks, or summed, over ``model``, the
     products of one kind in one collective; a whole weight multiplies
     its block of columns.  Columns split for the whole product are
-    gathered."""
+    gathered.  A stack of weights (…, K, N) multiplies a stack of
+    activations batched (the MoE experts' buffers), ``name``'s
+    dimension then that of one matrix of the stack."""
     from repro_torch.dist.sharding import (gather_blocks, scatter_partials,
                                            sum_partials)
     out: List[Optional[torch.Tensor]] = [None] * len(specs)
@@ -108,7 +116,7 @@ def tp_project(x: torch.Tensor, sp: Split,
         elif dim == 0:
             pending[split].append((i, x[..., sp.block(x.shape[-1])] @ w))
         else:
-            out[i] = x @ (w[:, sp.block(w.shape[1])] if split else w)
+            out[i] = x @ (w[..., sp.block(w.shape[-1])] if split else w)
     if pending[True]:
         # one reduce-scatter: each product's blocks for rank j side by side
         parts = [y.unflatten(-1, (sp.m, y.shape[-1] // sp.m))
@@ -146,7 +154,7 @@ def tp_matmul(x: torch.Tensor, name: str, w: torch.Tensor, sp: Split,
     if dim == 0:
         y = (x if x_split else x[..., sp.block(x.shape[-1])]) @ w
     elif x_split:
-        y = x @ w[sp.block(w.shape[0])]
+        y = x @ w[..., sp.block(w.shape[-2]), :]
     else:
         return x @ w
     return sum_partials(y, sp.mesh)

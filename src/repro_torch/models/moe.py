@@ -18,7 +18,18 @@ the reference.  Layouts:
   * ``moe_ep_shardmap`` / ``moe_tp_shardmap`` — the same on the ranks of
     a ``DeviceMesh`` with ``data`` and ``model`` dimensions
     (``comm.distributed``): every rank passes the whole x, takes its
-    block, and gets y back whole, as the port's ``psort`` does.
+    block, and gets y back whole, as the port's ``psort`` does.  Each
+    cuts the rank's rows and runs its per-rank body, ``moe_ep_rows`` /
+    ``moe_tp_rows``, which the model calls on a rank's rows
+    (``moe_rows``): they return the rank's rows of y, and take the
+    experts where the reference's ``shard_map`` holds them (``P(model,
+    None, None)``; ``up``/``gate`` on f and ``down`` on its rows f) from
+    where ``make_shardings`` puts them (``layers.Split.take``: one
+    all-to-all re-cut);
+  * ``moe_local`` on a mesh (decode, or ``model`` not dividing the
+    experts or the sequence) runs on a rank's rows, its aux loss the
+    whole batch's, and multiplies the rank's slices of the experts in
+    place, as GSPMD does.
 
 Gradients pass both distributed layouts as the reference's transposes
 them: the feature payloads and combine weights go back along the
@@ -49,6 +60,8 @@ from torch import nn
 from repro_torch.core import comm
 from repro_torch.core.hypercube import _alltoall_route
 from repro_torch.core.types import SortShard, along_rows
+from repro_torch.dist.sharding import (gather_blocks, mesh_sizes, shard_act,
+                                       sum_partials)
 
 from .layers import normal
 
@@ -70,10 +83,15 @@ class MoE(nn.Module):
         self.down = normal(gen, (n_experts, f, d), dtype, s_out, device)
 
 
-def _router(x, w, top_k: int):
+def _router(x, w, top_k: int, mesh=None, rows=()):
     """x: (..., D) → (probs (..., k) f32, ids (..., k) int64, aux loss).
     A stable descending sort picks the top k: equal probabilities go to
-    the lower expert, as ``jax.lax.top_k`` orders them."""
+    the lower expert, as ``jax.lax.top_k`` orders them.  ``x`` a rank's
+    rows of a batch split over ``rows`` on ``mesh``: the aux loss is the
+    whole batch's, its mean probabilities and routed fractions the
+    rank's sums added up over ``rows`` in rank order (one float32
+    all-reduce an axis; backward the same all-reduce) over the global
+    counts of tokens and of routed items."""
     logits = x.float() @ w
     probs = torch.softmax(logits, dim=-1)
     srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -81,9 +99,19 @@ def _router(x, w, top_k: int):
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     # load-balancing aux loss (Switch): E · Σ_e f_e · p_e
     E = w.shape[1]
-    me = probs.reshape(-1, E).mean(dim=0)
-    fr = (top_i[..., None] == torch.arange(E, device=x.device)).reshape(
-        -1, E).float().mean(dim=0)
+    hits = (top_i[..., None] == torch.arange(E, device=x.device)).reshape(
+        -1, E).float()
+    if not rows:
+        me = probs.reshape(-1, E).mean(dim=0)
+        fr = hits.mean(dim=0)
+    else:
+        sums = torch.cat([probs.reshape(-1, E).sum(dim=0), hits.sum(dim=0)])
+        for a in rows:
+            sums = sum_partials(sums, mesh, a)
+        tokens = probs[..., 0].numel() * math.prod(
+            mesh_sizes(mesh)[a] for a in rows)
+        me, fr = sums.split(E)
+        me, fr = me / tokens, fr / (tokens * top_k)
     aux = E * (me * fr).sum()
     return top_p, top_i, aux
 
@@ -106,11 +134,60 @@ def _group_by_expert(eids, n_experts: int, capacity: int):
     return slot, slot < capacity
 
 
-def moe_local(x, p, cfg, *, capacity_factor: float = 2.0):
-    """Group locally per batch row, run every expert on its buffer."""
+def _experts(p, want, m: int = 1, r: int = 0):
+    """The experts ``up``/``gate``/``down`` that ``want`` names, each as
+    this rank's slice split on the dimension it gives over ``m`` ranks
+    (``r`` this rank's index), or whole (None): from ``p.tp.take`` where
+    the part holds them where ``make_shardings`` puts them, else cut from
+    the whole weights."""
+    sp = getattr(p, "tp", None)
+    if sp is not None and sp.take is not None:
+        return sp.take(want)
+    out = {}
+    for n, dim in want.items():
+        w = getattr(p, n)
+        out[n] = w if dim is None else w.narrow(dim, r * (
+            w.shape[dim] // m), w.shape[dim] // m)
+    return out
+
+
+def _expert_ffn_split(buf, sp, f: int):
+    """:func:`_expert_ffn` of ``buf`` (E, C, D), the same on every rank
+    along ``model``, on this rank's slices of the experts of hidden width
+    ``f`` where ``make_shardings`` puts them (``sp``, the part's
+    ``Split``), as ``layers.mlp`` multiplies a dense MLP's: a weight
+    split on its input dimension multiplies the rank's slice of the
+    buffer, and the partial products are summed over ``model`` (onto the
+    hidden width's blocks where ``model`` divides it); one split on its
+    output dimension gives its block of columns, gathered where the next
+    product needs it whole.  Experts split on E, or whole, are re-cut to
+    blocks of the hidden width (gathered whole where ``model`` does not
+    divide it)."""
+    from .layers import Split, tp_matmul, tp_project
+    dims = {n: sp.dims.get(n) for n in ("up", "gate", "down")}
+    if not all(d in (1, 2) for d in dims.values()):
+        if f % sp.m:
+            w = sp.take(dict.fromkeys(dims))
+            return _expert_ffn(buf, w["up"], w["gate"], w["down"])
+        dims = {"up": 2, "gate": 2, "down": 1}
+    w = sp.take(dims)
+    mat = Split(sp.mesh, sp.m, sp.r, {n: d - 1 for n, d in dims.items()})
+    split = f % sp.m == 0
+    h, g = tp_project(buf, mat, [(n, w[n], split) for n in ("up", "gate")])
+    return tp_matmul(F.silu(g) * h, "down", w["down"], mat, split)
+
+
+def moe_local(x, p, cfg, *, capacity_factor: float = 2.0, mesh=None,
+              rows=()):
+    """Group locally per batch row, run every expert on its buffer.  The
+    grouping and the capacity are per batch row, so ``x`` may be a
+    rank's rows of a batch split over the axes ``rows`` of ``mesh``: its
+    rows of y are the whole batch's, and the aux loss is the whole
+    batch's (:func:`_router`).  With ``p.tp`` the experts are this
+    rank's slices and multiply in place (:func:`_expert_ffn_split`)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    w, ids, aux = _router(x, p.router, k)              # (B, S, k)
+    w, ids, aux = _router(x, p.router, k, mesh, rows)  # (B, S, k)
     N = S * k
     cap = int(capacity_factor * N / E) + 1
     ids2 = ids.reshape(B, N)
@@ -121,8 +198,10 @@ def moe_local(x, p, cfg, *, capacity_factor: float = 2.0):
     buf = x.new_zeros((B, E * cap + 1, D)).scatter_(
         1, along_rows(flat, xrep), xrep)
     buf = buf[:, :-1].reshape(B, E, cap, D)
-    out = _expert_ffn(buf.transpose(0, 1).reshape(E, B * cap, D),
-                      p.up, p.gate, p.down)
+    buf = buf.transpose(0, 1).reshape(E, B * cap, D)
+    sp = getattr(p, "tp", None)
+    out = _expert_ffn(buf, p.up, p.gate, p.down) if sp is None else \
+        _expert_ffn_split(buf, sp, cfg.d_ff)
     out = out.reshape(E, B, cap, D).transpose(0, 1).reshape(B, E * cap, D)
     gathered = torch.gather(out, 1, along_rows(flat.clamp(max=E * cap - 1),
                                                out))
@@ -131,29 +210,32 @@ def moe_local(x, p, cfg, *, capacity_factor: float = 2.0):
     return y, aux
 
 
-def moe_dense(x, p, cfg):
+def moe_dense(x, p, cfg, *, mesh=None, rows=()):
     """Dense one-hot dispatch baseline: every expert on every token, a
-    masked combine — simple, robust, E× the FLOPs."""
+    masked combine — simple, robust, E× the FLOPs.  ``x`` may be a rank's
+    rows, as :func:`moe_local`'s; the experts are taken whole."""
     E, k = cfg.n_experts, cfg.top_k
-    w, ids, aux = _router(x, p.router, k)
+    w, ids, aux = _router(x, p.router, k, mesh, rows)
     onehot = F.one_hot(ids, E).float()                          # (B,S,k,E)
     cw = (onehot * w[..., None]).sum(dim=2)                     # (B,S,E)
-    h = torch.einsum("bsd,edf->bsef", x, p.up)
-    g = torch.einsum("bsd,edf->bsef", x, p.gate)
+    ex = _experts(p, dict.fromkeys(("up", "gate", "down")))
+    h = torch.einsum("bsd,edf->bsef", x, ex["up"])
+    g = torch.einsum("bsd,edf->bsef", x, ex["gate"])
     h = F.silu(g) * h
-    y = torch.einsum("bsef,efd->bsed", h, p.down)
+    y = torch.einsum("bsef,efd->bsed", h, ex["down"])
     y = (y * cw[..., None].to(x.dtype)).sum(dim=2)
     return y, aux
 
 
-def _ep_dispatch(x_blk, p, cfg, ep: int, capacity_factor: float,
-                 slot_factor: float):
+def _ep_dispatch(x_blk, router, experts, cfg, ep: int,
+                 capacity_factor: float, slot_factor: float):
     """The expert-parallel dispatch of every PE held here (the reference's
     ``_ep_dispatch_body``): x_blk (P, B, S_loc, D), PE r's model-axis
     index from ``comm.axis_index``; PE r holds the experts ``[i·e_per,
-    (i+1)·e_per)`` of its index i.  Every collective runs on the sort
-    axis of the open scope: the ep PEs of one data row.  Returns (y (P,
-    B, S_loc, D), aux (P,), drops (P,))."""
+    (i+1)·e_per)`` of its index i, ``experts(i)`` (up, gate, down).
+    Every collective runs on the sort axis of the open scope: the ep PEs
+    of one data row.  Returns (y (P, B, S_loc, D), aux (P,), drops
+    (P,))."""
     E, k = cfg.n_experts, cfg.top_k
     e_per = E // ep
     P, B, S_loc, D = x_blk.shape
@@ -162,7 +244,7 @@ def _ep_dispatch(x_blk, p, cfg, ep: int, capacity_factor: float,
     me_host = comm.axis_index(ep).tolist()              # no device read
     me = torch.as_tensor(me_host, device=dev)
     xt = x_blk.reshape(P, T, D)
-    routed = [_router(xt[r], p.router, k) for r in range(P)]
+    routed = [_router(xt[r], router, k) for r in range(P)]
     w = torch.stack([a[0] for a in routed])             # (P, T, k)
     ids = torch.stack([a[1] for a in routed])
     aux = torch.stack([a[2] for a in routed])
@@ -192,10 +274,7 @@ def _ep_dispatch(x_blk, p, cfg, ep: int, capacity_factor: float,
     buf = feat.new_zeros((P, e_per * cap_e + 1, D)).scatter_(
         1, along_rows(flat, feat), feat)
     buf = buf[:, :-1].reshape(P, e_per, cap_e, D)
-    up = p.up.reshape((ep, e_per) + tuple(p.up.shape[1:]))
-    gate = p.gate.reshape((ep, e_per) + tuple(p.gate.shape[1:]))
-    down = p.down.reshape((ep, e_per) + tuple(p.down.shape[1:]))
-    out = torch.stack([_expert_ffn(buf[r], up[i], gate[i], down[i])
+    out = torch.stack([_expert_ffn(buf[r], *experts(i))
                        for r, i in enumerate(me_host)])
     del buf
     out = out.reshape(P, e_per * cap_e, D)
@@ -258,9 +337,12 @@ def _ep_sim(x, p, cfg, d: int, ep: int, capacity_factor: float,
     # over expert-parallel blocks, PE i of data row r at row r·ep + i
     xb = x.reshape(d, B // d, ep, S // ep, D).movedim(2, 1)
     xb = xb.reshape(d * ep, B // d, S // ep, D)
+    e_per = cfg.n_experts // ep
+    ws = [w.reshape((ep, e_per) + tuple(w.shape[1:]))
+          for w in (p.up, p.gate, p.down)]
     with comm.batched(d):
-        y, aux, drops = _ep_dispatch(xb, p, cfg, ep, capacity_factor,
-                                     slot_factor)
+        y, aux, drops = _ep_dispatch(xb, p.router, lambda i: tuple(
+            w[i] for w in ws), cfg, ep, capacity_factor, slot_factor)
     y = y.reshape(d, ep, B // d, S // ep, D).movedim(1, 2).reshape(B, S, D)
     return y, aux, drops
 
@@ -279,7 +361,6 @@ def moe_ep_sim(x, p, cfg, *, d: int = 1, ep: Optional[int] = None,
 def _mesh_block(mesh, data_axes, model_axis: str):
     """(d, ep, this rank's data index, its model index) of a mesh whose
     batch splits over ``data_axes`` (the first major)."""
-    from repro_torch.dist.sharding import mesh_sizes
     sizes = mesh_sizes(mesh)
     names = list(mesh.mesh_dim_names)
     coord = mesh.get_coordinate()
@@ -296,7 +377,6 @@ def _gather_whole(t, mesh, axes):
     """Every rank's block ``t`` over ``axes`` (the first varying fastest),
     concatenated: the whole result on every rank (its backward a
     reduce-scatter, ``dist.sharding.gather_blocks``)."""
-    from repro_torch.dist.sharding import gather_blocks
     return gather_blocks(t.reshape(-1), mesh, tuple(axes)[::-1])
 
 
@@ -310,72 +390,158 @@ def _row0_mean(aux):
     return aux[0].mean().detach() + (spread - spread.detach())
 
 
+def _axes(axes) -> tuple:
+    return tuple([axes] if isinstance(axes, str) else axes)
+
+
+def moe_ep_rows(x, p, cfg, mesh, *, data_axes, model_axis="model",
+                capacity_factor: float = 2.0, slot_factor: float = 2.0):
+    """The EP dispatch of this rank's rows: ``x`` (B/d, S, D), the rank's
+    block of the batch over ``data_axes`` (the first major), the same on
+    the ranks of its ``model_axis`` slice.  The rank takes its block of
+    the sequence and the experts of its model index (``p.tp.take`` where
+    they lie where ``make_shardings`` puts them, else cut from the whole
+    weights), exchanges items with the ranks of its model-axis slice, and
+    gets its rows of y back, the sequence blocks gathered over
+    ``model_axis``.  aux as :func:`moe_ep_shardmap`'s."""
+    data_axes = _axes(data_axes)
+    d, ep, di, mi = _mesh_block(mesh, data_axes, model_axis)
+    b, S, D = x.shape
+    if S % ep or cfg.n_experts % ep:
+        raise ValueError(f"S={S} E={cfg.n_experts} not divisible by "
+                         f"ep={ep}")
+    mine = _experts(p, {"up": 0, "gate": 0, "down": 0}, ep, mi)
+    mine = (mine["up"], mine["gate"], mine["down"])
+    x_blk = x.reshape(b, ep, S // ep, D)[:, mi][None]
+    with comm.distributed(mesh, axis=model_axis):
+        y, aux, _ = _ep_dispatch(x_blk, p.router, lambda i: mine, cfg, ep,
+                                 capacity_factor, slot_factor)
+    y = gather_blocks(y[0], mesh, (model_axis,), dim=1)
+    aux = _gather_whole(aux, mesh, (model_axis,) + data_axes[::-1])
+    return y, _row0_mean(aux.reshape(d, ep))
+
+
+def _rows_of(x, d: int, di: int):
+    """Block ``di`` of the whole batch ``x`` cut into ``d``."""
+    return x.reshape((d, x.shape[0] // d) + tuple(x.shape[1:]))[di]
+
+
 def moe_ep_shardmap(x, p, cfg, mesh, *, data_axes, model_axis="model",
                     capacity_factor: float = 2.0, slot_factor: float = 2.0):
-    """EP dispatch on the ranks of ``mesh`` (a ``DeviceMesh``), SPMD: each
-    rank takes its block of x (batch over ``data_axes``, sequence over
-    ``model_axis``) and the experts of its model index, exchanges items
-    with the ranks of its model-axis slice, and returns the whole y.  Bit
-    for bit :func:`moe_ep_sim` at the mesh's (d, ep).  aux is the mean
-    over the model axis of data row 0 (the reference's ``out_specs
-    P(model_axis)`` reads one data slice)."""
-    data_axes = tuple([data_axes] if isinstance(data_axes, str)
-                      else data_axes)
-    d, ep, di, mi = _mesh_block(mesh, data_axes, model_axis)
-    B, S, D = _ep_layout(x, cfg, d, ep)
-    x_blk = x.reshape(d, B // d, ep, S // ep, D)[di, :, mi][None]
-    with comm.distributed(mesh, axis=model_axis):
-        y, aux, _ = _ep_dispatch(x_blk, p, cfg, ep, capacity_factor,
-                                 slot_factor)
-    axes = (model_axis,) + data_axes[::-1]
-    y = _gather_whole(y, mesh, axes).reshape(d, ep, B // d, S // ep, D)
-    aux = _gather_whole(aux, mesh, axes).reshape(d, ep)
-    return y.movedim(1, 2).reshape(B, S, D), _row0_mean(aux)
+    """EP dispatch on the ranks of ``mesh`` (a ``DeviceMesh``), SPMD: every
+    rank passes the whole x and gets the whole y.  Each takes its block
+    of x (batch over ``data_axes``, sequence over ``model_axis``) and
+    the experts of its model index, exchanges items with the ranks of
+    its model-axis slice (:func:`moe_ep_rows`), and the rows are gathered
+    over ``data_axes``.  Bit for bit :func:`moe_ep_sim` at the mesh's
+    (d, ep).  aux is the mean over the model axis of data row 0 (the
+    reference's ``out_specs P(model_axis)`` reads one data slice)."""
+    data_axes = _axes(data_axes)
+    d, ep, di, _ = _mesh_block(mesh, data_axes, model_axis)
+    _ep_layout(x, cfg, d, ep)
+    y, aux = moe_ep_rows(_rows_of(x, d, di), p, cfg, mesh,
+                         data_axes=data_axes, model_axis=model_axis,
+                         capacity_factor=capacity_factor,
+                         slot_factor=slot_factor)
+    return gather_blocks(y, mesh, data_axes), aux
+
+
+def moe_tp_rows(x, p, cfg, mesh, *, data_axes,
+                capacity_factor: float = 2.0):
+    """The TP layout on this rank's rows ``x`` (B/d, S, D) over
+    ``data_axes``: the experts replicated with the FFN hidden width split
+    over ``model`` (``up``/``gate`` on their columns, ``down`` on its
+    rows: ``p.tp.take`` where they lie where ``make_shardings`` puts
+    them, else cut from the whole weights); the rank groups its rows
+    locally, runs its slice of every expert, and the model axis sums the
+    combined tokens (``comm.psum``, in rank order).  aux as
+    :func:`moe_ep_shardmap`'s."""
+    from types import SimpleNamespace
+    data_axes = _axes(data_axes)
+    d, m, _, mi = _mesh_block(mesh, data_axes, "model")
+    if cfg.d_ff % m:
+        raise ValueError(f"d_ff={cfg.d_ff} not divisible by model={m}")
+    part = SimpleNamespace(router=p.router, **_experts(
+        p, {"up": 2, "gate": 2, "down": 1}, m, mi))
+    y, aux = moe_local(x, part, cfg, capacity_factor=capacity_factor)
+    with comm.distributed(mesh, axis="model"):
+        y = comm.psum(y[None])[0]
+    aux = _gather_whole(aux.reshape(1), mesh, ("model",) + data_axes[::-1])
+    return y, _row0_mean(aux.reshape(d, m))
 
 
 def moe_tp_shardmap(x, p, cfg, mesh, *, data_axes,
                     capacity_factor: float = 2.0):
     """TP layout: experts replicated with the FFN hidden dim split over
-    the ``model`` axis; each rank groups its data block locally, runs its
-    slice of every expert and the model axis sums the combined tokens
-    (B, S, D) (``comm.psum``, in rank order).  Returns the whole y on
-    every rank, and aux as :func:`moe_ep_shardmap` does."""
-    from types import SimpleNamespace
-    data_axes = tuple([data_axes] if isinstance(data_axes, str)
-                      else data_axes)
-    d, m, di, mi = _mesh_block(mesh, data_axes, "model")
-    B, S, D = x.shape
-    f = cfg.d_ff // m
-    if B % d or cfg.d_ff % m:
-        raise ValueError(f"B={B} d_ff={cfg.d_ff} not divisible by "
-                         f"(d={d}, model={m})")
-    cols = slice(mi * f, (mi + 1) * f)
-    part = SimpleNamespace(router=p.router, up=p.up[:, :, cols],
-                           gate=p.gate[:, :, cols], down=p.down[:, cols])
-    y, aux = moe_local(x.reshape(d, B // d, S, D)[di], part, cfg,
-                       capacity_factor=capacity_factor)
-    with comm.distributed(mesh, axis="model"):
-        y = comm.psum(y[None])[0]
-    axes = ("model",) + data_axes[::-1]
-    y = _gather_whole(y, mesh, data_axes[::-1]).reshape(B, S, D)
-    aux = _gather_whole(aux.reshape(1), mesh, axes).reshape(d, m)
-    return y, _row0_mean(aux)
+    the ``model`` axis; every rank passes the whole x, runs its rows
+    (:func:`moe_tp_rows`), and gets the whole y back, gathered over
+    ``data_axes``; aux as :func:`moe_ep_shardmap` does."""
+    data_axes = _axes(data_axes)
+    d, m, di, _ = _mesh_block(mesh, data_axes, "model")
+    if x.shape[0] % d or cfg.d_ff % m:
+        raise ValueError(f"B={x.shape[0]} d_ff={cfg.d_ff} not divisible "
+                         f"by (d={d}, model={m})")
+    y, aux = moe_tp_rows(_rows_of(x, d, di), p, cfg, mesh,
+                         data_axes=data_axes,
+                         capacity_factor=capacity_factor)
+    return gather_blocks(y, mesh, data_axes), aux
+
+
+def _layout(impl: str, cfg, S: int, sizes) -> str:
+    """The reference's choice of layout: ``"dense"``; ``"ep"`` where
+    ``model`` divides the experts and the sequence (decode, S = 1, never);
+    ``"tp"`` under ``cfg.moe_tp_fused`` on a mesh; else ``"local"``."""
+    m = sizes.get("model")
+    if impl == "dense":
+        return "dense"
+    if impl == "sort" and m is not None and cfg.n_experts % m == 0 \
+            and S % m == 0:
+        return "ep"
+    if impl == "sort" and getattr(cfg, "moe_tp_fused", False) \
+            and m is not None:
+        return "tp"
+    return "local"
 
 
 def moe_apply(x, p, cfg, mesh=None, *, data_axes=("data",),
               impl: Optional[str] = None):
-    impl = impl or cfg.moe_impl
-    if impl == "dense":
-        return moe_dense(x, p, cfg)
-    sizes = {}
-    if mesh is not None:
-        from repro_torch.dist.sharding import mesh_sizes
-        sizes = mesh_sizes(mesh)
-    if (impl == "sort" and "model" in sizes
-            and cfg.n_experts % sizes["model"] == 0
-            and x.shape[1] % sizes["model"] == 0):   # decode: S=1 →
+    """The MoE layer on the whole batch ``x`` (every rank passes it on a
+    mesh, and gets the whole y)."""
+    sizes = mesh_sizes(mesh) if mesh is not None else {}
+    layout = _layout(impl or cfg.moe_impl, cfg, x.shape[1], sizes)
+    if layout == "ep":
         return moe_ep_shardmap(x, p, cfg, mesh, data_axes=data_axes)
-    if (impl == "sort" and getattr(cfg, "moe_tp_fused", False)
-            and "model" in sizes):
+    if layout == "tp":
         return moe_tp_shardmap(x, p, cfg, mesh, data_axes=data_axes)
+    if layout == "dense":
+        return moe_dense(x, p, cfg)
     return moe_local(x, p, cfg)                          # local grouping
+
+
+def moe_rows(x, p, cfg, mesh, *, data_axes=("data",), rows=(),
+             impl: Optional[str] = None):
+    """:func:`moe_apply` on this rank's rows ``x`` of a batch split over
+    the axes ``rows`` of ``mesh`` (``dist.sharding.shard_act``'s): this
+    rank's rows of y, and aux.  The rows over ``data_axes`` go to the
+    layout's body as they are (:func:`moe_ep_rows`, :func:`moe_tp_rows`,
+    :func:`moe_local`); under ``ddp`` (rows over ``data_axes`` and
+    ``model``) the ranks along ``model`` put their data block together
+    for the EP and TP bodies, and keep their own rows of y; any other
+    split of the rows goes whole through :func:`moe_apply`."""
+    data_axes, rows = _axes(data_axes), tuple(rows)
+    layout = _layout(impl or cfg.moe_impl, cfg, x.shape[1],
+                     mesh_sizes(mesh))
+    if layout == "dense":
+        return moe_dense(x, p, cfg, mesh=mesh, rows=rows)
+    if layout == "local":
+        return moe_local(x, p, cfg, mesh=mesh, rows=rows)
+    body = moe_ep_rows if layout == "ep" else moe_tp_rows
+    if rows == data_axes:
+        return body(x, p, cfg, mesh, data_axes=data_axes)
+    if rows == data_axes + ("model",):
+        y, aux = body(gather_blocks(x, mesh, ("model",)), p, cfg, mesh,
+                      data_axes=data_axes)
+        return shard_act(y, mesh, axes=("model",)), aux
+    y, aux = moe_apply(gather_blocks(x, mesh, rows), p, cfg, mesh,
+                       data_axes=data_axes, impl=impl)
+    return shard_act(y, mesh, axes=rows), aux

@@ -33,21 +33,26 @@ up its slice of ``d`` and gathers the rows' vectors.  ``forward`` and
 ``decode_step`` gather the logits over ``model`` once, at the end;
 ``loss_fn`` never holds the whole vocabulary.  The residual stream is a
 rank's rows, whole over ``d``, the same bits on every rank along
-``model``.  What stays gathered at use, one block at a time and in one
-transfer (``dist.sharding.gather_model``): the norms, the MoE experts
-and router, rwkv6's and mamba2's blocks, musicgen's codebook heads where
-the rule splits their ``d``, and a tied embedding whose vocabulary
-``model`` does not divide (its logits and loss then whole on every
-rank).  A model sharded at rest (``convert.shard_params``) holds each
-rank's slices; a whole model on a mesh cuts the same slices of its
-weights at use, with the same bits.  Where rows mix, the MoE layer, the
-rows are gathered and it runs on the whole batch, as the reference's
-does under jit; context-parallel attention splits the query blocks over
-``model``.  The decode state holds a rank's rows, each KV cache split
-over ``model`` by the reference's rule (``init_decode_state(...,
-mesh=)``): its KV heads when ``model`` divides them, which are then the
-heads the rank attends with, else its length, and decode attention runs
-over the rank's heads or slots (``attention.decode_attention``).
+``model``.  The MoE layer takes the rank's rows and returns them
+(``moe.moe_rows``), and its experts where each layout of the reference
+holds them (``layers.Split.take``): the expert-parallel dispatch the
+rank's ``E / model`` experts, re-cut from where ``make_shardings`` puts
+them by one all-to-all; ``moe_tp_fused`` their slices of the hidden
+width; ``moe_local`` multiplies the slices in place, its aux loss summed
+over the rows' axes.  What stays gathered at use, one block at a time
+and in one transfer (``dist.sharding.gather_model``): the norms, the MoE
+router, rwkv6's and mamba2's blocks, musicgen's codebook heads where the
+rule splits their ``d``, and a tied embedding whose vocabulary ``model``
+does not divide (its logits and loss then whole on every rank); under
+``cfg.ddp`` every weight.  A model sharded at rest
+(``convert.shard_params``) holds each rank's slices; a whole model on a
+mesh cuts the same slices of its weights at use, with the same bits.
+Context-parallel attention splits the query blocks over ``model``.  The
+decode state holds a rank's rows, each KV cache split over ``model`` by
+the reference's rule (``init_decode_state(..., mesh=)``): its KV heads
+when ``model`` divides them, which are then the heads the rank attends
+with, else its length, and decode attention runs over the rank's heads
+or slots (``attention.decode_attention``).
 
 Gradients on a mesh pass every collective as its transpose
 (``dist.sharding``).  ``loss_fn`` sums the token losses of a rank's rows
@@ -77,6 +82,7 @@ selective policy); its loss and gradients are ``"full"``'s.
 """
 from __future__ import annotations
 
+import functools
 import math
 from types import SimpleNamespace
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -89,8 +95,8 @@ from repro_torch.core.types import resolve_device
 from repro_torch.dist.sharding import (act_axes, batch_axes_of,
                                        gather_blocks, gather_model,
                                        local_rows, mesh_coord, mesh_sizes,
-                                       recut, shard_act, split_dims,
-                                       sum_over, sum_partials)
+                                       recut, recut_many, shard_act,
+                                       split_dims, sum_over, sum_partials)
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -249,14 +255,12 @@ def _inputs(top, inputs, cfg):
 
 
 def _moe(x, p, cfg, mesh, data_axes, rows):
-    """``moe_apply`` on the whole batch, back on this rank's ``rows``: its
-    capacity buffers and the distributed layouts take every row, as the
-    reference's layer does under jit."""
-    if not rows:
-        return moe_mod.moe_apply(x, p, cfg, mesh, data_axes=data_axes)
-    y, aux = moe_mod.moe_apply(gather_blocks(x, mesh, rows), p, cfg, mesh,
-                               data_axes=data_axes)
-    return shard_act(y, mesh, axes=rows), aux
+    """The MoE layer on this rank's ``rows`` (``moe.moe_rows``; no mesh:
+    ``moe_apply``)."""
+    if mesh is None:
+        return moe_mod.moe_apply(x, p, cfg)
+    return moe_mod.moe_rows(x, p, cfg, mesh, data_axes=data_axes,
+                            rows=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +269,8 @@ def _moe(x, p, cfg, mesh, data_axes, rows):
 
 # the weights a tensor-parallel block multiplies where they lie, by part
 _TP = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("up", "gate", "down")}
+# the weights a part takes where its layout needs them (``Split.take``)
+_TAKEN = {"moe": ("up", "gate", "down")}
 
 
 def _namespace(mod, values, path: str, only):
@@ -292,6 +298,8 @@ class _Held:
     weights ``_TP`` names, a V-split head and the embedding (see the
     module's docstring) are this rank's slices, and a part holding them
     carries their :class:`~repro_torch.models.layers.Split` as ``tp``;
+    the weights ``_TAKEN`` names are handed out as held, and the part's
+    ``Split.take`` gives the layer its slices split where it needs them;
     every other split weight is gathered whole over ``model`` in one
     transfer, freed when the caller drops the namespace.  A model
     sharded at rest holds the slices; a whole model's are cut from its
@@ -331,6 +339,8 @@ class _Held:
         owner, _, leaf = name.rpartition(".")
         if leaf in _TP.get(owner, ()):
             return self._slice(t, dim), owner, leaf, dim
+        if leaf in _TAKEN.get(owner, ()):
+            return t, owner, leaf, dim
         if owner:
             return None
         if (name, dim) in (("head", 1), ("heads", 2)):
@@ -345,10 +355,38 @@ class _Held:
             return v, "", name, 0
         return None
 
+    def _take(self, held: dict, want: dict) -> dict:
+        """``Split.take`` of a part whose weights ``held`` maps to (the
+        weight as held: a rank's slice at rest, else whole; the dimension
+        ``make_shardings`` splits): this rank's slice of each weight
+        ``want`` names split on the dimension it gives, or the whole
+        weight (None).  At rest a slice on another dimension is re-cut,
+        all of them in one all-to-all (``dist.sharding.recut_many``), and
+        a whole weight is gathered; from a whole model the slices are cut
+        directly, with the same bits."""
+        out, moves, wholes = {}, [], []
+        for n, dst in want.items():
+            t, src = held[n]
+            if not self.at_rest:
+                out[n] = t if dst is None else self._slice(t, src, at=dst)
+            elif dst == src:
+                out[n] = t
+            else:
+                (wholes if dst is None else moves).append((n, t, src, dst))
+        if moves:
+            out.update(zip([n for n, *_ in moves], recut_many(
+                [t for _, t, _, _ in moves], self.mesh,
+                [s for _, _, s, _ in moves], [d for *_, d in moves])))
+        if wholes:
+            out.update(zip([n for n, *_ in wholes], gather_model(
+                [t for _, t, _, _ in wholes], [s for _, _, s, _ in wholes],
+                self.mesh)))
+        return out
+
     def part(self, mod, prefix: str, only=None):
         if self.mesh is None:
             return mod
-        values, splits, gather = {}, {}, []
+        values, splits, gather, held = {}, {}, [], {}
         for n, t in mod.named_parameters(recurse=only is None):
             dim = self.dims.get(prefix + n)
             if dim is None or (only is not None and n not in only):
@@ -359,6 +397,7 @@ class _Held:
                 continue
             values[n], owner, leaf, d = got
             splits.setdefault(owner, {})[leaf] = d
+            held.setdefault(owner, {})[leaf] = (values[n], d)
         if gather and self.at_rest:
             values.update(zip([n for n, _, _ in gather], gather_model(
                 [t for _, t, _ in gather], [d for _, _, d in gather],
@@ -366,7 +405,9 @@ class _Held:
         ns = _namespace(mod, values, "", only)
         for owner, dims in splits.items():
             sub = getattr(ns, owner) if owner else ns
-            sub.tp = Split(self.mesh, self.m, self.r, dims)
+            take = functools.partial(self._take, held[owner]) \
+                if owner in _TAKEN else None
+            sub.tp = Split(self.mesh, self.m, self.r, dims, take)
         return ns
 
     def top(self):

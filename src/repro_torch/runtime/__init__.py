@@ -3,8 +3,8 @@
 straggler watchdog and the fault policy (``failures.py``); atomic async
 checkpoints in the reference's layout (``checkpoint.py``); and the
 rescale plans of a training mesh and of a sorting mesh, with the restore
-of a training state onto the one device the port trains on
-(``elastic.py``; onto a mesh is ROADMAP item 10c)."""
+of a training state onto one device or onto a mesh, each rank keeping
+its slices (``elastic.py``)."""
 from .checkpoint import CheckpointManager  # noqa: F401
 from .elastic import (RescalePlan, SortRescalePlan,  # noqa: F401
                       plan_rescale, plan_sort_rescale, rescale_state)

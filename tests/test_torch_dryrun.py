@@ -27,9 +27,10 @@ device, where nothing is allocated.
   full width, 2 layers, bf16, remat ``full``, AdamW, batch 4 × 2048,
   (data 2, model 2)) on each of the four ranks: the bytes sent and
   received a step and the resident weights and moments that the card's
-  ranks measured (1 167 575 544: the logits and the loss on a rank's
-  rows, attention split over ``model`` in place, its partial products
-  summed; 157 432 832 and 629 444 608 bytes);
+  ranks measure (932 694 520: the logits and the loss on a rank's rows,
+  attention split over ``model`` in place, its partial products summed,
+  the MoE layer on a rank's rows with its experts re-cut to the
+  dispatch's; 157 432 832 and 629 444 608 bytes);
 - (v) ``remat="dots"``: loss and gradients equal the reference's
   ``"dots"`` within the model tests' 1e-4/1e-5, and the dry-run's FLOPs
   order ``"none"`` < ``"dots"`` < ``"full"``;
@@ -52,7 +53,7 @@ from repro.launch import hlo_cost
 from repro.launch import roofline as JR
 from repro.launch import steps as JS
 from repro.models import transformer as JT
-from repro_torch.configs import SHAPES, ShapeConfig, get_config
+from repro_torch.configs import SHAPES, ShapeConfig, get_config, list_archs
 from repro_torch.core import comm
 from repro_torch.dist.sharding import MeshLayout
 from repro_torch.launch import dryrun, op_cost
@@ -411,6 +412,27 @@ def test_no_weight_of_a_split_block_on_the_wire(arch, monkeypatch):
     assert not weights & set(carried), (weights & set(carried))
 
 
+# the architectures with a KV cache: all but rwkv6
+KV_ARCHS = [a for a in list_archs() if get_config(a).family != "ssm"]
+
+
+@pytest.mark.parametrize("arch", KV_ARCHS)
+def test_ddp_decode_is_reckoned(arch):
+    """The ``ddp`` decode of each architecture with a KV cache at smoke
+    width on rank 1 of (data 2, model 2): the caches split on their KV
+    heads over ``model`` (2 divides the smoke variants' 2 or 4), the
+    weights whole, so the rank attends with its heads and gathers their
+    outputs over ``model`` before ``wo``; the step is reckoned, the
+    gather on the wire."""
+    cfg = dataclasses.replace(configs(arch, "bfloat16")[1], ddp=True)
+    layout = MeshLayout.of_rank(NAMES, (2, 2), 1)
+    shape = ShapeConfig("decode", 16, 4, "decode")
+    assert dryrun.cache_layout(cfg, shape, layout) == "heads"
+    rec = dryrun.reckon(cfg, shape, layout)
+    assert rec["flops_per_device"] > 0
+    assert rec["collective_bytes_by_axis"].get("model", 0) > 0
+
+
 GQA = dict(WIDE, n_heads=8)               # 8 query heads over 2 KV heads
 MATMULS = ("aten.mm.default", "aten.addmm.default", "aten.bmm.default",
            "aten.baddbmm.default")
@@ -553,8 +575,8 @@ def test_mesh_training_bytes_equal_the_cards(rank):
                               n_layers=2)
     rec = dryrun.reckon(cfg, ShapeConfig("mesh_train", 2048, 4, "train"),
                         MeshLayout.of_rank(NAMES, (2, 2), rank))
-    assert rec["sent_bytes_per_device"] == 1_167_575_544
-    assert rec["received_bytes_per_device"] == 1_167_575_544
+    assert rec["sent_bytes_per_device"] == 932_694_520
+    assert rec["received_bytes_per_device"] == 932_694_520
     assert rec["resident_bytes"] == {"weights": 157_432_832,
                                      "opt": 629_444_608}
     assert rec["links"] == {"data": "nvlink", "model": "nvlink"}

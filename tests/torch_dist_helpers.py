@@ -825,3 +825,139 @@ def mesh_train_errors_job():
     except ValueError as e:
         out["cli"] = str(e)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The MoE layer on a (data, model) mesh (run in the ranks)
+# ---------------------------------------------------------------------------
+
+
+def _greedy(model, st, tok, cfg, mesh, steps):
+    """``steps`` greedy decode steps from ``tok`` (the whole batch): each
+    step's logits of this rank's rows and the whole batch's tokens, and
+    the bytes this rank's transport carried in the first step's
+    ``decode_step`` (sent, received)."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.dist.sharding import gather_rows
+    from repro_torch.models import transformer as T
+    out, wire = [], None
+    B = tok.shape[0]
+    with torch.inference_mode():
+        for _ in range(steps):
+            with comm.count_wire() as w:
+                logits, st = T.decode_step(model, st, {"tokens": tok}, cfg,
+                                           mesh, ("data",))
+            wire = wire or [w.sent, w.received]
+            tok = gather_rows(logits[:, -1].argmax(-1), mesh, B)[:, None]
+            out.append((_f32(logits), tok[:, 0].numpy()))
+    return out, wire
+
+
+def mesh_moe_job(arch, cfg_kw, tree, layout, tasks):
+    """The float32 smoke config of ``arch`` (``cfg_kw`` replaced) on the
+    ``layout`` mesh of the first d·m ranks (None on the others, which
+    only join the making of the mesh), sharded at rest from the
+    reference's weights ``tree``; for each ``(kind, feed)`` of ``tasks``:
+
+    - ``"prefill"``: this rank's rows as (start, stop), ``forward``'s
+      logits of them and aux;
+    - ``"train"``: ``loss_and_grads``' loss and gradient leaves put
+      together whole, the shapes of the weights its blocks gathered whole
+      (``gather_model``), then one ``make_train_step`` step: the bytes
+      this rank sent and received, beside ``launch.dryrun.reckon``'s for
+      its ``MeshLayout``;
+    - ``"decode"``: greedy decode from ``feed["tokens"]`` over a float32
+      state of ``feed["cache_len"]`` slots for ``feed["steps"]`` steps
+      (this rank's rows, the logits of its rows and the tokens), the
+      bytes of its first step beside the dry-run's;
+    - ``"serve"``: ``serve``'s steps in bfloat16 from ``feed["tokens"]``
+      (the whole batch's tokens of each step).
+
+    Returns the results in the order of ``tasks``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.dist.sharding import MeshLayout, gather_rows, local_rows
+    from repro_torch.launch import dryrun, steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+    cfg = smoke_cfg(arch, "float32", **cfg_kw)
+    mesh = model_mesh(layout)
+    if dist.get_rank() >= layout[0] * layout[1]:
+        return None
+    here = MeshLayout.of_rank(("data", "model"), layout, dist.get_rank())
+
+    def reckoned(kind, seq, batch, **kw):
+        rec = dryrun.reckon(cfg, ShapeConfig(kind, seq, batch, kind), here,
+                            **kw)
+        return [rec["sent_bytes_per_device"],
+                rec["received_bytes_per_device"]]
+
+    out = []
+    for kind, feed in tasks:
+        model = params_from_jax(cfg, tree, device="cpu", mesh=mesh)
+        if kind == "prefill":
+            tok = torch.from_numpy(feed["tokens"]).long()
+            with torch.inference_mode():
+                logits, aux = T.forward(model, {"tokens": tok}, cfg, mesh,
+                                        ("data",))
+            rows = local_rows(tok.shape[0], mesh, T.row_axes(
+                mesh, cfg, tok.shape[0]))
+            out.append(((rows.start, rows.stop), _f32(logits), float(aux)))
+        elif kind == "train":
+            model.requires_grad_(True)
+            shards = S.state_shardings(cfg, mesh)
+            gathered, real = [], T.gather_model
+
+            def spy(ts, *a, **k):
+                gathered.extend(tuple(t.shape) for t in ts)
+                return real(ts, *a, **k)
+            T.gather_model = spy
+            try:
+                loss, grads = S.loss_and_grads(
+                    model, _torch_batch(feed), cfg, mesh, ("data",))
+            finally:
+                T.gather_model = real
+            whole = dict(zip(grads, _whole_host(grads, {
+                k: shards.params[k] for k in grads})))
+            step, opt_init = S.make_train_step(cfg, mesh)
+            state = S.TrainState(model, opt_init(model), 0)
+            B, Sq = feed["tokens"].shape
+            with comm.count_wire() as w:
+                step(state, feed)
+            out.append((float(loss),
+                        {"/".join(k): v for k, v in whole.items()},
+                        sorted(set(gathered)), [w.sent, w.received],
+                        reckoned("train", Sq, B)))
+        elif kind == "decode":
+            tok = torch.from_numpy(feed["tokens"]).long()
+            B = tok.shape[0]
+            st = T.init_decode_state(cfg, B, feed["cache_len"],
+                                     torch.float32, device="cpu", mesh=mesh)
+            steps, wire = _greedy(model, st, tok, cfg, mesh, feed["steps"])
+            rows = local_rows(B, mesh)
+            out.append(((rows.start, rows.stop), steps, wire,
+                        reckoned("decode", feed["cache_len"], B,
+                                 cache_dtype=torch.float32)))
+        elif kind == "serve":
+            # ``serve``'s steps: ``make_serve_step`` on bf16 weights and
+            # caches (``serve`` itself takes a mesh of the whole group)
+            bf = dataclasses.replace(cfg, dtype="bfloat16")
+            model = params_from_jax(bf, tree, device="cpu", mesh=mesh)
+            B = feed["tokens"].shape[0]
+            st = T.init_decode_state(bf, B, feed["cache_len"],
+                                     torch.bfloat16, device="cpu", mesh=mesh)
+            step = S.make_serve_step(bf, mesh)
+            tok = torch.from_numpy(feed["tokens"]).to(torch.int32)
+            toks = []
+            with torch.inference_mode():
+                for _ in range(feed["steps"]):
+                    nxt, st = step(model, st, {"tokens": tok})
+                    tok = gather_rows(nxt, mesh, B)[:, None]
+                    toks.append(tok[:, 0].numpy())
+            out.append(np.stack(toks))
+    return out
