@@ -277,8 +277,20 @@ Phases, each fatal on failure (no phase catches its own error):
    length: llama3.2-1b's smoke width (2 KV heads) on a (data 1, model 4)
    mesh of the same ranks, float32, 64 teacher-forced steps over 64
    slots (16 a rank, so every block takes writes): the logits within
-   1e-4/1e-5 of one device's.  ``--mesh-only`` runs phases 1, 2 and 21
-   alone.
+   1e-4/1e-5 of one device's; (e) rwkv6-1.6b at its published width
+   cut to 2 layers and (f) zamba2-2.7b at its published width cut to
+   one group (6 mamba layers and the shared block), float32, the blocks
+   on a rank's heads with its slices of their weights and the recurrent
+   states split over ``model`` by the reference's rule: prefill of (2,
+   256) tokens within 1e-4/1e-5 of one device's float32 logits (or,
+   where one device's float32 misses its float64 forward by that, of
+   the float64 forward) with its tokens equal, 8 greedy decode steps at
+   batch 4 against one device (tokens equal, logits within
+   1e-4/1e-5), each rank's ``wkv`` (rows, 32, 32, 64) on hd_k or ``ssm``
+   (rows, 80, 32, 64) on P within 1e-4/1e-5 of one device's slice, the
+   conv window the same bits along ``model``, the bytes of the prefill
+   step and of each decode step the dry-run's.  ``--mesh-only`` runs
+   phases 1, 2 and 21 alone.
 22. training on a mesh (``launch.train``, ``launch.steps``,
    ``runtime.checkpoint`` and ``rescale_state`` on a ``DeviceMesh``):
    four gloo ranks sharing the card on a (data 2, model 2) mesh, weights
@@ -314,8 +326,11 @@ Phases, each fatal on failure (no phase catches its own error):
    for bit to the new ``make_shardings`` slice of the saved leaf, the
    next step's loss on (4, 1) within 1e-4/1e-5 of (b)'s third step; and
    (a)'s checkpoint onto both, slices only (its expert-parallel dispatch
-   drops other items at another ``model``).  ``--mesh-train-only`` runs
-   phases 1, 2 and 22 alone.
+   drops other items at another ``model``); (e) one training step of
+   21e's rwkv6 on 2 × 256 tokens: the loss and each rank's slice of
+   every gradient leaf within 1e-4/1e-5 of one device's, the step's
+   bytes the dry-run's.  ``--mesh-train-only`` runs phases 1, 2 and 22
+   alone.
 23. the dry-run against the card (``launch/dryrun.py``: one step reckoned
    from shapes on the meta device under ``launch/op_cost.py``, no new
    model run): (a) the roofline terms of 19a's decode step (granite,
@@ -568,6 +583,16 @@ MESH_CP_ARCH, MESH_CP_SHAPE = "llama3.2-1b", (2, 2048)
 MESH_LENGTH_ARCH, MESH_LENGTH_LAYOUT = "llama3.2-1b", (1, 4)
 MESH_LENGTH_BATCH, MESH_LENGTH_CACHE, MESH_LENGTH_STEPS = 4, 64, 64
 MESH_SMOKE = False          # a CPU rehearsal sets True (smoke widths)
+# 21e/21f: rwkv6-1.6b cut to 2 of its 24 layers and zamba2-2.7b to one
+# group (6 mamba layers and the shared block), at their published widths
+# in float32: prefill of MESH_SSM_PREFILL tokens and MESH_SSM_STEPS greedy
+# decode steps at batch MESH_SSM_BATCH over MESH_SSM_CACHE slots, the
+# blocks on a rank's heads and the recurrent states split over model by
+# the reference's rule; 22e one training step of 21e's rwkv6 on the
+# prefill's shape
+MESH_SSM = {"rwkv6-1.6b": 2, "zamba2-2.7b": 6}
+MESH_SSM_PREFILL, MESH_SSM_BATCH = (2, 256), 4
+MESH_SSM_STEPS, MESH_SSM_CACHE = 8, 16
 # phase 22: training on a mesh.  Four gloo ranks share the card on a (data
 # 2, model 2) mesh: granite-moe-1b-a400m trained at full width through a
 # crash and a restart (its depth reckoned so the phase fits its budget: a
@@ -4646,6 +4671,162 @@ def mesh_prefill_job(torch, np, mesh, dev, smoke, rank):
     return out
 
 
+def state_digest(t) -> str:
+    """A tensor's bytes, hashed (the same bits on two ranks: the same
+    digest)."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(
+        -1).numpy().tobytes()).hexdigest()
+
+
+def wide_state(st):
+    """A decode state with its recurrent leaves in float64 (a float64
+    reference run; ``init_decode_state`` makes them float32)."""
+    return st._replace(caches=[type(c)(*(t.double() for t in c))
+                               for c in st.caches])
+
+
+def held_to(torch, got, one, exact) -> dict:
+    """``got`` (the mesh's, float32) against one device's float32 ``one``
+    and float64 ``exact`` results: the largest differences, how many
+    values miss 1e-4/1e-5 against each, and one device's own float32
+    distance and misses against float64.  ``ok``: within 1e-4/1e-5 of
+    one device's float32, or else held to the float64 result: within
+    1e-4/1e-5 of it, or, where one device's own float32 misses it too,
+    no further from it than that (the largest difference and the
+    misses)."""
+    got, one, exact = got.cpu(), one.cpu(), exact.cpu()
+
+    def misses(a, b):
+        return int((~torch.isclose(a, b, **MODEL_F32_TOL)).sum())
+    out = {"err": float((got - one).abs().max()),
+           "err_float64": float((got.double() - exact).abs().max()),
+           "one_err_float64": float((one.double() - exact).abs().max()),
+           "misses": misses(got, one),
+           "misses_float64": misses(got.double(), exact),
+           "one_misses_float64": misses(one.double(), exact)}
+    out["ok"] = out["misses"] == 0 or out["misses_float64"] == 0 or (
+        out["misses_float64"] <= out["one_misses_float64"] and
+        out["err_float64"] <= out["one_err_float64"])
+    return out
+
+
+def held(rows) -> dict:
+    """:func:`held_to`'s records (or merged ones) merged: the largest
+    distances, the misses summed, and whether every one is ``ok``."""
+    out = {k: max(r[k] for r in rows)
+           for k in ("err", "err_float64", "one_err_float64")}
+    for k in ("misses", "misses_float64", "one_misses_float64"):
+        out[k] = sum(r[k] for r in rows)
+    out["ok"] = all(r["ok"] for r in rows)
+    return out
+
+
+def mesh_ssm_job(torch, np, mesh, dev, smoke, arch, rank):
+    """21e/21f on one rank: ``arch`` at its published width cut to
+    MESH_SSM[arch] layers, in float32.  One device first, from a whole
+    copy: ``forward`` on MESH_SSM_PREFILL tokens and MESH_SSM_STEPS
+    greedy decode steps at batch MESH_SSM_BATCH (the logits and state of
+    this rank's rows kept), then both again in float64, the decode fed
+    the float32 run's tokens; then the mesh, the weights sharded at rest
+    and this rank's slice of a float32 state: the prefill's logits and
+    tokens, the decode's logits and tokens (the tokens gathered over
+    ``data`` as the next input) and each state leaf's slice
+    (``cache_split_dim``), each against one device's float32 and
+    float64 results (:func:`held_to`); the conv window's digest, the
+    bytes of the prefill step and of each decode step, and the walls."""
+    import copy
+    import dataclasses
+    from repro_torch.core import comm
+    from repro_torch.dist.sharding import (block_slices, cache_split_dim,
+                                           gather_rows, local_rows)
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import shard_params
+    c = mesh_cfg(arch, smoke, n_layers=MESH_SSM[arch], dtype="float32")
+    c64 = dataclasses.replace(c, dtype="float64")
+    model = T.init_params(c, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev)
+    rng = np.random.default_rng(MESH_SEED)
+    tok = torch.from_numpy(rng.integers(0, c.vocab, size=MESH_SSM_PREFILL)
+                           ).to(dev)
+    first = torch.from_numpy(rng.integers(
+        0, c.vocab, size=(MESH_SSM_BATCH, 1))).to(dev)
+    prow = local_rows(MESH_SSM_PREFILL[0], mesh)
+    drow = local_rows(MESH_SSM_BATCH, mesh)
+    B = MESH_SSM_BATCH
+
+    def decode(m, cfg, st, feeds):
+        """One device's decode from ``first``: greedy (``feeds`` None) or
+        fed ``feeds``; each step's logits of this rank's rows and the
+        tokens, and the last state's rows."""
+        x, steps = first, []
+        for i in range(MESH_SSM_STEPS):
+            lg, st = T.decode_step(m, st, {"tokens": x}, cfg)
+            nxt = lg[:, -1].argmax(-1) if feeds is None else feeds[i]
+            steps.append((lg[drow].cpu(), nxt.cpu().numpy()))
+            x = nxt[:, None]
+        return steps, [[leaf[drow] for leaf in layer]
+                       for layer in st.caches]
+    with torch.inference_mode():
+        one = T.forward(model, {"tokens": tok}, c)[0][prow]
+        one_steps, one_state = decode(model, c, T.init_decode_state(
+            c, B, MESH_SSM_CACHE, torch.float32, device=dev), None)
+        wide = copy.deepcopy(model).double()
+        exact = T.forward(wide, {"tokens": tok[prow]}, c64)[0]
+        exact_steps, exact_state = decode(wide, c64, wide_state(
+            T.init_decode_state(c64, B, MESH_SSM_CACHE, torch.float64,
+                                device=dev)),
+            [torch.from_numpy(t).to(dev) for _, t in one_steps])
+        del wide
+        shard_params(model, c, mesh)
+        t0 = time.perf_counter()
+        lm, _ = T.forward(model, {"tokens": tok}, c, mesh, ("data",))
+        nxt, pwire = counted(comm, S.make_prefill_step(c, mesh), model,
+                             {"tokens": tok})
+        prefill_s = time.perf_counter() - t0
+        st = T.init_decode_state(c, B, MESH_SSM_CACHE, torch.float32,
+                                 device=dev, mesh=mesh)
+        x, steps, toks, wire = first, [], [], []
+        t0 = time.perf_counter()
+        for (lo, want), (ex, _) in zip(one_steps, exact_steps):
+            (lg, st), w = counted(comm, T.decode_step, model, st,
+                                  {"tokens": x}, c, mesh, ("data",))
+            wire.append(w)
+            x = gather_rows(lg[:, -1].argmax(-1), mesh, B)[:, None]
+            steps.append(held_to(torch, lg, lo, ex))
+            toks.append(bool(np.array_equal(x[:, 0].cpu().numpy(), want)))
+        decode_s = time.perf_counter() - t0
+    leaves = {}
+    for mine, one_l, exact_l in zip(st.caches, one_state, exact_state):
+        for f, a, b, e in zip(mine._fields, mine, one_l, exact_l):
+            spec = [()] * b.ndim
+            dim = cache_split_dim((B,) + tuple(b.shape[1:]), mesh)
+            if dim is not None:
+                spec[dim] = ("model",)
+            cut = block_slices(b.shape, spec, mesh)
+            got = leaves.setdefault(f, {"shape": list(a.shape), "split": dim,
+                                        "layers": [], "digests": []})
+            got["layers"].append(held_to(torch, a, b[cut], e[cut]))
+            if f == "conv":
+                got["digests"].append(state_digest(a))
+    for got in leaves.values():
+        got.update(held(got.pop("layers")))
+    return {"rows": (prow.start, prow.stop),
+            "prefill": held([held_to(torch, lm, one, exact)]),
+            "prefill_tokens_equal": bool(np.array_equal(
+                nxt.cpu().numpy(), one[:, -1].argmax(-1).cpu().numpy())),
+            "decode": held(steps), "tokens_equal": all(toks),
+            "leaves": leaves, "prefill_s": prefill_s, "decode_s": decode_s,
+            "wire": [pwire], "decode_wire": wire,
+            "reckoned_wire": reckoned_wire(
+                torch, c, "prefill", MESH_SSM_PREFILL[1],
+                MESH_SSM_PREFILL[0], MESH_LAYOUT, rank),
+            "decode_reckoned_wire": reckoned_wire(
+                torch, c, "decode", MESH_SSM_CACHE, B, MESH_LAYOUT, rank,
+                torch.float32)}
+
+
 def mesh_rank(rank, world, jobs, results):
     """One rank of phase 21 (run by ``pooled_rank`` in its gloo group;
     every rank on the card 0): makes the (data 2, model 2) mesh, then runs
@@ -4675,6 +4856,8 @@ def mesh_rank(rank, world, jobs, results):
                 out = mesh_decode_job(torch, np, mesh, dev, smoke)
             elif part == "length":
                 out = mesh_length_job(torch, np, dev)
+            elif part in MESH_SSM:
+                out = mesh_ssm_job(torch, np, mesh, dev, smoke, part, rank)
             else:
                 out = mesh_prefill_job(torch, np, mesh, dev, smoke, rank)
             results.put((rank, "ok", out))
@@ -4683,6 +4866,60 @@ def mesh_rank(rank, world, jobs, results):
                 torch.cuda.empty_cache()
         except BaseException:
             results.put((rank, "error", traceback.format_exc()))
+
+
+def mesh_ssm_check(got, part, arch, card, smoke):
+    """21e/21f's row from the ranks' results, checked: the prefill's
+    logits, each decode step's and each recurrent state leaf's slice
+    within 1e-4/1e-5 of one device's float32 result, or held to its
+    float64 one (:func:`held_to`: at d = 2048 one device's own float32
+    run misses float64 by that on some values, as 21c's does, and at
+    zamba2's d = 2560 the mesh too); the prefill's tokens and the decode's as
+    one device's; rwkv6's ``wkv`` split on hd_k and mamba2's ``ssm`` on
+    P, as the reference's rule says; the conv window the same bits on
+    both ranks along ``model``; every rank's bytes the dry-run's."""
+    cfg = mesh_cfg(arch, smoke)
+    heads = cfg.ssm_heads if cfg.family == "hybrid" else cfg.n_heads
+    hd = (2 * cfg.d_model if cfg.family == "hybrid" else cfg.d_model) \
+        // heads
+    state = "ssm" if cfg.family == "hybrid" else "wkv"
+    m = MESH_LAYOUT[1]
+    want_shape = [MESH_SSM_BATCH // MESH_LAYOUT[0], heads, hd // m,
+                  cfg.ssm_state if cfg.family == "hybrid" else hd]
+
+    def merged(key):
+        return held([r[key] for r in got])
+    row = {"phase": f"mesh_{arch.split('-')[0]}", "arch": arch,
+           "card": card, "layers": MESH_SSM[arch], "dtype": "float32",
+           "mesh": dict(zip(("data", "model"), MESH_LAYOUT)),
+           "prefill_shape": list(MESH_SSM_PREFILL), "batch": MESH_SSM_BATCH,
+           "steps": MESH_SSM_STEPS, "cache_len": MESH_SSM_CACHE,
+           "prefill": merged("prefill"),
+           "prefill_tokens_equal": all(r["prefill_tokens_equal"]
+                                       for r in got),
+           "decode": merged("decode"),
+           "tokens_equal": all(r["tokens_equal"] for r in got),
+           "leaves": {f: dict(held([r["leaves"][f] for r in got]),
+                              shape=[r["leaves"][f]["shape"] for r in got],
+                              split=[r["leaves"][f]["split"] for r in got])
+                      for f in got[0]["leaves"]},
+           "tol": MODEL_F32_TOL,
+           "prefill_s": [r["prefill_s"] for r in got],
+           "decode_s": [r["decode_s"] for r in got], **wire_row(got),
+           **{"decode_" + k: v for k, v in wire_row(
+               [{"wire": r["decode_wire"],
+                 "reckoned_wire": r["decode_reckoned_wire"]} for r in got]
+               ).items()}}
+    emit(row)
+    digests = [r["leaves"].get("conv", {}).get("digests") for r in got]
+    if not row["prefill"]["ok"] or not row["decode"]["ok"] \
+            or not row["prefill_tokens_equal"] or not row["tokens_equal"] \
+            or not all(x["ok"] for x in row["leaves"].values()) \
+            or any(r["leaves"][state]["shape"] != want_shape or
+                   r["leaves"][state]["split"] != 2 for r in got) \
+            or any(digests[k] != digests[k - k % m] for k in range(len(got))) \
+            or not row["wire_equal"] or not row["decode_wire_equal"]:
+        raise AssertionError(f"21{part}: {row}")
 
 
 def mesh_phase(torch, np, card):
@@ -4823,6 +5060,12 @@ def mesh_phase(torch, np, card):
         if not all(r["within_tol"] for r in d) or any(
                 r["cache_split"] != 1 for r in d) or not row["wire_equal"]:
             raise AssertionError(f"21d: {row}")
+
+        for part, arch in (("e", "rwkv6-1.6b"), ("f", "zamba2-2.7b")):
+            t = time.perf_counter()
+            got = ranks.run(("mesh", (arch, dev, smoke)))
+            parts[part] = time.perf_counter() - t
+            mesh_ssm_check(got, part, arch, card, smoke)
     finally:
         ranks.release()
     emit({"phase": "mesh_done", "seconds": time.perf_counter() - t_all,
@@ -5063,6 +5306,58 @@ def mesh_train_cpu_job(torch, np, mesh, dev, smoke):
                                            dist.get_rank())}
 
 
+def mesh_train_ssm_job(torch, np, mesh, dev, smoke):
+    """22e on one rank: rwkv6 at 21e's size (its published width, 2
+    layers, float32) on a batch of MESH_SSM_PREFILL's shape:
+    ``loss_and_grads`` on one device (a whole copy) and on the mesh from
+    the same weights, the loss and this rank's slice of every gradient
+    leaf against one device's; then one ``make_train_step`` step on the
+    mesh, its bytes beside the dry-run's."""
+    import copy
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import shard_params
+    from repro_torch.optim.tree import layers
+    arch = "rwkv6-1.6b"
+    c = mesh_cfg(arch, smoke, n_layers=MESH_SSM[arch], dtype="float32")
+    model = T.init_params(c, torch.Generator(device=dev).manual_seed(
+        MESH_TRAIN_SEED), device=dev)
+    whole = copy.deepcopy(model).requires_grad_(True)
+    sharded = shard_params(model, c, mesh).requires_grad_(True)
+    batch = TokenPipeline(c.vocab, *MESH_SSM_PREFILL).batch_at(0)
+    on_dev = S.batch_on(batch, dev)
+    one_loss, one_grads = S.loss_and_grads(whole, on_dev, c)
+    del whole
+    t0 = time.perf_counter()
+    loss, grads = S.loss_and_grads(sharded, on_dev, c, mesh, ("data",))
+    grads_s = time.perf_counter() - t0
+    shards = S.state_shardings(c, mesh).params
+    err, ok, n = 0.0, True, 0
+    for k, g in grads.items():
+        for a, b in zip(layers(g), layers(shards[k].cut(one_grads[k]))):
+            n += 1
+            err = max(err, float((a - b).abs().max()))
+            ok &= a.shape == b.shape and bool(torch.allclose(
+                a, b, **MODEL_F32_TOL))
+    del grads, one_grads
+    step, init = S.make_train_step(c, mesh)
+    state = S.TrainState(sharded, init(sharded), 0)
+    t0 = time.perf_counter()
+    (state, m), w = counted(comm, step, state, batch)
+    step_loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    return {"one_loss": float(one_loss), "loss": float(loss),
+            "step_loss": step_loss, "max_abs_leaf_err": err,
+            "leaves_within_tol": ok, "leaves": n, "grads_s": grads_s,
+            "step_s": step_s, "wire": [w],
+            "reckoned_wire": reckoned_wire(
+                torch, c, "train", MESH_SSM_PREFILL[1], MESH_SSM_PREFILL[0],
+                MESH_LAYOUT, dist.get_rank())}
+
+
 def mesh_elastic_job(torch, np, dev, smoke, ckpts):
     """22d on one rank: ``rescale_state`` of 22b's and 22a's checkpoints
     onto the MESH_ELASTIC meshes of the four ranks, into states drawn
@@ -5154,6 +5449,8 @@ def mesh_train_rank(rank, world, jobs, results):
                                            dirs["b"])
             elif part == "cpu":
                 out = mesh_train_cpu_job(torch, np, mesh, dev, smoke)
+            elif part == "ssm":
+                out = mesh_train_ssm_job(torch, np, mesh, dev, smoke)
             else:
                 out = mesh_elastic_job(torch, np, dev, smoke, dirs)
             results.put((rank, "ok", out))
@@ -5336,6 +5633,29 @@ def mesh_train_phase(torch, np, card):
                     or not all(close_to(v, want_next) for v in nxt) \
                     or not row["wire_equal"]:
                 raise AssertionError(f"22d: {row}")
+
+            t = time.perf_counter()
+            e = ranks.run(("train", ("ssm", dev, smoke, dirs)))
+            parts["e"] = time.perf_counter() - t
+            row = {"phase": "mesh_train_rwkv6", "arch": "rwkv6-1.6b",
+                   "card": card, "layers": MESH_SSM["rwkv6-1.6b"],
+                   "dtype": "float32", "batch": MESH_SSM_PREFILL[0],
+                   "seq": MESH_SSM_PREFILL[1],
+                   "one_device_loss": e[0]["one_loss"],
+                   "mesh_loss": [r["loss"] for r in e],
+                   "step_loss": [r["step_loss"] for r in e],
+                   "max_abs_leaf_err": max(r["max_abs_leaf_err"]
+                                           for r in e),
+                   "leaves": e[0]["leaves"], "tol": MODEL_F32_TOL,
+                   "grads_s": [r["grads_s"] for r in e],
+                   "step_s": [r["step_s"] for r in e], **wire_row(e)}
+            emit(row)
+            if not all(r["leaves_within_tol"] for r in e) or not all(
+                    close_to(r["loss"], r["one_loss"]) and
+                    r["loss"] == e[0]["loss"] and
+                    close_to(r["step_loss"], r["loss"]) for r in e) \
+                    or not row["wire_equal"]:
+                raise AssertionError(f"22e: {row}")
         finally:
             ranks.release()
     emit({"phase": "mesh_train_done", "seconds": time.perf_counter() - t_all,

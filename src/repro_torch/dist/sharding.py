@@ -37,8 +37,11 @@ rank holds the same bits (:func:`sum_partials`, an all-reduce, or
 :func:`scatter_partials`, a reduce-scatter onto a dimension such as the
 heads).  A rank's results therefore agree with one device's within
 float tolerance, not bit for bit.  :func:`recut` moves a leaf split on
-one dimension to the same leaf split on another (one all-to-all), and
-:func:`max_over` takes a maximum over the ranks.  The gathers still only
+one dimension to the same leaf split on another (one all-to-all),
+:func:`relay_heads` an activation between a rank's block of whole heads
+and every head's slice of its channels (where a recurrent state split by
+:func:`cache_split_dim` lies), and :func:`max_over` takes a maximum over
+the ranks.  The gathers still only
 concatenate.
 
 Gradients pass every collective as its transpose.  Along ``model`` each
@@ -267,18 +270,34 @@ def gather_rows(t: torch.Tensor, mesh, batch: int,
 
 
 def cache_split_dim(shape, mesh) -> Optional[int]:
-    """The dimension of a KV cache ``(B, S, KV, hd)`` that the reference's
-    rule (``repro/launch/steps.py`` ``cache_specs``) splits over ``model``:
-    the KV heads (2) when ``model`` divides them, else the length (1) when
-    it divides that, else none (None, as on a mesh without ``model``)."""
+    """The dimension of a layer's decode-state leaf that the reference's
+    rule (``repro/launch/steps.py`` ``cache_specs``) splits over
+    ``model``: of a 4-D leaf (a KV cache ``(B, S, KV, hd)``, rwkv6's
+    ``wkv`` ``(B, H, hd_k, hd_v)``, mamba2's ``ssm`` ``(B, H, P, N)``)
+    dimension 2 (the KV heads, hd_k, P) when ``model`` divides it, else
+    dimension 1 (the length, the heads) when it divides that; of a 3-D
+    leaf (mamba2's conv window ``(B, 3, C)``) dimension 1 when it
+    divides; else none (None: rwkv6's ``last`` ``(B, D)``, or a mesh
+    without ``model``)."""
     m = mesh_sizes(mesh).get("model") if mesh is not None else None
     if m is None:
         return None
-    if shape[2] % m == 0:
+    if len(shape) == 4 and shape[2] % m == 0:
         return 2
-    if shape[1] % m == 0:
+    if len(shape) in (3, 4) and shape[1] % m == 0:
         return 1
     return None
+
+
+def cache_slice_shape(shape, mesh) -> Tuple[int, ...]:
+    """The shape of this rank's slice of a layer's decode-state leaf of
+    the whole shape ``shape`` (its rows already cut) by
+    :func:`cache_split_dim`."""
+    dim = cache_split_dim(shape, mesh)
+    if dim is None:
+        return tuple(shape)
+    m = mesh_sizes(mesh)["model"]
+    return tuple(shape[:dim]) + (shape[dim] // m,) + tuple(shape[dim + 1:])
 
 
 def mesh_coord(mesh) -> Dict[str, int]:
@@ -725,6 +744,27 @@ def max_over(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     b = x.numel() * x.element_size()
     with comm.carried_as("all-reduce", axis, b, b):
         return _all_gather(x.detach(), mesh, axis).amax(dim=0)
+
+
+def relay_heads(ts: Sequence[torch.Tensor], mesh, heads: int,
+                to_slices: bool, axis: str = "model") -> List[torch.Tensor]:
+    """Each of ``ts``, an activation whose last dimension holds ``heads``
+    heads of ``c`` channels each, moved between its two layouts over
+    ``axis``: this rank's block of whole heads ``(…, heads / m · c)``,
+    contiguous as the weights' slices lie, and every head's slice of its
+    channels ``(…, heads · c / m)``, as a recurrent state split on a
+    head's dimension lies (``to_slices`` from the first to the second,
+    else back).  One all-to-all for all of them (:func:`recut_many`); its
+    backward is the inverse move."""
+    m = mesh_sizes(mesh).get(axis, 1)
+    if m == 1 or not ts:
+        return list(ts)
+    views = [t.unflatten(-1, (heads // m, -1) if to_slices else (heads, -1))
+             for t in ts]
+    nd = views[0].ndim
+    src, dst = (nd - 2, nd - 1) if to_slices else (nd - 1, nd - 2)
+    return [v.flatten(-2) for v in recut_many(
+        views, mesh, [src] * len(views), [dst] * len(views), axis)]
 
 
 def recut(t: torch.Tensor, mesh, src: int, dst: int,

@@ -12,8 +12,10 @@ model and optimizer state of the config on the ``meta`` device cut to
 that rank's slices (``steps.abstract_state``, ``convert.shard_params``,
 ``sharded_specs``), the step's inputs (``input_specs``; decode:
 ``cache_specs``, the reference's placement of the decode state: a rank's
-rows, and of each KV cache its heads, else its slots, over ``model``;
-the record's ``cache_layout`` says which), and runs one
+rows, and of each KV cache its heads, else its slots, over ``model``,
+of rwkv6's and mamba2's recurrent states every head's slice of hd_k or
+P, else their heads; the record's ``cache_layout`` and
+``state_layout`` say which), and runs one
 train, prefill or decode step of the port (``make_train_step``,
 ``make_prefill_step``, ``make_serve_step``) on them under ``op_cost``,
 with the dry transport (``core.comm.dry``):
@@ -43,9 +45,10 @@ products over ``model``.  The MoE layer takes a rank's rows with its
 experts where the reference's layouts hold them (the expert-parallel
 dispatch the rank's experts, re-cut from where ``make_shardings`` puts
 them; ``moe_local`` the slices in place).  rwkv6's and mamba2's blocks
-run on a rank's rows with their weights gathered, as on one device
-(ROADMAP queue 1); ``useful_flops_ratio`` shows the redundancy that
-remains.
+run on a rank's block of heads with its slices of their weights, their
+decode steps on the rank's slice of the recurrent state
+(``models.ssm``).  ``useful_flops_ratio`` shows the redundancy that
+remains (the norms, the sequence-parallel carry: ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -64,7 +67,8 @@ import torch
 from repro_torch.configs import SHAPES, get_config, list_archs, \
     shape_applicable
 from repro_torch.core import comm
-from repro_torch.dist.sharding import mesh_coord, mesh_sizes
+from repro_torch.dist.sharding import cache_split_dim, mesh_coord, \
+    mesh_sizes
 from repro_torch.launch import op_cost
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_production_mesh
@@ -222,14 +226,30 @@ def reckon(cfg, shape, mesh, cache_dtype=torch.bfloat16) -> dict:
     )
 
 
+_LAYOUTS = {1: "length", 2: "heads"}     # a KV cache's split dimension
+_STATE_LAYOUTS = {1: "heads", 2: "head_dim"}   # a wkv's or an ssm's
+
+
 def cache_layout(cfg, shape, mesh) -> str:
     """How a rank holds the KV caches of a decode on ``mesh``: split on
     their ``"heads"`` or their ``"length"`` over ``model``, or its
-    ``"rows"`` whole (the recurrent states of rwkv6 and mamba2 too)."""
+    ``"rows"`` whole; rwkv6, which has none, its recurrent state's
+    (:func:`state_layout`)."""
     state, _ = S.cache_specs(cfg, shape, mesh)
+    if cfg.family == "ssm":
+        return state_layout(cfg, shape, mesh)
     caches = [c for g in (state.caches, state.shared_caches or ())
               for c in g if getattr(c, "split", None) is not None]
-    return {1: "length", 2: "heads"}[caches[0].split] if caches else "rows"
+    return _LAYOUTS[caches[0].split] if caches else "rows"
+
+
+def state_layout(cfg, shape, mesh) -> str:
+    """How a rank holds rwkv6's ``wkv`` or mamba2's ``ssm`` in a decode
+    on ``mesh``: every head's slice of hd_k or P (``"head_dim"``), its
+    ``"heads"``, or its ``"rows"`` whole."""
+    state, _ = S.cache_specs(cfg, shape, mesh)
+    dim = cache_split_dim(state.caches[0][0].shape, mesh)
+    return _STATE_LAYOUTS.get(dim, "rows")
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
@@ -251,6 +271,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
     rec["mesh"] = mesh_sizes(mesh)
     if shape.kind == "decode":
         rec["cache_layout"] = cache_layout(cfg, shape, mesh)
+        if cfg.family in ("ssm", "hybrid"):
+            rec["state_layout"] = state_layout(cfg, shape, mesh)
     t0 = time.time()
     try:
         rec.update(reckon(cfg, shape, mesh))

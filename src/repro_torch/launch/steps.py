@@ -15,8 +15,8 @@ Every step runs on one device (the model's) or SPMD on the ranks of a
 mesh (``models.transformer``: every rank passes the whole batch, keeps
 its rows over the data axes, holds its slices of the weights and of the
 decode state, and multiplies its slices of the attention's, the dense
-MLP's and the head's weights, the partial products summed over
-``model``).  The train step takes
+MLP's, the head's, the MoE layer's, rwkv6's and mamba2's weights, the
+partial products summed over ``model``).  The train step takes
 the reference's step: the loss and its gradients, the optimizer's update
 of the weights and moments (in place), and the metrics ``loss``, ``lr``
 and ``grad_norm`` (the square root of the float32 sum of squares over
@@ -323,11 +323,13 @@ def cache_specs(cfg, shape, mesh, dtype=torch.bfloat16):
     (caches of ``dtype``, bf16 as the reference's, the whole batch) and
     each leaf's placement, the
     reference's: the batch over the data axes when it divides them, and
-    a KV cache's heads, else its length, over ``model`` by the reference's
-    rule (``dist.sharding.cache_split_dim``; each cache records which in
-    ``split``, as ``init_decode_state`` on the mesh makes it).  The
-    recurrent states of rwkv6 and mamba2 keep every head of a rank's
-    rows.  No mesh: the state and None."""
+    over ``model`` by the reference's rule
+    (``dist.sharding.cache_split_dim``) a KV cache's heads, else its
+    length (each cache records which in ``split``, as
+    ``init_decode_state`` on the mesh makes it), rwkv6's ``wkv`` on hd_k
+    and mamba2's ``ssm`` on P, else their heads, and mamba2's conv window
+    on its slots where ``model`` divides them (rwkv6's ``last`` whole).
+    No mesh: the state and None."""
     B, S = shape.global_batch, shape.seq_len
     state = T.init_decode_state(cfg, B, S, dtype, device=_META)
     if mesh is None:
@@ -337,7 +339,7 @@ def cache_specs(cfg, shape, mesh, dtype=torch.bfloat16):
     def place(c):
         if not isinstance(c, KVCache):
             return c, tr.map_leaves(lambda leaf: _batch_sharding(
-                mesh, axes, len(getattr(leaf, "shape", ()))), c)
+                mesh, axes, leaf.ndim, cache_split_dim(leaf.shape, mesh)), c)
         split = cache_split_dim(c.k.shape, mesh)
         kv = _batch_sharding(mesh, axes, c.k.ndim, split)
         whole = _batch_sharding(mesh, (), 0)

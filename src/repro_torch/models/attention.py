@@ -36,8 +36,9 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from repro_torch.dist.sharding import (cache_split_dim, gather_blocks,
-                                       mesh_coord, mesh_sizes)
+from repro_torch.dist.sharding import (cache_slice_shape, cache_split_dim,
+                                       gather_blocks, mesh_coord,
+                                       mesh_sizes)
 
 from .layers import (apply_rope, init_rms, normal, rms_norm, tp_matmul,
                      tp_project)
@@ -273,11 +274,9 @@ def init_cache(B: int, S_max: int, cfg, dtype, device, mesh=None
     """Zeros for ``B`` rows and ``S_max`` slots; on a mesh, the rank's
     slice over ``model`` by the reference's rule: its ``KV / model``
     heads, else its ``S_max / model`` slots, else every one."""
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
-    shape = [B, S_max, KV, hd]
-    split = cache_split_dim(shape, mesh)
-    if split is not None:
-        shape[split] //= mesh_sizes(mesh)["model"]
+    whole = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
+    split = cache_split_dim(whole, mesh)
+    shape = cache_slice_shape(whole, mesh)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    pos=0, split=split)

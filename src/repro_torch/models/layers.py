@@ -10,9 +10,11 @@ turns them on (``model.requires_grad_(True)``).
 On a mesh a part whose weights stay where ``make_shardings`` puts them
 carries a :class:`Split` (``p.tp``): each rank multiplies with its slice
 of each weight (:func:`tp_project`, :func:`tp_matmul`) and the partial
-products are summed over ``model``.  The dense MLP takes the rank's
-columns of ``up``/``gate`` and its rows of ``down`` and sums once;
-:func:`cross_entropy_sum` takes a rank's slice of the vocabulary."""
+products are summed over ``model``.  The dense MLP (and rwkv6's channel
+mix) takes the rank's columns of ``up``/``gate`` and its rows of
+``down`` and sums once; :func:`rms_norm_split` normalises a rank's block
+of a dimension over the whole of it; :func:`cross_entropy_sum` takes a
+rank's slice of the vocabulary."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +32,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, sp: "Split",
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` over the whole last dimension, of which ``x`` and
+    ``scale`` are this rank's block (cut into ``sp.m``): the sums of
+    squares of the blocks added up over ``model`` in rank order, in
+    float32 (``sum_partials``).  Each rank's sum is a partial of the
+    whole, so the backward hands each the whole gradient of the sum, as
+    the shares of it every rank holds add up to."""
+    from repro_torch.dist.sharding import sum_partials
+    xf = x.float()
+    var = sum_partials(xf.square().sum(dim=-1, keepdim=True), sp.mesh) \
+        / (x.shape[-1] * sp.m)
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
 
@@ -88,6 +106,25 @@ class Split:
         return slice(self.r * (n // self.m), (self.r + 1) * (n // self.m))
 
 
+def tp_reduce(ys: Sequence[torch.Tensor], sp: Split, split: bool
+              ) -> List[torch.Tensor]:
+    """The partial products ``ys`` (…, N_i) of the ranks along ``model``
+    added up in rank order: with ``split`` this rank's block of each
+    one's last dimension (cut into ``m``), all of them in one
+    reduce-scatter (each one's blocks for rank j side by side), else each
+    one whole, all of them in one all-reduce (of ``ys[0]``'s dtype)."""
+    from repro_torch.dist.sharding import scatter_partials, sum_partials
+    if not ys:
+        return []
+    if split:
+        parts = [y.unflatten(-1, (sp.m, y.shape[-1] // sp.m)) for y in ys]
+        got = scatter_partials(torch.cat(parts, -1).flatten(-2), sp.mesh)
+        return list(got.split([p.shape[-1] for p in parts], -1))
+    got = sum_partials(torch.cat([y.to(ys[0].dtype) for y in ys], -1),
+                       sp.mesh)
+    return list(got.split([y.shape[-1] for y in ys], -1))
+
+
 def tp_project(x: torch.Tensor, sp: Split,
                specs: Sequence[Tuple[str, torch.Tensor, bool]]
                ) -> List[torch.Tensor]:
@@ -98,13 +135,12 @@ def tp_project(x: torch.Tensor, sp: Split,
     its columns gives its block with no transfer; one split on its rows
     multiplies the rank's slice of ``x`` and the partial products are
     reduce-scattered onto the blocks, or summed, over ``model``, the
-    products of one kind in one collective; a whole weight multiplies
-    its block of columns.  Columns split for the whole product are
-    gathered.  A stack of weights (…, K, N) multiplies a stack of
-    activations batched (the MoE experts' buffers), ``name``'s
+    products of one kind in one collective (:func:`tp_reduce`); a whole
+    weight multiplies its block of columns.  Columns split for the whole
+    product are gathered.  A stack of weights (…, K, N) multiplies a
+    stack of activations batched (the MoE experts' buffers), ``name``'s
     dimension then that of one matrix of the stack."""
-    from repro_torch.dist.sharding import (gather_blocks, scatter_partials,
-                                           sum_partials)
+    from repro_torch.dist.sharding import gather_blocks
     out: List[Optional[torch.Tensor]] = [None] * len(specs)
     pending = {True: [], False: []}
     for i, (name, w, split) in enumerate(specs):
@@ -117,19 +153,9 @@ def tp_project(x: torch.Tensor, sp: Split,
             pending[split].append((i, x[..., sp.block(x.shape[-1])] @ w))
         else:
             out[i] = x @ (w[..., sp.block(w.shape[-1])] if split else w)
-    if pending[True]:
-        # one reduce-scatter: each product's blocks for rank j side by side
-        parts = [y.unflatten(-1, (sp.m, y.shape[-1] // sp.m))
-                 for _, y in pending[True]]
-        got = scatter_partials(torch.cat(parts, -1).flatten(-2), sp.mesh)
-        for (i, _), y in zip(pending[True], got.split(
-                [p.shape[-1] for p in parts], -1)):
-            out[i] = y
-    if pending[False]:                  # one all-reduce of them all
-        got = sum_partials(torch.cat([y for _, y in pending[False]], -1),
-                           sp.mesh)
-        for (i, _), y in zip(pending[False], got.split(
-                [y.shape[-1] for _, y in pending[False]], -1)):
+    for split, done in pending.items():
+        for (i, _), y in zip(done, tp_reduce([y for _, y in done], sp,
+                                             split)):
             out[i] = y
     return out
 
@@ -174,21 +200,26 @@ def _act(h: torch.Tensor, g: Optional[torch.Tensor], act: str
     raise ValueError(act)
 
 
-def mlp(x: torch.Tensor, p, act: str) -> torch.Tensor:
-    """The MLP; with ``p.tp`` on the rank's columns of ``up``/``gate``
-    (the hidden width cut into ``model`` where it divides, else whole)
-    and its rows of ``down``, the partial products summed once over
-    ``model``."""
+def mlp(x: torch.Tensor, p, act: str, up: str = "up", gate: str = "gate",
+        down: str = "down") -> torch.Tensor:
+    """The MLP of ``p``'s weights named ``up``, ``gate`` (gated SiLU
+    only) and ``down``; with ``p.tp`` on the rank's columns of
+    ``up``/``gate`` (the hidden width cut into ``model`` where it
+    divides, else whole) and its rows of ``down``, the partial products
+    summed once over ``model``."""
+    w_up, w_down = getattr(p, up), getattr(p, down)
+    w_gate = getattr(p, gate) if act == "silu" else None
     sp = getattr(p, "tp", None)
     if sp is None:
-        return _act(x @ p.up, x @ p.gate if act == "silu" else None,
-                    act) @ p.down
-    hidden = p.up.shape[1] * (sp.m if sp.dims.get("up") == 1 else 1)
+        return _act(x @ w_up, None if w_gate is None else x @ w_gate,
+                    act) @ w_down
+    hidden = w_up.shape[1] * (sp.m if sp.dims.get(up) == 1 else 1)
     split = hidden % sp.m == 0
-    names = ("up", "gate") if act == "silu" else ("up",)
-    hs = tp_project(x, sp, [(n, getattr(p, n), split) for n in names])
-    return tp_matmul(_act(hs[0], hs[-1] if act == "silu" else None, act),
-                     "down", p.down, sp, split)
+    specs = [(up, w_up, split)] + ([] if w_gate is None else
+                                   [(gate, w_gate, split)])
+    hs = tp_project(x, sp, specs)
+    return tp_matmul(_act(hs[0], hs[-1] if w_gate is not None else None,
+                          act), down, w_down, sp, split)
 
 
 # --- Embedding ---------------------------------------------------------------

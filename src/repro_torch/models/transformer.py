@@ -39,20 +39,27 @@ holds them (``layers.Split.take``): the expert-parallel dispatch the
 rank's ``E / model`` experts, re-cut from where ``make_shardings`` puts
 them by one all-to-all; ``moe_tp_fused`` their slices of the hidden
 width; ``moe_local`` multiplies the slices in place, its aux loss summed
-over the rows' axes.  What stays gathered at use, one block at a time
-and in one transfer (``dist.sharding.gather_model``): the norms, the MoE
-router, rwkv6's and mamba2's blocks, musicgen's codebook heads where the
-rule splits their ``d``, and a tied embedding whose vocabulary ``model``
-does not divide (its logits and loss then whole on every rank); under
+over the rows' axes.  rwkv6's time mix and mamba2 take their slices the
+same way and run on the rank's block of heads where ``model`` divides
+them (``models.ssm``), and rwkv6's channel mix is the dense MLP's
+pattern.  What stays gathered at use, one block at a time and in one
+transfer (``dist.sharding.gather_model``): the norms, the MoE router,
+the channel mix's ``mu``, rwkv6's and mamba2's blocks where ``model``
+divides none of their heads, musicgen's codebook heads where the rule
+splits their ``d``, and a tied embedding whose vocabulary ``model`` does
+not divide (its logits and loss then whole on every rank); under
 ``cfg.ddp`` every weight.  A model sharded at rest
 (``convert.shard_params``) holds each rank's slices; a whole model on a
 mesh cuts the same slices of its weights at use, with the same bits.
 Context-parallel attention splits the query blocks over ``model``.  The
-decode state holds a rank's rows, each KV cache split over ``model`` by
-the reference's rule (``init_decode_state(..., mesh=)``): its KV heads
-when ``model`` divides them, which are then the heads the rank attends
-with, else its length, and decode attention runs over the rank's heads
-or slots (``attention.decode_attention``).
+decode state holds a rank's rows, each KV cache and recurrent state
+split over ``model`` by the reference's rule (``init_decode_state(...,
+mesh=)``): a KV cache's heads when ``model`` divides them, which are
+then the heads the rank attends with, else its length, and decode
+attention runs over the rank's heads or slots
+(``attention.decode_attention``); rwkv6's ``wkv`` on every head's slice
+of hd_k and mamba2's ``ssm`` on every head's slice of P (else their
+heads), and the decode steps run on those slices (``models.ssm``).
 
 Gradients on a mesh pass every collective as its transpose
 (``dist.sharding``).  ``loss_fn`` sums the token losses of a rank's rows
@@ -93,10 +100,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.dist.sharding import (act_axes, batch_axes_of,
-                                       gather_blocks, gather_model,
-                                       local_rows, mesh_coord, mesh_sizes,
-                                       recut, recut_many, shard_act,
-                                       split_dims, sum_over, sum_partials)
+                                       cache_slice_shape, gather_blocks,
+                                       gather_model, local_rows, mesh_coord,
+                                       mesh_sizes, recut, recut_many,
+                                       shard_act, split_dims, sum_over,
+                                       sum_partials)
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -155,6 +163,8 @@ class RWKVBlock(nn.Module):
 
 
 def _apply_rwkv_block(x, p, cfg):
+    """The time and channel mixes (on a mesh each on the rank's slices of
+    its weights that its part's ``Split`` gives: ``models.ssm``)."""
     h = ssm_mod.rwkv6(rms_norm(x, p.ln1), p.time, cfg)
     x = x + h
     xn = rms_norm(x, p.ln2)
@@ -171,6 +181,8 @@ class MambaBlock(nn.Module):
 
 
 def _apply_mamba_block(x, p, cfg):
+    """mamba2 (on a mesh on the rank's slices of its weights that its
+    part's ``Split`` gives: ``models.ssm``)."""
     return x + ssm_mod.mamba2(rms_norm(x, p.ln), p.mamba, cfg), 0.0
 
 
@@ -268,9 +280,11 @@ def _moe(x, p, cfg, mesh, data_axes, rows):
 # ---------------------------------------------------------------------------
 
 # the weights a tensor-parallel block multiplies where they lie, by part
-_TP = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("up", "gate", "down")}
+_TP = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("up", "gate", "down"),
+       "chan": ("wk", "wv")}
 # the weights a part takes where its layout needs them (``Split.take``)
-_TAKEN = {"moe": ("up", "gate", "down")}
+_TAKEN = {"moe": ("up", "gate", "down"), "time": ssm_mod._TIME,
+          "mamba": ssm_mod._MAMBA}
 
 
 def _namespace(mod, values, path: str, only):
@@ -298,9 +312,10 @@ class _Held:
     weights ``_TP`` names, a V-split head and the embedding (see the
     module's docstring) are this rank's slices, and a part holding them
     carries their :class:`~repro_torch.models.layers.Split` as ``tp``;
-    the weights ``_TAKEN`` names are handed out as held, and the part's
-    ``Split.take`` gives the layer its slices split where it needs them;
-    every other split weight is gathered whole over ``model`` in one
+    the weights ``_TAKEN`` names (the MoE experts, rwkv6's time mix,
+    mamba2) are handed out as held, and the part's ``Split.take`` gives
+    the layer its slices split where it needs them, or whole; every
+    other split weight is gathered whole over ``model`` in one
     transfer, freed when the caller drops the namespace.  A model
     sharded at rest holds the slices; a whole model's are cut from its
     weights (contiguous copies, so the products are the at-rest ones)."""
@@ -339,8 +354,6 @@ class _Held:
         owner, _, leaf = name.rpartition(".")
         if leaf in _TP.get(owner, ()):
             return self._slice(t, dim), owner, leaf, dim
-        if leaf in _TAKEN.get(owner, ()):
-            return t, owner, leaf, dim
         if owner:
             return None
         if (name, dim) in (("head", 1), ("heads", 2)):
@@ -367,7 +380,7 @@ class _Held:
         out, moves, wholes = {}, [], []
         for n, dst in want.items():
             t, src = held[n]
-            if not self.at_rest:
+            if not self.at_rest or src is None:
                 out[n] = t if dst is None else self._slice(t, src, at=dst)
             elif dst == src:
                 out[n] = t
@@ -389,6 +402,13 @@ class _Held:
         values, splits, gather, held = {}, {}, [], {}
         for n, t in mod.named_parameters(recurse=only is None):
             dim = self.dims.get(prefix + n)
+            owner, _, leaf = n.rpartition(".")
+            if self.tp and leaf in _TAKEN.get(owner, ()):
+                # handed out as held (a slice on ``dim``, or whole)
+                held.setdefault(owner, {})[leaf] = (t, dim)
+                if dim is not None:
+                    splits.setdefault(owner, {})[leaf] = dim
+                continue
             if dim is None or (only is not None and n not in only):
                 continue
             got = self._local(n, t, dim) if self.tp else None
@@ -397,7 +417,6 @@ class _Held:
                 continue
             values[n], owner, leaf, d = got
             splits.setdefault(owner, {})[leaf] = d
-            held.setdefault(owner, {})[leaf] = (values[n], d)
         if gather and self.at_rest:
             values.update(zip([n for n, _, _ in gather], gather_model(
                 [t for _, t, _ in gather], [d for _, _, d in gather],
@@ -601,13 +620,20 @@ def init_decode_state(cfg, B: int, cache_len: int, dtype, device=None,
     """The decode state of ``B`` sequences over ``cache_len`` slots (a
     sliding window's ring: the window's).  On a mesh ``B`` is the whole
     batch and the state holds the rank's slice: its rows
-    (``dist.sharding.local_rows``), and of each KV cache the part the
-    reference's rule puts on its ``model`` index (``init_cache``)."""
+    (``dist.sharding.local_rows``), and of each KV cache and recurrent
+    state the part the reference's rule puts on its ``model`` index
+    (``init_cache``; ``dist.sharding.cache_split_dim``: rwkv6's ``wkv``
+    on hd_k, mamba2's ``ssm`` on P, else their heads; mamba2's conv
+    window on its 3 slots where ``model`` divides them)."""
     dev = resolve_device(device)
     L = cfg.n_layers
     if mesh is not None:
         rows = local_rows(B, mesh)
         B = rows.stop - rows.start
+
+    def zeros(shape, dt):
+        return torch.zeros(cache_slice_shape(shape, mesh), dtype=dt,
+                           device=dev)
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         S = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
             else cache_len
@@ -616,18 +642,15 @@ def init_decode_state(cfg, B: int, cache_len: int, dtype, device=None,
     if cfg.family == "ssm":
         hd = cfg.d_model // cfg.n_heads
         return DecodeState([ssm_mod.RWKVState(
-            wkv=torch.zeros((B, cfg.n_heads, hd, hd), dtype=torch.float32,
-                            device=dev),
-            last=torch.zeros((B, cfg.d_model), dtype=torch.float32,
-                             device=dev)) for _ in range(L)], None, 0)
+            wkv=zeros((B, cfg.n_heads, hd, hd), torch.float32),
+            last=zeros((B, cfg.d_model), torch.float32))
+            for _ in range(L)], None, 0)
     if cfg.family == "hybrid":
         di = 2 * cfg.d_model
         hd = di // cfg.ssm_heads
         caches = [ssm_mod.MambaState(
-            ssm=torch.zeros((B, cfg.ssm_heads, hd, cfg.ssm_state),
-                            dtype=torch.float32, device=dev),
-            conv=torch.zeros((B, 3, di + 2 * cfg.ssm_state),
-                             dtype=_dtype(cfg), device=dev))
+            ssm=zeros((B, cfg.ssm_heads, hd, cfg.ssm_state), torch.float32),
+            conv=zeros((B, 3, di + 2 * cfg.ssm_state), _dtype(cfg)))
             for _ in range(L)]
         n_sh = cfg.n_layers // cfg.attn_every
         return DecodeState(caches, [init_cache(B, cache_len, cfg, dtype, dev,
@@ -643,8 +666,9 @@ def decode_step(model: Transformer, state: DecodeState,
     D)}.  Returns (logits, new state); the KV caches are updated in
     place.  On a mesh every rank passes the whole batch and gets the
     logits of its rows, and ``state`` holds this rank's slice: its rows,
-    those ``shard_act`` gives it, and of each KV cache its part over
-    ``model`` (:func:`init_decode_state` with the mesh)."""
+    those ``shard_act`` gives it, and of each KV cache and recurrent
+    state its part over ``model`` (:func:`init_decode_state` with the
+    mesh)."""
     parts = _Held(model, cfg, mesh)
     inputs, rows = _on_mesh(inputs, mesh)
     first, head = parts.top()
@@ -676,7 +700,7 @@ def decode_step(model: Transformer, state: DecodeState,
         for i, (p, st) in enumerate(zip(model.blocks, state.caches)):
             p = parts.part(p, f"blocks.{i}.")
             a, new_st = ssm_mod.rwkv6_decode(rms_norm(x, p.ln1), p.time,
-                                             cfg, st)
+                                             cfg, st, mesh)
             x = x + a
             xn = rms_norm(x, p.ln2)
             # decode-time token shift: the channel mix gets a zero shift,
@@ -692,7 +716,7 @@ def decode_step(model: Transformer, state: DecodeState,
             for i in range(g * every, (g + 1) * every):
                 p = parts.part(model.blocks[i], f"blocks.{i}.")
                 out, st = ssm_mod.mamba2_decode(rms_norm(x, p.ln), p.mamba,
-                                                cfg, state.caches[i])
+                                                cfg, state.caches[i], mesh)
                 x = x + out
                 caches.append(st)
             sh = parts.part(model.shared, "shared.")

@@ -8,8 +8,10 @@ device, where nothing is allocated.
   ``jax.sharding.Mesh`` built directly; a ``MeshLayout`` in the port):
   leaf shapes, dtypes and placements, for each family's smoke variant
   and each shape (token ids are int64 in the port, int32 in the
-  reference); every KV cache leaf placed as the reference's, and
-  ``init_decode_state`` on the mesh holding that slice;
+  reference); every decode-state leaf (KV caches, rwkv6's and mamba2's
+  recurrent states) placed as the reference's, and
+  ``init_decode_state`` on the mesh holding that slice, on (2, 4) and,
+  where the rule splits mamba2's conv window, on (1, 3);
 - (ii) ``op_cost``'s ``dot_flops`` of the train, prefill and decode
   steps against the dot FLOPs of the reference's compiled steps (its
   ``hlo_cost`` walk, counting only ``dot`` instructions through
@@ -160,15 +162,23 @@ def test_specs_equal_the_reference(family, shape_name):
             assert _dtype_name(t) == str(v.dtype), k
         assert tsh[k].spec(t.ndim) == _ref_spec(v.sharding, t.ndim), k
     # the decode state: a layer's leaf against the reference's stacked
-    # (L, …) leaf.  A KV cache is placed as the reference places it (the
-    # batch over the data axes, its heads, else its length, over
-    # ``model``), and ``init_decode_state`` on the mesh holds that slice.
-    # The recurrent states of rwkv6 and mamba2 keep every head of a rank's
-    # rows, where the reference also splits them over ``model``: the slice
-    # queued after this one (ROADMAP queue 1)
-    if kind != "decode":
-        return
-    jst = JS.cache_specs(jc, JSHAPES[shape_name], jmesh)
+    # (L, …) leaf, every leaf placed as the reference places it (the
+    # batch over the data axes; over ``model`` a KV cache's heads, else
+    # its length, rwkv6's ``wkv`` on hd_k and mamba2's ``ssm`` on P, else
+    # their heads), and ``init_decode_state`` on the mesh holding that
+    # slice
+    if kind == "decode":
+        _same_decode_state(jc, tc, JSHAPES[shape_name], shape, jmesh,
+                           layout)
+
+
+def _same_decode_state(jc, tc, jshape, shape, jmesh, layout):
+    """The port's ``cache_specs`` and ``init_decode_state`` on ``layout``
+    against the reference's ``cache_specs`` on ``jmesh``, leaf by leaf:
+    shape, dtype, placement (the reference's rule), the cut slice's shape
+    and the held slice's, and a KV cache's ``split``."""
+    model = dict(zip(layout.names, layout.sizes))["model"]
+    jst = JS.cache_specs(jc, jshape, jmesh)
     st, sh = S.cache_specs(tc, shape, layout)
     held = T.init_decode_state(tc, shape.global_batch, shape.seq_len,
                                torch.bfloat16, device="meta", mesh=layout)
@@ -186,7 +196,7 @@ def test_specs_equal_the_reference(family, shape_name):
             assert len(mine) == r.shape[0], (group, field)
             rspec = _ref_spec(r.sharding, r.ndim)
             assert rspec[0] == (), (group, field)
-            assert rspec[2:] == _reference_cache_rule(r.shape[1:], 4), (
+            assert rspec[2:] == _reference_cache_rule(r.shape[1:], model), (
                 group, field)
             shard = tuple(r.sharding.shard_shape(r.shape)[1:])
             for layer, layer_sh, own in zip(mine, mine_sh,
@@ -194,26 +204,46 @@ def test_specs_equal_the_reference(family, shape_name):
                 t, tsh_ = getattr(layer, field), getattr(layer_sh, field)
                 assert tuple(t.shape) == tuple(r.shape[1:]), (group, field)
                 assert _dtype_name(t) == str(r.dtype), (group, field)
-                cut = tuple(S.sharded_specs(t, tsh_).shape)
+                assert tsh_.spec(t.ndim) == rspec[1:], (group, field)
+                assert tuple(S.sharded_specs(t, tsh_).shape) == shard, (
+                    group, field)
+                assert tuple(getattr(own, field).shape) == shard, (
+                    group, field)
                 if kv:
-                    assert tsh_.spec(t.ndim) == rspec[1:], (group, field)
-                    assert cut == shard, (group, field)
-                    assert tuple(getattr(own, field).shape) == shard
                     split = 2 if rspec[3] else 1 if rspec[2] else None
-                    assert own.split == layer.split == split, (group, field)
-                    continue
-                assert tsh_.spec(t.ndim) == [rspec[1]] + [()] * (
-                    t.ndim - 1), (group, field)
-                assert cut == (shard[0],) + tuple(t.shape[1:]), (group,
-                                                                 field)
+                    assert own.split == layer.split == split, (group,
+                                                               field)
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_recurrent_states_on_model_3(family):
+    """On a (1, 3) mesh the rule splits mamba2's conv window on its 3
+    slots (and rwkv6's and mamba2's states, whose dimensions 3 does not
+    divide, stay whole): the port's decode state against the reference's
+    on a (1, 3) ``Mesh``, and a decode step reckoned on it (the window
+    gathered for the step, the rank's slot kept)."""
+    jc, tc = configs(FAMILIES[family], "bfloat16")
+    jmesh = _jmesh((1, 3))
+    shape = ShapeConfig("decode", 8, 2, "decode")
+    for rank in range(3):
+        layout = MeshLayout.of_rank(NAMES, (1, 3), rank)
+        _same_decode_state(jc, tc, JShape("decode", 8, 2, "decode"), shape,
+                           jmesh, layout)
+    held = T.init_decode_state(tc, 2, 8, torch.bfloat16, device="meta",
+                               mesh=layout)
+    rec = dryrun.reckon(tc, shape, layout)
+    assert rec["flops_per_device"] > 0
+    if family == "hybrid":
+        assert tuple(held.caches[0].conv.shape) == (2, 1, 160)
+        assert rec["collective_bytes_by_axis"]["model"] > 0
 
 
 def _reference_cache_rule(shape, model):
     """The reference's placement of a decode-state leaf's dimensions
     after the batch (``repro/launch/steps.py``'s ``cache_specs``, on a
-    layer's ``shape``): a 4-D leaf splits its KV heads (dimension 2) over
-    ``model`` when they divide, else its length (dimension 1); a 3-D
-    leaf dimension 1."""
+    layer's ``shape``): a 4-D leaf splits its dimension 2 (KV heads,
+    hd_k, P) over ``model`` when it divides, else its dimension 1
+    (length, heads); a 3-D leaf dimension 1."""
     spec = [()] * (len(shape) - 1)
     if len(shape) == 4 and shape[2] % model == 0:
         spec[1] = ("model",)

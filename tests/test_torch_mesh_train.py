@@ -11,8 +11,9 @@ Everything is float32 at smoke size and within ``F32``
 - The loss and every gradient leaf, put together whole from the ranks'
   slices, against the reference's ``value_and_grad(loss_fn)`` on the
   mesh: dense, the expert-parallel MoE dispatch (granite, recomputed
-  under remat ``full``; mixtral, Adafactor's model), the hybrid's shared
-  block, ``ddp``,
+  under remat ``full``; mixtral, Adafactor's model), zamba2's mamba2
+  blocks on a rank's heads and its shared block, rwkv6's time and
+  channel mixes on a rank's heads, ``ddp``,
   context-parallel attention at S > block, and granite with
   ``moe_tp_fused`` at a sequence ``model`` does not divide (so the layer
   takes the tensor-parallel layout, not the expert-parallel one).  On a
@@ -162,11 +163,12 @@ def test_vocab_parallel_loss_equals_the_reference(pool, V):
     ("granite-moe-1b-a400m", {"remat": "full"}, 4, 16),
     ("mixtral-8x22b", {}, 4, 16),
     ("zamba2-2.7b", {}, 4, 16),
+    ("rwkv6-1.6b", {}, 4, 16),
     ("llama3.2-1b", {"ddp": True}, 8, 16),
     ("qwen3-14b", {"attn_context_parallel": True}, 2, 4096),
     ("granite-moe-1b-a400m", {"moe_tp_fused": True, "remat": "full"}, 4, 18),
-], ids=["dense", "moe-ep-remat", "adafactor-model", "hybrid", "ddp", "cp",
-        "moe-tp-remat"])
+], ids=["dense", "moe-ep-remat", "adafactor-model", "hybrid", "ssm", "ddp",
+        "cp", "moe-tp-remat"])
 def test_gradients_on_a_mesh_equal_the_reference(pool, arch, kw, B, S):
     jc, _ = configs(arch, "float32")
     jc = dataclasses.replace(jc, **kw)

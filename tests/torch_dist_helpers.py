@@ -834,9 +834,9 @@ def mesh_train_errors_job():
 
 def _greedy(model, st, tok, cfg, mesh, steps):
     """``steps`` greedy decode steps from ``tok`` (the whole batch): each
-    step's logits of this rank's rows and the whole batch's tokens, and
-    the bytes this rank's transport carried in the first step's
-    ``decode_step`` (sent, received)."""
+    step's logits of this rank's rows and the whole batch's tokens, the
+    bytes this rank's transport carried in the first step's
+    ``decode_step`` (sent, received), and the last state."""
     import torch
     from repro_torch.core import comm
     from repro_torch.dist.sharding import gather_rows
@@ -851,7 +851,7 @@ def _greedy(model, st, tok, cfg, mesh, steps):
             wire = wire or [w.sent, w.received]
             tok = gather_rows(logits[:, -1].argmax(-1), mesh, B)[:, None]
             out.append((_f32(logits), tok[:, 0].numpy()))
-    return out, wire
+    return out, wire, st
 
 
 def mesh_moe_job(arch, cfg_kw, tree, layout, tasks):
@@ -938,7 +938,8 @@ def mesh_moe_job(arch, cfg_kw, tree, layout, tasks):
             B = tok.shape[0]
             st = T.init_decode_state(cfg, B, feed["cache_len"],
                                      torch.float32, device="cpu", mesh=mesh)
-            steps, wire = _greedy(model, st, tok, cfg, mesh, feed["steps"])
+            steps, wire, _ = _greedy(model, st, tok, cfg, mesh,
+                                     feed["steps"])
             rows = local_rows(B, mesh)
             out.append(((rows.start, rows.stop), steps, wire,
                         reckoned("decode", feed["cache_len"], B,
@@ -960,4 +961,81 @@ def mesh_moe_job(arch, cfg_kw, tree, layout, tasks):
                     tok = gather_rows(nxt, mesh, B)[:, None]
                     toks.append(tok[:, 0].numpy())
             out.append(np.stack(toks))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rwkv6 and mamba2 on a (data, model) mesh (run in the ranks)
+# ---------------------------------------------------------------------------
+
+
+def mesh_ssm_job(arch, tree, layout, prefill, decode):
+    """The float32 smoke config of ``arch`` (rwkv6, zamba2) on the
+    ``layout`` mesh of the first d·m ranks (None on the others, which
+    only join the making of the mesh), sharded at rest from the
+    reference's weights ``tree``:
+
+    - ``"prefill"``: this rank's rows as (start, stop), ``forward``'s
+      logits of them on ``prefill["tokens"]``, the shapes of the weights
+      it gathered whole (``gather_model``), and the bytes the prefill
+      step sent and received beside ``launch.dryrun.reckon``'s for the
+      rank's ``MeshLayout``;
+    - ``"decode"``: greedy decode from ``decode["tokens"]`` over a
+      float32 state of ``decode["cache_len"]`` slots for
+      ``decode["steps"]`` steps: each step's logits of the rank's rows
+      and the tokens, each layer's recurrent state as the rank holds it
+      after the last step, the shapes gathered, and the first step's
+      bytes beside the dry-run's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.dist.sharding import MeshLayout, local_rows
+    from repro_torch.launch import dryrun, steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+    cfg = smoke_cfg(arch, "float32")
+    mesh = model_mesh(layout)
+    if dist.get_rank() >= layout[0] * layout[1]:
+        return None
+    here = MeshLayout.of_rank(("data", "model"), layout, dist.get_rank())
+
+    def reckoned(kind, seq, batch):
+        rec = dryrun.reckon(cfg, ShapeConfig(kind, seq, batch, kind), here,
+                            cache_dtype=torch.float32)
+        return [rec["sent_bytes_per_device"],
+                rec["received_bytes_per_device"]]
+
+    model = params_from_jax(cfg, tree, device="cpu", mesh=mesh)
+    gathered, real = [], T.gather_model
+
+    def spy(ts, *a, **k):
+        gathered.extend(tuple(t.shape) for t in ts)
+        return real(ts, *a, **k)
+    out = {}
+    T.gather_model = spy
+    try:
+        tok = torch.from_numpy(prefill["tokens"]).long()
+        B, Sq = tok.shape
+        with torch.inference_mode():
+            logits, _ = T.forward(model, {"tokens": tok}, cfg, mesh,
+                                  ("data",))
+            with comm.count_wire() as w:
+                S.make_prefill_step(cfg, mesh)(model, {"tokens": tok})
+        rows = local_rows(B, mesh)
+        out["prefill"] = ((rows.start, rows.stop), _f32(logits),
+                          sorted(set(gathered)), [w.sent, w.received],
+                          reckoned("prefill", Sq, B))
+        gathered.clear()
+        tok = torch.from_numpy(decode["tokens"]).long()
+        B = tok.shape[0]
+        st = T.init_decode_state(cfg, B, decode["cache_len"], torch.float32,
+                                 device="cpu", mesh=mesh)
+        steps, wire, st = _greedy(model, st, tok, cfg, mesh,
+                                  decode["steps"])
+    finally:
+        T.gather_model = real
+    states = [{f: _f32(getattr(c, f)) for f in c._fields} for c in st.caches]
+    out["decode"] = (steps, states, sorted(set(gathered)), wire,
+                     reckoned("decode", decode["cache_len"], B))
     return out
